@@ -1,0 +1,285 @@
+"""RB2D training CLI on the PyTorch / CUDA port.
+
+Counterpart of ``experiments/rb2d/train.py``: the same data, model,
+loss, schedule and checkpoint flags, the same per-epoch line, the same
+non-finite and cliff-recovery handling, and per-epoch eval on a fixed
+val batch (through the CUDA decode kernel on a card). Each step's
+derivative jet runs the hand-written CUDA jet kernels
+(``space_time_pde_torch/csrc/fused_jet.cu``: forward, and backward in
+the gradient) on a card, their plain PyTorch twins on the CPU.
+Checkpoints are ``torch.save`` files under ``<log_dir>/checkpoints``.
+
+Example (on a machine with the card; the rb2d flagship's flags):
+    python experiments/rb2d/train_torch.py --data_folder data \
+        --train_data rb2d_ra1e6_s42.npz --val_data rb2d_ra1e6_s7.npz \
+        --nt 16 --nz 128 --nx 128 --downsamp_t 4 --downsamp_xz 8 \
+        --lat_dims 64 --unet_nf 32 --imnet_nf 64 \
+        --n_samp_pts_per_crop 1024 --batch_size_per_gpu 8 \
+        --inner_steps 8 --alpha_pde 0.1 --lr 5e-3 --lr_schedule cosine \
+        --pde_loss_type huber --epochs 900 --log_dir log/rb2d_torch
+
+Not carried over: ``--space_devices``, ``--sharded_encoder`` and
+``--multihost`` (the parallel slice), ``--profile_epoch`` (the JAX
+profiler) and ``--debug_nans``.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", ".."))
+
+import numpy as np
+import torch
+
+from space_time_pde_torch.data.dataset import RB2DataLoader
+from space_time_pde_torch.data.device_pipeline import DeviceSampler
+from space_time_pde_torch.data.prefetch import BatchPrefetcher
+from space_time_pde_torch.data.splits import check_train_files
+from space_time_pde_torch.physics.systems import (
+    available_systems, get_pde_layer)
+from space_time_pde_torch.train import (
+    CliffDetector, build_models, init_state, make_eval_fn, make_loss_fn,
+    make_multi_step, make_optimizer, make_train_step)
+from space_time_pde_torch.utils.checkpoint import CheckpointManager
+from space_time_pde_torch.utils.config import add_args, config_from_args
+from space_time_pde_torch.utils.logging import MetricsLogger
+
+
+def _loader(cfg, filename):
+    d = cfg.data
+    return RB2DataLoader(
+        data_folder=d.data_folder, data_filename=filename, nt=d.nt,
+        nz=d.nz, nx=d.nx, n_samp_pts_per_crop=d.n_samp_pts_per_crop,
+        downsamp_t=d.downsamp_t, downsamp_xz=d.downsamp_xz,
+        normalize_output=d.normalize_channels, lres_filter=d.lres_filter,
+        lres_interp=d.lres_interp, velonly=d.velonly)
+
+
+def _provenance(cfg, device, sampler) -> str:
+    derivs = cfg.train.pde_derivs
+    if cfg.train.alpha_pde <= 0:
+        jet = "none (alpha_pde 0)"
+    elif derivs == "jet" and cfg.model.fused_query:
+        jet = ("jet_fwd + jet_bwd (csrc/fused_jet.cu)"
+               if device.type == "cuda" else "jet_fwd_plain (CPU twin)")
+    else:
+        jet = f"{derivs} (plain PyTorch)"
+    decode = ("decode_blend_gather (csrc/fused_query.cu)"
+              if cfg.model.fused_query and device.type == "cuda"
+              else "plain PyTorch")
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    return (f"train provenance: device={device} ({name}) "
+            f"tf32_matmul={torch.backends.cuda.matmul.allow_tf32} "
+            f"tf32_cudnn={torch.backends.cudnn.allow_tf32} jet={jet} "
+            f"eval_decode={decode} batch_assembly="
+            f"{'device' if sampler is not None else 'host'}")
+
+
+def main(argv=None):
+    """Train; returns ``{"epochs": [per-epoch metrics], "start_epoch",
+    "step", "provenance"}``."""
+    parser = argparse.ArgumentParser(description=__doc__)
+    add_args(parser)
+    parser.add_argument("--inner_steps", type=int, default=1,
+                        help="optimizer steps per prefetched batch group")
+    parser.add_argument("--val_data", type=str, default="",
+                        help="validation-split npz (overrides --eval_data)")
+    parser.add_argument("--allow_split_leak", action="store_true",
+                        help="downgrade the held-out-seed-in-training-list "
+                             "error to a warning")
+    parser.add_argument(
+        "--device_data", type=lambda s: s.lower() in ("1", "true", "yes"),
+        default=True, metavar="BOOL",
+        help="assemble batches on the device (field uploaded once; the "
+             "host draws origins + points); off for filtered low-res")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; 'cpu' runs the kernels' plain "
+                             "PyTorch twins (tests, tiny models)")
+    args = parser.parse_args(argv)
+    cfg = config_from_args(args)
+    if args.val_data:
+        cfg.data.eval_data = args.val_data
+    if cfg.train.alpha_pde > 0 and \
+            cfg.physics.pde_system not in available_systems():
+        raise SystemExit(
+            f"unknown --pde_system {cfg.physics.pde_system!r}; "
+            f"available: {available_systems()}")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device here; --device cpu runs the plain "
+                         "PyTorch path")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if cfg.data.velonly:
+        cfg.model.out_channels = 2
+        if cfg.train.alpha_pde > 0:
+            raise SystemExit(
+                "--velonly predicts (u, w) only; the PDE residuals need "
+                "all 4 fields — set --alpha_pde 0")
+
+    check_train_files(cfg.data.train_data, eval_data=cfg.data.eval_data,
+                      allow_leak=args.allow_split_leak or None)
+    ds = _loader(cfg, cfg.data.train_data)
+    eval_ds = _loader(cfg, cfg.data.eval_data)
+    eval_ds.channel_mean = ds.channel_mean
+    eval_ds.channel_std = ds.channel_std
+
+    unet, imnet = build_models(cfg, ds.lres_shape, device)
+    et, ez, ex = ds.coord_extents
+    pde_layer = get_pde_layer(
+        cfg.physics.pde_system, mean=ds.channel_mean, std=ds.channel_std,
+        t_crop=et, z_crop=ez, x_crop=ex, rayleigh=cfg.physics.rayleigh,
+        prandtl=cfg.physics.prandtl, viscosity=cfg.physics.viscosity,
+    ) if cfg.train.alpha_pde > 0 else None
+
+    batch_per_step = cfg.train.batch_size_per_gpu
+    steps_per_epoch = max(1, cfg.train.pseudo_epoch_size // batch_per_step)
+    inner = max(1, args.inner_steps)
+    opt = make_optimizer(cfg, steps_per_epoch)
+    state = init_state(cfg.train.seed, unet, imnet, opt)
+    loss_fn = make_loss_fn(cfg, unet, imnet, pde_layer)
+    sampler = None
+    if args.device_data and DeviceSampler.supported(ds):
+        sampler = DeviceSampler(ds, device)
+        loss_fn = sampler.wrap_loss(loss_fn)
+
+    def build_step(opt):
+        if inner > 1:
+            return make_multi_step(loss_fn, opt, inner)
+        return make_train_step(loss_fn, opt)
+
+    step_fn = build_step(opt)
+    eval_fn = make_eval_fn(cfg, unet, imnet)
+    provenance = _provenance(cfg, device, sampler)
+    print(provenance, flush=True)
+
+    ckpt_dir = os.path.join(cfg.train.log_dir, "checkpoints")
+    mngr = CheckpointManager(ckpt_dir, keep=cfg.train.keep_checkpoints)
+    start_epoch = 0
+    if cfg.train.resume:
+        rmngr = (mngr if os.path.abspath(cfg.train.resume) ==
+                 os.path.abspath(ckpt_dir)
+                 else CheckpointManager(cfg.train.resume))
+        state, extra = rmngr.restore(state)
+        start_epoch = int(extra.get("epoch", 0)) + 1
+        print(f"resumed from step {state.step} (epoch {start_epoch})",
+              flush=True)
+
+    logger = MetricsLogger(cfg.train.log_dir, use_tensorboard=False)
+    rng = np.random.RandomState(cfg.train.seed)
+    eval_rng = np.random.RandomState(cfg.train.seed + 1)
+    eval_batch_host = eval_ds.sample_batch(eval_rng, batch_per_step)
+
+    def upload(host):
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in host.items()}
+
+    eval_batch = upload(eval_batch_host)
+
+    def one_batch():
+        if sampler is not None:
+            o, p = sampler.draw(rng, batch_per_step)
+            return {"origins": o, "point_coord": p}
+        return ds.sample_batch(rng, batch_per_step)
+
+    def make_raw():
+        if inner == 1:
+            return one_batch()
+        bs = [one_batch() for _ in range(inner)]
+        return {k: np.stack([b[k] for b in bs]) for k in bs[0]}
+
+    prefetcher = BatchPrefetcher(make_raw, depth=4)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    best_eval = float("inf")
+    lr_scale = 1.0
+    cliff = CliffDetector() if cfg.train.cliff_recovery else None
+    history = []
+    try:
+        for epoch in range(start_epoch, cfg.train.epochs):
+            t0 = time.time()
+            for _ in range(max(1, steps_per_epoch // inner)):
+                state, metrics = step_fn(state, upload(prefetcher.get()))
+            sync()
+            metrics = {k: float(v) for k, v in metrics.items()}
+            recover_reason = None
+            epoch_healthy = all(np.isfinite(v) for v in metrics.values())
+            if not epoch_healthy:
+                bad = sorted(k for k, v in metrics.items()
+                             if not np.isfinite(v))
+                params_ok = all(bool(torch.isfinite(p).all())
+                                for p in state.params().values())
+                if params_ok:
+                    # A skipped update (apply_if_finite) or a corrupted
+                    # device buffer: re-upload the field and eval batch.
+                    if sampler is not None:
+                        sampler.refresh()
+                    eval_batch = upload(eval_batch_host)
+                    print(f"epoch {epoch}: non-finite {bad} — update(s) "
+                          "skipped (apply_if_finite), params healthy; "
+                          "device buffers re-uploaded, continuing",
+                          flush=True)
+                else:
+                    recover_reason = f"non-finite params ({bad})"
+            if recover_reason is None and cliff is not None:
+                recover_reason = cliff.update(metrics)
+            if recover_reason is not None:
+                if cliff is None or mngr.latest_step() is None:
+                    raise SystemExit(
+                        f"{recover_reason} at epoch {epoch} and no healthy "
+                        "checkpoint to restore — lower --lr / --alpha_pde")
+                lr_scale *= cfg.train.recovery_lr_factor
+                opt = make_optimizer(cfg, steps_per_epoch, lr_scale=lr_scale)
+                step_fn = build_step(opt)
+                state, _ = mngr.restore(state)
+                cliff.reset()
+                print(f"epoch {epoch}: CLIFF RECOVERY — {recover_reason}; "
+                      f"restored step {state.step}, continuing with lr "
+                      f"x{lr_scale:g}", flush=True)
+                continue
+            sec_per_step = (time.time() - t0) / steps_per_epoch
+            metrics["sec_per_step"] = sec_per_step
+            metrics["pts_per_sec"] = (batch_per_step *
+                                      cfg.data.n_samp_pts_per_crop /
+                                      sec_per_step)
+            logger.log(state.step, metrics, prefix="train/")
+            em = {k: float(v) for k, v in eval_fn(eval_batch).items()
+                  if v.ndim == 0}
+            logger.log(state.step, em, prefix="eval/")
+            print(f"epoch {epoch}: loss={metrics.get('loss', 0):.5f} "
+                  f"reg={metrics.get('reg_loss', 0):.5f} "
+                  f"pde={metrics.get('pde_loss', 0):.5f} "
+                  f"eval_rel_l2={em.get('rel_l2', 0):.5f} "
+                  f"({sec_per_step:.3f}s/step)", flush=True)
+            history.append(dict(metrics, epoch=epoch, step=state.step,
+                                **{f"eval/{k}": v for k, v in em.items()}))
+            # Never checkpoint an unhealthy epoch: cliff recovery restores
+            # the latest checkpoint.
+            if epoch_healthy and (
+                    (epoch + 1) % cfg.train.ckpt_every_epochs == 0 or
+                    em.get("rel_l2", 1e9) < best_eval):
+                best_eval = min(best_eval, em.get("rel_l2", 1e9))
+                mngr.save(state.step, state, extra={
+                    "config": cfg.to_dict(),
+                    "epoch": epoch,
+                    "channel_mean": np.asarray(ds.channel_mean),
+                    "channel_std": np.asarray(ds.channel_std),
+                    "coord_extents": np.asarray(ds.coord_extents),
+                    "best_eval": float(best_eval),
+                })
+    finally:
+        prefetcher.close()
+        logger.close()
+    return {"epochs": history, "start_epoch": start_epoch,
+            "step": state.step, "provenance": provenance}
+
+
+if __name__ == "__main__":
+    main()

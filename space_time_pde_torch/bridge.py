@@ -23,14 +23,16 @@ module reads and writes that file with numpy alone.
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Mapping, Optional
+import math
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 __all__ = ["flatten_tree", "unflatten_tree", "state_dict_from_flax",
-           "load_flax_params", "save_exported", "load_exported"]
+           "load_flax_params", "save_exported", "load_exported",
+           "seeded_flax_params"]
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -160,3 +162,30 @@ def load_exported(path: str) -> Dict[str, Any]:
         "channel_std": flat["channel_std"],
         "step": int(flat["step"]),
     }
+
+
+def seeded_flax_params(shapes: Mapping[str, Sequence[int]],
+                       seed: int) -> Dict:
+    """A flax-layout param tree (``{"a/b/kernel": shape}`` -> nested
+    numpy f32) drawn from a numpy seed in sorted path order, so that
+    both packages build the same weights without shipping them. Kernels
+    are unit normals clipped to [-2, 2] and scaled to variance ~1 /
+    fan_in (flax's lecun-normal shape; fan_in = all but the last axis),
+    GroupNorm scales 1 + 0.01 N, biases 0.01 N (non-zero, so that the
+    bias paths carry gradients)."""
+    rng = np.random.RandomState(seed)
+    flat = {}
+    for path in sorted(shapes):
+        shape = tuple(int(s) for s in shapes[path])
+        x = rng.standard_normal(shape)
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            x = np.clip(x, -2.0, 2.0) * (math.sqrt(1.0 / fan_in)
+                                         / 0.87962566103423978)
+        elif leaf == "scale":
+            x = 1.0 + 0.01 * x
+        else:
+            x = 0.01 * x
+        flat[path] = x.astype(np.float32)
+    return unflatten_tree(flat)

@@ -179,7 +179,8 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536):
     cell, frac = _locate(torch.from_numpy(pts).to(device), spatial, 0.0, 1.0)
     cell_flat = _flat_cells(cell, spatial)
     chunks = list(zip(cell_flat.split(chunk), frac.split(chunk)))
-    packed = pack_imnet_params(imnet)
+    with torch.no_grad():
+        packed = pack_imnet_params(imnet)
     common = dict(nf=imnet.nf, activation=imnet.activation,
                   negative_slope=imnet.negative_slope)
 

@@ -19,7 +19,9 @@ What has to match the flax model exactly:
 - the transposed-conv kernel is the flax kernel flipped in space
   (flax convolves, torch cross-correlates) — done by ``bridge.py``.
 
-Eval only: there is no train mode (slice 2 brings training).
+Trains with GroupNorm (the default), which acts the same in training
+and eval. BatchNorm's train mode (batch statistics, running averages)
+is not ported yet; ``train/trainer.py`` refuses ``norm="batch"``.
 """
 
 from __future__ import annotations

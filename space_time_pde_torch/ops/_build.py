@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-The sources under ``space_time_pde_torch/csrc/`` have a plain C
-interface, so they compile with ``nvcc`` alone in seconds (no PyTorch
+Every source under ``space_time_pde_torch/csrc/`` has a plain C
+interface, so each compiles with ``nvcc`` alone in seconds (no PyTorch
 headers) at first use, into ``space_time_pde_torch/_build/`` (listed in
-``.gitignore``), under a name that carries a hash of the source and the
-flags: an edited source never loads a stale library. Pointers cross as
-``c_void_p``, and every entry point returns ``cudaGetLastError()``,
-which :func:`check` turns into an exception.
+``.gitignore``). All sources are compiled at once, one ``nvcc`` process
+each, started together; every library's name carries one hash over all
+the sources and the flags, so an edited source never loads a stale
+library. Pointers cross as ``c_void_p``, and every entry point returns
+``cudaGetLastError()``, which :func:`check` turns into an exception.
+There is no fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -22,22 +24,39 @@ from pathlib import Path
 __all__ = ["load", "check", "build_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "fused_query.cu"
+_CSRC = _PKG / "csrc"
+_SOURCES = ("fused_query", "fused_jet")
 _BUILD = _PKG / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
 _ARGTYPES = {
-    # table, cell_flat, frac, 9 weights, out, n, n_cells, c, dim, nf,
-    # out_dim, act_code, negative_slope, stream
-    "stpde_decode_blend_gather": [_P] * 13 + [_I] * 7 + [_F, _P],
-    # feats2, frac, 9 weights, out, n, c, dim, nf, out_dim, act_code,
-    # negative_slope, stream
-    "stpde_decode_blend": [_P] * 12 + [_I] * 6 + [_F, _P],
+    "fused_query": {
+        # table, cell_flat, frac, 9 weights, out, n, n_cells, c, dim, nf,
+        # out_dim, act_code, negative_slope, stream
+        "stpde_decode_blend_gather": ([_P] * 13 + [_I] * 7 + [_F, _P], _I),
+        # feats2, frac, 9 weights, out, n, c, dim, nf, out_dim, act_code,
+        # negative_slope, stream
+        "stpde_decode_blend": ([_P] * 12 + [_I] * 6 + [_F, _P], _I),
+        "stpde_block_rows": ([], _I),
+        "stpde_error_string": ([_I], ctypes.c_char_p),
+    },
+    "fused_jet": {
+        # n, c, dim, nf, out_dim
+        "stpde_jet_fwd_workspace": ([_I] * 5, _L),
+        "stpde_jet_bwd_workspace": ([_I] * 5, _L),
+        # feats2, frac, 9 weights, out, workspace, n, c, dim, nf, out_dim,
+        # slope, stream
+        "stpde_jet_fwd": ([_P] * 13 + [_I] * 5 + [_F, _P], _I),
+        # feats2, frac, 9 weights, fwd workspace, ybar, dfeats, 9 grads,
+        # workspace, n, c, dim, nf, out_dim, slope, stream
+        "stpde_jet_bwd": ([_P] * 24 + [_I] * 5 + [_F, _P], _I),
+    },
 }
 
-_lib = None
+_libs = {}
 _log = {}
 
 
@@ -53,45 +72,66 @@ def _nvcc() -> str:
                        "card")
 
 
-def load():
-    """The kernels' ``ctypes`` library, compiled on first call."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD / f"libstpde_fused_query_{tag}.so"
-    if not so.exists():
+def _tag() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for name in _SOURCES:
+        h.update(name.encode() + (_CSRC / f"{name}.cu").read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build_all() -> None:
+    tag = _tag()
+    targets = {name: _BUILD / f"libstpde_{name}_{tag}.so"
+               for name in _SOURCES}
+    todo = {n: so for n, so in targets.items() if not so.exists()}
+    if todo:
         _BUILD.mkdir(exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *_FLAGS, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-        _log.update(seconds=time.perf_counter() - t0,
-                    ptxas=proc.stderr.strip())
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    lib.stpde_block_rows.argtypes, lib.stpde_block_rows.restype = [], _I
-    lib.stpde_error_string.argtypes = [ctypes.c_int]
-    lib.stpde_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+        procs = {}
+        for name, so in todo.items():
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu: nvcc failed ({proc.returncode}):"
+                              f"\n{out}{err}")
+                continue
+            os.replace(tmp, todo[name])
+            _log[name] = err.strip()
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        _log["seconds"] = time.perf_counter() - t0
+    for name, so in targets.items():
+        lib = ctypes.CDLL(str(so))
+        for fn_name, (argtypes, restype) in _ARGTYPES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, restype
+        _libs[name] = lib
+
+
+def load(name: str = "fused_query"):
+    """The ``ctypes`` library of ``csrc/<name>.cu``; the first call
+    compiles every source (in parallel) and loads them all."""
+    if name not in _SOURCES:
+        raise KeyError(f"no kernel source {name!r}; have {_SOURCES}")
+    if not _libs:
+        _build_all()
+    return _libs[name]
 
 
 def check(code: int, what: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if code != 0:
-        msg = _lib.stpde_error_string(code).decode()
+        msg = load("fused_query").stpde_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
 def build_log() -> dict:
-    """``{"seconds", "ptxas"}`` of the build this process ran (empty if
-    the library was already built)."""
+    """``{"seconds", <source>: ptxas output}`` of the build this process
+    ran (empty if the libraries were already built)."""
     return dict(_log)

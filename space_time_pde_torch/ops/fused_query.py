@@ -18,7 +18,9 @@ On a CUDA tensor a wrapper launches its kernel
 (``csrc/fused_query.cu``) or raises; on a CPU tensor it runs the plain
 PyTorch twin in this module (:func:`decode_blend_gather_plain`,
 :func:`decode_blend_plain`), which the CPU tests hold against JAX and
-``chip_smoke.py`` holds the kernels against on the card.
+``chip_smoke.py`` holds the kernels against on the card. The kernels
+have no backward, so the wrappers run under ``no_grad`` on every
+device; the twins themselves stay differentiable.
 
 Dropped from the TPU module, with nothing in their place: the one-hot
 MXU gather, ``corner_tables`` and the sorted 2 x 128-cell windows
@@ -80,11 +82,16 @@ def pack_imnet_params(imnet) -> Dict[str, torch.Tensor]:
     ``wx_rel [D, S]`` (coordinate rows) and ``wx_feat [C, S]`` (latent
     rows), S = 31 nf. ``rel_k = frac - offset_k`` folds the per-corner
     constant into ``corner_bias[k] = b_all - offset_k @ wx_rel``.
+
+    Differentiable: every packed tensor is built from ``fc0..fc5`` by
+    slicing, concatenation and that fold, so autograd carries the packed
+    gradients (the jet backward kernel's) back to the layers. The eval
+    path runs under ``no_grad`` and builds no graph.
     """
     dim, nf = imnet.dim, imnet.nf
     widths = [nf * m for m in _MULTS]
-    ks = [getattr(imnet, f"fc{i}").weight.detach().t() for i in range(6)]
-    bs = [getattr(imnet, f"fc{i}").bias.detach() for i in range(6)]
+    ks = [getattr(imnet, f"fc{i}").weight.t() for i in range(6)]
+    bs = [getattr(imnet, f"fc{i}").bias for i in range(6)]
     wx_parts, wh = [ks[0]], []
     for i in range(1, 5):
         wh.append(ks[i][:widths[i - 1]])
@@ -102,7 +109,10 @@ def pack_imnet_params(imnet) -> Dict[str, torch.Tensor]:
         "b5": bs[5][None],
     }
     packed.update({f"wh{i + 1}": w for i, w in enumerate(wh)})
-    return {k: v.float().contiguous() for k, v in packed.items()}
+    # Fresh contiguous copies: a view of a parameter taken under
+    # no_grad would still require grad.
+    return {k: v.float().clone(memory_format=torch.contiguous_format)
+            for k, v in packed.items()}
 
 
 def cell_major_features(grid: torch.Tensor) -> torch.Tensor:
@@ -222,6 +232,7 @@ def block_points(dim: int, device) -> int | None:
     return _build.load().stpde_block_rows() >> dim
 
 
+@torch.no_grad()
 def decode_blend_gather(table, cell_flat, frac, packed, *, nf: int,
                         activation: str = "leaky_relu",
                         negative_slope: float = 0.01) -> torch.Tensor:
@@ -258,6 +269,7 @@ def decode_blend_gather(table, cell_flat, frac, packed, *, nf: int,
     return out
 
 
+@torch.no_grad()
 def decode_blend(feats2, frac, packed, *, nf: int, n_corners: int,
                  activation: str = "leaky_relu",
                  negative_slope: float = 0.01) -> torch.Tensor:
@@ -289,11 +301,15 @@ def decode_blend(feats2, frac, packed, *, nf: int, n_corners: int,
     return out
 
 
+@torch.no_grad()
 def fused_query_local_implicit_grid(imnet, latent_grid, pts, xmin=0.0,
                                     xmax=1.0, gather: str = "kernel",
                                     compute_dtype=torch.float32):
     """Fused counterpart of ``models.query_local_implicit_grid``:
     latent_grid ``[B, *spatial, C]``, pts ``[B, N, D]`` -> ``[B, N, out]``.
+    Inference only (the decode kernels have no backward; training takes
+    its values from the jet, ``ops/fused_jet.py``), so it runs under
+    ``no_grad`` on every device.
 
     ``gather``: "kernel" loads each point's cell row inside the kernel
     (:func:`decode_blend_gather`); "pregather" gathers ``[N*2^D, C]``

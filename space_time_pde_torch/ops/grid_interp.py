@@ -9,7 +9,12 @@ coordinates the ImNet decoder consumes. Layout is channels-last
 ``_locate`` keeps the JAX operation order exactly
 (``(p - xmin) / (xmax - xmin) * (n - 1)``, clip, floor, clip): on a
 dense lattice many points land on cell faces, and another order rounds
-some of them into the neighbouring cell.
+some of them into the neighbouring cell. Its clip is
+``minimum(maximum(s, 0), n - 1)``, as ``jnp.clip`` is, and not
+``torch.clamp``: both give the same values, but at a point exactly on a
+clip bound the derivative of ``maximum``/``minimum`` splits the tie
+(0.5) in both frameworks, where ``torch.clamp``'s is 1.
+:func:`locate_dfrac` writes that derivative out for the jets.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ __all__ = [
     "corner_offsets",
     "gather_corner_feats",
     "grid_interp_coefficients",
+    "locate_dfrac",
     "multilinear_interp",
 ]
 
@@ -45,12 +51,32 @@ def _locate(pts, spatial, xmin, xmax):
     xmin = torch.as_tensor(xmin, **kw).expand(dim)
     xmax = torch.as_tensor(xmax, **kw).expand(dim)
     s = (pts - xmin) / (xmax - xmin) * (sizes - 1.0)
-    s = torch.clamp(s, torch.zeros_like(sizes), sizes - 1.0)
+    s = torch.minimum(torch.maximum(s, torch.zeros_like(s)), sizes - 1.0)
     hi = torch.tensor(spatial, dtype=torch.int32, device=pts.device) - 2
     cell = torch.clamp(torch.floor(s).to(torch.int32),
                        torch.zeros_like(hi), hi)
     frac = s - cell.to(pts.dtype)
     return cell, frac
+
+
+def locate_dfrac(pts, spatial, xmin, xmax):
+    """``d frac_a / d p_a`` of :func:`_locate`, ``[..., D]``: the grid
+    scale ``(n - 1) / (xmax - xmin)`` strictly inside the clip, half of
+    it exactly on a clip bound, 0 outside -- what ``jax.jvp`` gives
+    through the JAX ``_locate`` (``jnp.clip`` splits a tie 0.5/0.5), so
+    that both packages' jets agree on the domain faces."""
+    dim = len(spatial)
+    kw = dict(dtype=pts.dtype, device=pts.device)
+    sizes = torch.tensor(spatial, **kw)
+    xmin = torch.as_tensor(xmin, **kw).expand(dim)
+    xmax = torch.as_tensor(xmax, **kw).expand(dim)
+    s = (pts - xmin) / (xmax - xmin) * (sizes - 1.0)
+    top = sizes - 1.0
+    side = torch.where((s > 0) & (s < top), 1.0,
+                       torch.where((s == 0) | (s == top), 0.5, 0.0))
+    # The jvp's order: (1 / (xmax - xmin)) * (n - 1), then the clip.
+    scale = 1.0 / (xmax - xmin) * (sizes - 1.0)
+    return (scale * side).to(pts.dtype)
 
 
 def _strides(shape) -> np.ndarray:

@@ -1,0 +1,271 @@
+"""Training engine: models, initial state, loss and step functions.
+
+Counterpart of ``space_time_pde_tpu/train/trainer.py``. Encode the
+low-res crop with UNet3d, take the derivative jet of the local implicit
+grid at the sampled points, regression loss (l1 / l2 / huber) of the
+jet's value against the point ground truth, PDE residual loss from its
+Jacobian and Hessian, total = reg + alpha_pde * pde, and the optimizer
+of ``train/optim.py``.
+
+``pde_derivs`` picks how the derivatives are taken, as in the JAX
+package: ``jet`` runs ``ops/fused_jet.py`` when ``fused_query`` is set
+(the CUDA jet kernels on a card; their plain twins on the CPU),
+``jet_jnp`` the plain analytic jet of ``ops/jet.py``, and ``tower``
+nested ``torch.func.jvp`` towers through the query. The jets need a
+piecewise-linear activation and derivatives of order <= 2; otherwise
+the towers run.
+
+PyTorch runs eagerly, so there is no jit: a step is ``backward`` and an
+in-place optimizer update, and ``make_multi_step`` is a loop (the JAX
+package's ``lax.scan`` was a dispatch workaround). Not in this slice:
+BatchNorm's train mode (``norm="batch"`` raises) and the bf16 compute
+policy (``use_bf16`` raises; the flagship trains in f32).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import torch
+import torch.nn as nn
+
+from space_time_pde_torch.models import (
+    ImNet, UNet3d, query_local_implicit_grid)
+from space_time_pde_torch.models.nonlinearities import PIECEWISE_LINEAR
+from space_time_pde_torch.ops.fused_jet import fused_query_jet
+from space_time_pde_torch.ops.fused_query import (
+    fused_query_local_implicit_grid)
+from space_time_pde_torch.ops.jet import query_local_implicit_grid_jet
+from space_time_pde_torch.train.optim import Optimizer
+
+__all__ = ["TrainState", "build_models", "flax_init_", "init_state",
+           "make_loss_fn", "make_train_step", "make_multi_step",
+           "make_eval_fn"]
+
+PDE_DERIVS = ("jet", "jet_jnp", "tower")
+
+
+@dataclass
+class TrainState:
+    """Step count, the two models (their parameters are the trained
+    state), the optimizer state and the run's generator."""
+    step: int
+    unet: UNet3d
+    imnet: ImNet
+    opt_state: Dict
+    generator: torch.Generator
+
+    def params(self) -> Dict[str, nn.Parameter]:
+        """``{"unet.<name>" | "imnet.<name>": parameter}``."""
+        out = {f"unet.{k}": p for k, p in self.unet.named_parameters()}
+        out.update({f"imnet.{k}": p
+                    for k, p in self.imnet.named_parameters()})
+        return out
+
+
+def build_models(cfg, lres_shape: Tuple[int, int, int],
+                 device="cpu") -> Tuple[UNet3d, ImNet]:
+    m = cfg.model
+    if m.use_bf16:
+        raise NotImplementedError(
+            "use_bf16: the port trains in f32 (its kernels are f32 only)")
+    unet = UNet3d(in_features=m.in_channels, out_features=m.lat_dims,
+                  igres=tuple(lres_shape), nf=m.unet_nf, mf=m.unet_mf,
+                  negative_slope=m.negative_slope, activation=m.activation,
+                  norm=m.norm)
+    imnet = ImNet(dim=3, in_features=m.lat_dims, out_features=m.out_channels,
+                  nf=m.imnet_nf, activation=m.activation,
+                  negative_slope=m.negative_slope)
+    return unet.to(device), imnet.to(device)
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
+    """flax's default kernel init: truncated normal on [-2, 2] scaled to
+    variance 1 / fan_in (0.8796... is the std of the unit normal
+    truncated there)."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    cpu = torch.empty(w.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(cpu, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=gen)
+    w.copy_(cpu)
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Initialise ``module`` as flax initialises its counterpart: kernels
+    lecun-normal (fan_in = input features x kernel volume), biases 0,
+    norm scales 1 and offsets 0. Draws on the CPU from ``gen``, so a
+    seed gives the same weights on any device."""
+    for mod in module.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv3d)):
+            fan_in = mod.weight[0].numel()
+        elif isinstance(mod, nn.ConvTranspose3d):
+            fan_in = mod.weight.shape[0] * mod.weight[0, 0].numel()
+        elif isinstance(mod, (nn.GroupNorm, nn.BatchNorm3d)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            continue
+        else:
+            continue
+        _lecun_normal_(mod.weight, fan_in, gen)
+        if mod.bias is not None:
+            mod.bias.zero_()
+    return module
+
+
+def init_state(seed: int, unet: UNet3d, imnet: ImNet,
+               opt: Optimizer) -> TrainState:
+    gen = torch.Generator().manual_seed(seed)
+    flax_init_(unet, gen)
+    flax_init_(imnet, gen)
+    state = TrainState(step=0, unet=unet, imnet=imnet, opt_state={},
+                       generator=gen)
+    state.opt_state = opt.init({k: p.detach()
+                                for k, p in state.params().items()})
+    return state
+
+
+def _reg_loss(kind: str, pred, target):
+    err = pred - target
+    if kind == "l1":
+        return torch.mean(torch.abs(err))
+    if kind == "l2":
+        return torch.mean(torch.square(err))
+    if kind == "huber":
+        # optax.losses.huber_loss, delta = 1.
+        a = torch.abs(err)
+        quadratic = torch.clamp(a, max=1.0)
+        return torch.mean(0.5 * quadratic ** 2 + (a - quadratic))
+    raise ValueError(f"unknown reg_loss_type {kind!r}")
+
+
+def make_loss_fn(cfg, unet: UNet3d, imnet: ImNet, pde_layer):
+    """loss_fn(batch) -> (loss, metrics dict of 0-d tensors); batch:
+    lres [B,t,z,x,C], point_coord [B,N,3], point_value [B,N,V]. The
+    parameters are the models'."""
+    if cfg.model.norm == "batch":
+        raise NotImplementedError(
+            "norm='batch' training: BatchNorm's train mode is not ported "
+            "yet (ROADMAP); the GroupNorm default trains")
+    alpha = cfg.train.alpha_pde
+    kind = cfg.train.reg_loss_type
+    derivs = cfg.train.pde_derivs
+    if derivs not in PDE_DERIVS:
+        raise ValueError(f"pde_derivs must be one of {PDE_DERIVS}, got "
+                         f"{derivs!r}")
+    use_jet = (pde_layer is not None and alpha > 0
+               and derivs in ("jet", "jet_jnp")
+               and imnet.activation in PIECEWISE_LINEAR
+               and pde_layer.max_derivative_order() <= 2)
+    use_fused_jet = use_jet and derivs == "jet" and cfg.model.fused_query
+    pde_kind = cfg.train.pde_loss_type
+
+    def loss_fn(batch):
+        coords = batch["point_coord"]
+        latent = unet(batch["lres"])
+
+        def fwd(pts):
+            return query_local_implicit_grid(imnet, latent, pts)
+
+        if use_fused_jet:
+            pred, jac, hess = fused_query_jet(imnet, latent, coords)
+        elif use_jet:
+            pred, jac, hess = query_local_implicit_grid_jet(imnet, latent,
+                                                            coords)
+        else:
+            pred = fwd(coords)
+        reg = _reg_loss(kind, pred, batch["point_value"])
+        metrics = {"reg_loss": reg}
+        if pde_layer is not None and alpha > 0:
+            pde_total, per_eq = pde_layer.residual_loss(
+                coords, fwd=fwd, jet=(pred, jac, hess) if use_jet else None,
+                kind=pde_kind)
+            metrics["pde_loss"] = pde_total
+            for n, v in per_eq.items():
+                metrics[f"pde/{n}"] = v
+            loss = reg + alpha * pde_total
+        else:
+            loss = reg
+        metrics["loss"] = loss
+        return loss, metrics
+
+    return loss_fn
+
+
+@contextlib.contextmanager
+def _without_cudnn():
+    """The step's convolutions on PyTorch's own kernels (im2col + f32
+    GEMM), not cuDNN's: on the flagship step on an H100 (TF32 off),
+    cuDNN's f32 backward left the UNet's gradients a median 4.2x farther
+    from a float64 recomputation than JAX's f32 CPU step, PyTorch's own
+    0.4x (``chip_smoke.py``'s training-step phase)."""
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = enabled
+
+
+def make_train_step(loss_fn, opt: Optimizer):
+    """step(state, batch) -> (state, metrics): one optimizer step,
+    updating the models' parameters and ``state`` in place (the step's
+    gradients stay in the parameters' ``.grad``)."""
+
+    def step(state: TrainState, batch):
+        params = state.params()
+        for p in params.values():
+            p.grad = None
+        with _without_cudnn():
+            loss, metrics = loss_fn(batch)
+            loss.backward()
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in params.items()}
+        metrics["grad_norm"] = opt.step(params, grads, state.opt_state)
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_multi_step(loss_fn, opt: Optimizer, n_inner: int):
+    """step(state, stacked_batch): ``n_inner`` sequential steps over
+    batches stacked on a leading axis; returns the last step's
+    metrics."""
+    one = make_train_step(loss_fn, opt)
+
+    def step(state: TrainState, stacked_batch):
+        metrics = {}
+        for g in range(n_inner):
+            state, metrics = one(state, {k: v[g] for k, v in
+                                         stacked_batch.items()})
+        return state, metrics
+
+    return step
+
+
+def make_eval_fn(cfg, unet: UNet3d, imnet: ImNet):
+    """Relative L2 of predictions vs point ground truth (overall and per
+    channel), through the fused decode (the CUDA decode kernel on a
+    card) when ``fused_query`` is set."""
+
+    @torch.no_grad()
+    def eval_fn(batch):
+        latent = unet(batch["lres"])
+        coords = batch["point_coord"]
+        if cfg.model.fused_query:
+            pred = fused_query_local_implicit_grid(imnet, latent, coords)
+        else:
+            pred = query_local_implicit_grid(imnet, latent, coords)
+        target = batch["point_value"]
+        sq = torch.square(pred - target)
+        num = torch.sqrt(torch.sum(sq))
+        den = torch.sqrt(torch.sum(torch.square(target))) + 1e-12
+        per_num = torch.sqrt(torch.sum(sq, (0, 1)))
+        per_den = torch.sqrt(torch.sum(torch.square(target), (0, 1))) + 1e-12
+        return {"rel_l2": num / den, "rel_l2_per_channel": per_num / per_den}
+
+    return eval_fn

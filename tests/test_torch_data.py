@@ -55,3 +55,19 @@ def test_splits_match_jax(n_frames, nt, n_windows):
         jsplits.test_windows(n_frames, nt, n_windows))
     assert (vars(tsplits.SplitSpec.canonical())
             == vars(jsplits.SplitSpec.canonical()))
+
+
+@pytest.mark.parametrize("train,leak", [
+    ("rb2d_ra1e6_s42.npz,rb2d_ra1e6_s100.npz", False),
+    ("rb2d_ra1e6_s42.npz,rb2d_ra1e6_s123.npz", True),
+    ("rb2d_ra1e6_s7.npz", True)])
+def test_check_train_files_matches_jax(train, leak):
+    for pkg in (tsplits, jsplits):
+        if leak:
+            with pytest.raises(SystemExit, match="split protocol"):
+                pkg.check_train_files(train, allow_leak=False)
+            with pytest.warns(UserWarning):
+                pkg.check_train_files(train, allow_leak=True)
+        else:
+            pkg.check_train_files(train, eval_data="rb2d_ra1e6_s7.npz",
+                                  allow_leak=False)

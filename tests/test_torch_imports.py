@@ -1,10 +1,11 @@
 """Import hygiene of the port: no JAX stack and no JAX package.
 
 Walks the AST of every ``.py`` under ``space_time_pde_torch/`` plus
-``chip_smoke.py`` and ``experiments/rb2d/evaluation_torch.py``. (A
-``sys.modules`` check cannot work: the test process imports jax for the
-parity tests.) Also holds the port's copy of the config to the JAX
-package's fields.
+``chip_smoke.py`` and ``experiments/rb2d/{evaluation,train}_torch.py``.
+(A ``sys.modules`` check cannot work: the test process imports jax for
+the parity tests.) Also holds the port's copies of JAX-free modules (the
+config's fields; the prefetcher, metrics logger and cliff detector,
+class for class) to the JAX package's.
 """
 
 import ast
@@ -24,7 +25,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "experiments", "rb2d",
-                          "evaluation_torch.py")]
+                          "evaluation_torch.py"),
+             os.path.join(ROOT, "experiments", "rb2d", "train_torch.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "space_time_pde_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -57,3 +59,24 @@ def test_config_copy_matches_jax():
              dataclasses.fields(getattr(jcfg, name))]
         assert t == j, name
     assert tcfg._FLAG_MAP == jcfg._FLAG_MAP
+
+
+COPIES = [("data/prefetch.py", "data/prefetch.py", "BatchPrefetcher"),
+          ("utils/logging.py", "utils/logging.py", "MetricsLogger"),
+          ("train/recovery.py", "train/recovery.py", "CliffDetector")]
+
+
+@pytest.mark.parametrize("port,jax_path,cls", COPIES,
+                         ids=[c[2] for c in COPIES])
+def test_framework_free_copies_match_jax(port, jax_path, cls):
+    """The copied classes are the JAX package's, statement for
+    statement."""
+    def class_ast(pkg, rel):
+        with open(os.path.join(ROOT, pkg, rel)) as f:
+            tree = ast.parse(f.read())
+        node = next(n for n in tree.body
+                    if isinstance(n, ast.ClassDef) and n.name == cls)
+        return ast.dump(node)
+
+    assert class_ast("space_time_pde_torch", port) == \
+        class_ast("space_time_pde_tpu", jax_path)

@@ -1,0 +1,250 @@
+"""turb3d evaluation CLI on the PyTorch / CUDA port: dense 4-D
+super-resolution.
+
+Counterpart of ``experiments/turb3d/evaluation.py``: load exported
+weights, encode each eval window's low-res (t, z, y, x) input once with
+UNet4d, decode the implicit field on the dense high-res lattice in
+chunks through the port's decode kernel at 16 corners
+(``csrc/fused_query.cu``; its plain twin on the CPU), and report the
+per-window rel-L2 against the ground truth with the same lines as the
+JAX CLI (per window, mean and per channel), or with ``--full_sequence``
+one stitched decode of the whole simulation.
+
+``--params`` takes the ``.npz`` written by
+``scripts/export_torch_turb3d.py`` (the ``r5_turb3d_200x_big`` step
+76,800 one is committed at
+``space_time_pde_torch/assets/r5_turb3d_200x_big_76800.npz``) in place
+of ``--ckpt``: orbax checkpoints need JAX to read.
+
+Example (on a machine with the card; the val split's file is made by
+``experiments/turb3d/generate_data.py --seed 7 --out data/beltrami_s7.npz``):
+    python experiments/turb3d/evaluation_torch.py \
+        --params space_time_pde_torch/assets/r5_turb3d_200x_big_76800.npz \
+        --data_folder data --split val --eval_windows 4
+
+Not carried over: ``--block_pts``, ``--decode_dtype`` (the kernel is
+f32 only), ``--matmul_precision`` and ``--fetch_dtype`` (TPU and
+remote-tunnel knobs; TF32 is off and printed), the
+``maybe_force_platform`` call and the tunnel sync point. The encoder's
+convolutions run on cuDNN (printed): on the 4,096 JAX-CPU reference
+points of the committed checkpoint the decode stays within twice JAX
+f32's own distance from float64 with cuDNN on (``chip_smoke.py``).
+"""
+
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", ".."))
+
+import numpy as np
+import torch
+from scipy.interpolate import RegularGridInterpolator
+
+from space_time_pde_torch.bridge import load_exported, load_flax_params
+from space_time_pde_torch.data.dataset4d import Field4DDataset
+from space_time_pde_torch.data.splits import (
+    CANONICAL_SEEDS, test_windows, val_windows)
+from space_time_pde_torch.inference import (
+    fit_dense_decoder, igres_mismatch_note, make_dense_decoder,
+    stitched_decode)
+from space_time_pde_torch.models import ImNet, UNet4d
+from space_time_pde_torch.utils.config import Config
+
+
+def build_models(cfg: Config, targs, igres, exported, device):
+    """UNet4d at ``igres`` + ImNet(dim=4), weights from the exported
+    params, in eval mode on ``device``."""
+    if cfg.model.use_bf16:
+        raise NotImplementedError(
+            "checkpoint trained with use_bf16: the port's decode kernels "
+            "are f32 only")
+    unet = UNet4d(in_features=4, out_features=targs["lat_dims"],
+                  igres=tuple(igres), nf=targs["unet_nf"],
+                  mf=targs["unet_mf"])
+    imnet = ImNet(dim=4, in_features=targs["lat_dims"], out_features=4,
+                  nf=targs["imnet_nf"])
+    load_flax_params(unet, exported["params"]["unet"])
+    load_flax_params(imnet, exported["params"]["imnet"])
+    return unet.to(device).eval(), imnet.to(device).eval()
+
+
+def _rel(pred, gt):
+    return float(np.linalg.norm(pred - gt) / (np.linalg.norm(gt) + 1e-12))
+
+
+def main(argv=None):
+    """Run the eval; returns a dict of what it measured (also printed):
+    ``rel_l2`` per window, ``t0s``, ``decode_seconds`` per window,
+    ``points_per_window``, ``provenance``, the first window's low-res
+    input ``lres0`` and decoder output ``window0`` (normalised units, on
+    the device), the ``models`` and, over two or more windows,
+    ``steady_pts_per_s``."""
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--params", type=str, required=True,
+                        help="exported weights .npz "
+                             "(scripts/export_torch_turb3d.py)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; 'cpu' runs the kernels' plain "
+                             "PyTorch twins (tests, tiny models)")
+    parser.add_argument("--data_folder", type=str, default=None)
+    parser.add_argument("--eval_data", type=str, default=None)
+    parser.add_argument("--eval_t0", type=int, default=0)
+    parser.add_argument("--eval_windows", type=int, default=1)
+    parser.add_argument("--split", choices=["custom", "val", "test"],
+                        default="custom")
+    parser.add_argument("--save_path", type=str, default="turb3d_pred.npz")
+    parser.add_argument("--query_chunk", type=int, default=32768)
+    parser.add_argument("--full_sequence", action="store_true")
+    parser.add_argument("--stitch_stride", type=int, default=0,
+                        help="window stride for --full_sequence; 0 = nt/2")
+    args = parser.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device here; --device cpu runs the plain "
+                         "PyTorch path")
+    exported = load_exported(args.params)
+    cfg = Config.from_dict(exported["config"])
+    targs = exported["meta"]["turb3d_args"]
+    nt = int(targs["nt"])
+
+    eval_data = args.eval_data or cfg.data.eval_data
+    if args.split != "custom" and args.eval_data is None:
+        eval_data = f"beltrami_s{CANONICAL_SEEDS[args.split]}.npz"
+        print(f"split={args.split}: evaluating {eval_data}")
+    ds = Field4DDataset(
+        data_folder=args.data_folder or cfg.data.data_folder,
+        data_filename=eval_data, nt=nt, nz=targs["nz"], ny=targs["ny"],
+        nx=targs["nx"], downsamp_t=targs["downsamp_t"],
+        downsamp_xyz=targs["downsamp_xyz"])
+    ds.channel_mean = np.asarray(exported["channel_mean"], np.float32)
+    ds.channel_std = np.asarray(exported["channel_std"], np.float32)
+
+    n_frames = ds.data.shape[0]
+    if args.split != "custom":
+        pick = val_windows if args.split == "val" else test_windows
+        t0s = pick(n_frames, nt, max(1, args.eval_windows))
+    elif args.eval_windows > 1:
+        t0s = np.unique(np.linspace(args.eval_t0, n_frames - nt,
+                                    args.eval_windows).astype(int))
+    else:
+        t0s = np.asarray([args.eval_t0])
+    t0s = [int(t) for t in t0s]
+
+    hi_shape = ds.data[:nt].shape[:4]
+    ds_xyz = targs["downsamp_xyz"]
+    lres_sizes = (max(2, nt // targs["downsamp_t"]),
+                  max(2, hi_shape[1] // ds_xyz), max(2, hi_shape[2] // ds_xyz),
+                  max(2, hi_shape[3] // ds_xyz))
+    note = igres_mismatch_note(lres_sizes, ds.lres_shape)
+    if note:
+        print(note, flush=True)
+    unet, imnet = build_models(cfg, targs, lres_sizes, exported, device)
+    print(f"restored step {exported['step']}")
+    axes = [np.linspace(0, s - 1, n) for s, n in zip(hi_shape, lres_sizes)]
+    lat_pts = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 4)
+
+    def window_lres(t0):
+        window = ds.data[t0:t0 + nt]                  # [nt, Z, Y, X, 4]
+        interp = RegularGridInterpolator(
+            [np.arange(s) for s in hi_shape], window)
+        lres = interp(lat_pts).reshape(*lres_sizes, -1).astype(np.float32)
+        return window, (lres - ds.channel_mean) / ds.channel_std
+
+    probe_t0 = 0 if args.full_sequence else t0s[0]
+    probe_lres = window_lres(probe_t0)[1]
+    tp0 = time.perf_counter()
+    decoder, probe_out = fit_dense_decoder(
+        lambda c: make_dense_decoder(unet, imnet, hi_shape, chunk=c),
+        probe_lres, chunk=args.query_chunk)
+    t_probe = time.perf_counter() - tp0
+    prov = dict(decoder.provenance, cudnn=torch.backends.cudnn.enabled)
+    print(f"decode provenance: backend={prov['backend']} "
+          f"device={prov['device']} kernel={prov['kernel']} "
+          f"dtype={prov['compute_dtype']} "
+          f"tf32_matmul={prov['tf32_matmul']} "
+          f"tf32_cudnn={prov['tf32_cudnn']} cudnn={prov['cudnn']} "
+          f"chunk={prov['chunk']} block_pts={prov['block_pts']} "
+          f"eval_data={eval_data} step={exported['step']} "
+          f"windows={'full_sequence' if args.full_sequence else t0s}",
+          flush=True)
+    n_q = int(np.prod(hi_shape))
+    results = {"provenance": prov, "points_per_window": n_q,
+               "models": (unet, imnet), "t0s": t0s, "lres0": probe_lres}
+
+    if args.full_sequence:
+        stride = args.stitch_stride or max(1, nt // 2)
+        tq0 = time.perf_counter()
+        pred, starts = stitched_decode(
+            decoder, lambda t0: window_lres(t0)[1], n_frames, nt, stride,
+            hi_shape[1:], channel_mean=ds.channel_mean,
+            channel_std=ds.channel_std)
+        tq = time.perf_counter() - tq0
+        gt = ds.data
+        print(f"stitched {len(starts)} windows (stride {stride}) over "
+              f"{n_frames} frames: {len(starts) * n_q} pts in {tq:.2f}s = "
+              f"{len(starts) * n_q / tq / 1e6:.2f}M pts/s", flush=True)
+        rel_l2 = _rel(pred, gt)
+        per_ch = np.asarray([_rel(pred[..., c], gt[..., c])
+                             for c in range(4)])
+        per_frame = np.linalg.norm((pred - gt).reshape(n_frames, -1),
+                                   axis=1) / (np.linalg.norm(
+                                       gt.reshape(n_frames, -1), axis=1)
+                                       + 1e-12)
+        print(f"full-sequence rel_l2 = {rel_l2:.5f}  per-channel "
+              f"(p,u,v,w) = " + " ".join(f"{v:.5f}" for v in per_ch))
+        print(f"per-frame rel_l2: min {per_frame.min():.5f} median "
+              f"{np.median(per_frame):.5f} max {per_frame.max():.5f}")
+        results.update(rel_l2=[rel_l2], window0=probe_out,
+                       decode_seconds=[tq])
+        t0s = []
+    else:
+        all_rel, all_per_ch, secs = [], [], []
+        for wi, t0 in enumerate(t0s):
+            window, lres = window_lres(t0)
+            if wi == 0:
+                out, dt = probe_out, t_probe
+            else:
+                td0 = time.perf_counter()
+                out = decoder(lres)
+                if out.is_cuda:
+                    torch.cuda.synchronize(out.device)
+                dt = time.perf_counter() - td0
+            secs.append(dt)
+            pred_w = out.cpu().numpy() * ds.channel_std + ds.channel_mean
+            all_rel.append(_rel(pred_w, window))
+            all_per_ch.append([_rel(pred_w[..., c], window[..., c])
+                               for c in range(4)])
+            if wi == 0:
+                pred = pred_w
+                results["window0"] = out
+            print(f"  window t0={t0}: encode+decode {dt:.3f}s"
+                  + (" (incl. kernel build)" if wi == 0 else ""), flush=True)
+            print(f"window t0={t0}: rel_l2 = {all_rel[-1]:.5f}", flush=True)
+        if len(t0s) > 1:
+            steady = n_q * (len(t0s) - 1) / sum(secs[1:])
+            print(f"  decode rate: {steady / 1e6:.3f}M pts/s over windows "
+                  f"2..{len(t0s)} on {prov['device']} (window 1 "
+                  f"{secs[0]:.2f}s incl. build)", flush=True)
+            results["steady_pts_per_s"] = steady
+        rel_l2 = float(np.mean(all_rel))
+        per_ch = np.mean(np.asarray(all_per_ch), axis=0)
+        print(f"rel_l2 = {rel_l2:.5f} (std {np.std(all_rel):.5f} over "
+              f"{len(t0s)} windows)  per-channel (p,u,v,w) = "
+              + " ".join(f"{v:.5f}" for v in per_ch))
+        results.update(rel_l2=all_rel, decode_seconds=secs)
+
+    os.makedirs(os.path.dirname(os.path.abspath(args.save_path)),
+                exist_ok=True)
+    np.savez_compressed(
+        args.save_path, p=pred[..., 0], u=pred[..., 1], v=pred[..., 2],
+        w=pred[..., 3], rel_l2=rel_l2, rel_l2_per_channel=np.asarray(per_ch),
+        window_starts=np.asarray(t0s))
+    print(f"saved predictions to {args.save_path}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -7,6 +7,8 @@ rule applies:
 
   Dense           kernel [I, O]       -> Linear weight [O, I]
   Conv            kernel [*k, I, O]   -> ConvNd weight [O, I, *k]
+                  (Conv3d, and Conv1d: UNet4d's temporal conv [k, I, O]
+                  -> [O, I, k])
   ConvTranspose   kernel [*k, I, O]   -> ConvTransposeNd weight
                   [I, O, *k], flipped in space (flax convolves, torch
                   cross-correlates)
@@ -16,8 +18,10 @@ rule applies:
 Checkpoints cross from JAX to the port as one ``.npz`` written by
 ``scripts/export_torch_params.py``: leaves under ``params/...`` and
 ``batch_stats/...`` (``/``-joined flax paths), ``channel_mean``,
-``channel_std``, ``step`` and the training ``config`` as JSON. This
-module reads and writes that file with numpy alone.
+``channel_std``, ``step``, the training ``config`` as JSON and, for a
+driver with settings outside the config (turb3d's crop and widths), a
+``meta`` JSON object. This module reads and writes that file with numpy
+alone.
 """
 
 from __future__ import annotations
@@ -84,8 +88,9 @@ def state_dict_from_flax(module: nn.Module, params: Mapping,
     sd: Dict[str, torch.Tensor] = {}
     used = set()
     for name, mod in module.named_modules():
-        if not isinstance(mod, (nn.Linear, nn.Conv3d, nn.ConvTranspose3d,
-                                nn.GroupNorm, nn.BatchNorm3d)):
+        if not isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv3d,
+                                nn.ConvTranspose3d, nn.GroupNorm,
+                                nn.BatchNorm3d)):
             continue
         p = _subtree(params, name)
         if p is None:
@@ -97,7 +102,7 @@ def state_dict_from_flax(module: nn.Module, params: Mapping,
             k = np.asarray(p["kernel"])
             w = np.flip(k, axis=tuple(range(k.ndim - 2)))
             w = np.moveaxis(w, (-2, -1), (0, 1))
-        elif isinstance(mod, nn.Conv3d):
+        elif isinstance(mod, (nn.Conv1d, nn.Conv3d)):
             w = np.moveaxis(np.asarray(p["kernel"]), (-1, -2), (0, 1))
         else:
             w = p["scale"]
@@ -130,7 +135,8 @@ def load_flax_params(module: nn.Module, params: Mapping,
 
 def save_exported(path: str, params: Mapping,
                   batch_stats: Optional[Mapping], config: Mapping,
-                  channel_mean, channel_std, step: int) -> None:
+                  channel_mean, channel_std, step: int,
+                  meta: Optional[Mapping] = None) -> None:
     """Write the exported-checkpoint ``.npz`` (see module docstring)."""
     arrays = {f"params/{k}": v for k, v in flatten_tree(params).items()}
     if batch_stats:
@@ -141,12 +147,14 @@ def save_exported(path: str, params: Mapping,
         channel_mean=np.asarray(channel_mean, np.float32),
         channel_std=np.asarray(channel_std, np.float32),
         step=np.asarray(step, np.int64),
-        config=np.asarray(json.dumps(config, sort_keys=True)))
+        config=np.asarray(json.dumps(config, sort_keys=True)),
+        meta=np.asarray(json.dumps(dict(meta or {}), sort_keys=True)))
 
 
 def load_exported(path: str) -> Dict[str, Any]:
     """Read an exported ``.npz`` -> {"params", "batch_stats" (or None),
-    "config" (dict), "channel_mean", "channel_std", "step"}."""
+    "config" (dict), "channel_mean", "channel_std", "step", "meta"
+    (dict; empty in files written before it existed)}."""
     with np.load(path, allow_pickle=False) as z:
         flat = {k: z[k] for k in z.files}
     trees = {"params": {}, "batch_stats": {}}
@@ -161,6 +169,7 @@ def load_exported(path: str) -> Dict[str, Any]:
         "channel_mean": flat["channel_mean"],
         "channel_std": flat["channel_std"],
         "step": int(flat["step"]),
+        "meta": json.loads(str(flat["meta"])) if "meta" in flat else {},
     }
 
 

@@ -26,7 +26,7 @@
 // shared memory, so the chains are stored in a workspace and every layer is
 // a tiled f32 matrix product over all R*(D+1) chain rows at once:
 //   * the chain rows of one corner row are interleaved ([R, D+1, w]), so a
-//     thread's 8-row register tile holds the primal and its 3 tangents of two
+//     thread's register tile holds the primal and its D tangents of two
 //     corner rows, and the layer's epilogue applies the primal's mask to the
 //     tangents in registers;
 //   * the forward writes every layer's chains (X_i) and masks to the
@@ -63,37 +63,63 @@
 // [N, blocks, O], any N), the sequential-grid accumulation of the parameter
 // gradients (partials + fixed-order reduction instead).
 //
-// D = 3 only on the card (the rb2d flagship); the 4-D (16-corner) stack
-// runs its plain PyTorch twin until the turb3d slice. Build: nvcc -gencode
-// arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// (space_time_pde_torch/ops/_build.py).
+// Both dimensions on the card: D = 3 (8 corners, the rb2d model family) and
+// D = 4 (16 corners, the turb3d family), each a template instantiation of
+// every kernel below (struct Jet<D>), so one build serves both. What D
+// changes:
+//   * a corner row has D + 1 chains, so the layer kernel's register tile of
+//     2 corner rows x chains is 8 rows at D = 3 and 10 at D = 4. Ten rows
+//     are not a multiple of four, so at D = 4 a thread reads its A column as
+//     five 8-byte float2 loads (a 10-float offset keeps 8-byte alignment)
+//     instead of two float4s, and a tile is 32 x 10 = 320 chain rows
+//     (256 is not a multiple of 5), still 64 corner rows. Four corner rows
+//     a thread (20 rows) would need 160 accumulators; two need 80, near
+//     the 64 of D = 3.
+//   * the generic products of the backward (gemm_nt / gemm_tn) keep their
+//     8 x 8 tile at both D; only the layer mask's row -> corner-row divisor
+//     (row / (D + 1)) is a template parameter.
+//   * the head's coefficient buffer is (1 + D + D(D+1)/2) x 2^D (D + 1)
+//     floats: 10 x 32 at D = 3, 15 x 80 at D = 4.
+// Any other D is rejected (cudaErrorInvalidValue; -1 workspace bytes).
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+// -Xcompiler -fPIC (space_time_pde_torch/ops/_build.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kDim = 3;
-constexpr int kCorners = 1 << kDim;              // 8
-constexpr int kChains = kDim + 1;                // primal + D tangents
-constexpr int kRowsPerPoint = kCorners * kChains;  // 32 chain rows a point
-constexpr int kBlocksOut = 1 + kDim + kDim * (kDim + 1) / 2;  // 10
 constexpr int kMaxOut = 8;
 constexpr int kLayers = 5;
 constexpr int kMults[kLayers] = {16, 8, 4, 2, 1};
 
 // Product-kernel tiling: 256 threads as 32 row groups x 8 column groups,
-// each with an 8 x 8 register tile.
+// each with a kTM x 8 register tile (kTM = 8 in the generic products).
 constexpr int kBK = 16;
-constexpr int kTM = 8, kTN = 8;
+constexpr int kTN = 8;
 constexpr int kRowThreads = 32, kColThreads = 8;
 constexpr int kThreads = kRowThreads * kColThreads;  // 256
-constexpr int kBM = kRowThreads * kTM;               // 256
 constexpr int kBN = kColThreads * kTN;               // 64
-constexpr int kPadM = kBM + 4;                       // keeps float4 alignment
 constexpr int kPadN = kBN + 4;
-constexpr int kPointRows = kBM / kChains;            // corner rows of a tile
-static_assert(kTM == 2 * kChains, "a thread holds 2 corner rows x chains");
+constexpr int kTM = 8;                               // generic products
+constexpr int kBM = kRowThreads * kTM;               // 256
+constexpr int kPadM = kBM + 4;                       // keeps float4 alignment
+
+// The chain layout of dimension D (see the header).
+template <int D>
+struct Jet {
+  static constexpr int kDim = D;
+  static constexpr int kCorners = 1 << D;                    // 8 / 16
+  static constexpr int kChains = D + 1;                      // primal + D
+  static constexpr int kRowsPerPoint = kCorners * kChains;   // 32 / 80
+  static constexpr int kBlocksOut = 1 + D + D * (D + 1) / 2;  // 10 / 15
+  // Layer kernel: a thread holds 2 corner rows x chains.
+  static constexpr int kTM = 2 * kChains;                    // 8 / 10
+  static constexpr int kBM = kRowThreads * kTM;              // 256 / 320
+  static constexpr int kPadM = kBM + 4;   // row stride stays 16-byte aligned
+  static constexpr int kPointRows = kBM / kChains;           // 64
+  static_assert(kTM % 2 == 0 && kPadM % 4 == 0, "vector loads");
+};
 
 // Blocks the row reductions aim for (about four per SM of an H100).
 constexpr int kTargetBlocks = 528;
@@ -120,24 +146,37 @@ __host__ __device__ inline int cdiv(long long a, long long b) {
   return (int)((a + b - 1) / b);
 }
 
-// acc[j][q] += A[k][row0 + j] * B[k][col0 + q] over one kBK slice.
-__device__ __forceinline__ void mma_tile(float (&acc)[kTM][kTN],
-                                         const float (*As)[kPadM],
+// acc[j][q] += A[k][row0 + j] * B[k][col0 + q] over one kBK slice. A tile
+// of TM rows a multiple of 4 reads A as float4s, otherwise as float2s.
+template <int TM, int PadM>
+__device__ __forceinline__ void mma_tile(float (&acc)[TM][kTN],
+                                         const float (*As)[PadM],
                                          const float (*Bs)[kPadN], int ty,
                                          int tx) {
 #pragma unroll
   for (int k = 0; k < kBK; ++k) {
-    float av[kTM], bv[kTN];
-    const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * kTM]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&As[k][ty * kTM + 4]);
+    float av[TM], bv[kTN];
+    if constexpr (TM % 4 == 0) {
+#pragma unroll
+      for (int v = 0; v < TM; v += 4) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(&As[k][ty * TM + v]);
+        av[v] = a.x, av[v + 1] = a.y, av[v + 2] = a.z, av[v + 3] = a.w;
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < TM; v += 2) {
+        const float2 a =
+            *reinterpret_cast<const float2*>(&As[k][ty * TM + v]);
+        av[v] = a.x, av[v + 1] = a.y;
+      }
+    }
     const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * kTN]);
     const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][tx * kTN + 4]);
-    av[0] = a0.x, av[1] = a0.y, av[2] = a0.z, av[3] = a0.w;
-    av[4] = a1.x, av[5] = a1.y, av[6] = a1.z, av[7] = a1.w;
     bv[0] = b0.x, bv[1] = b0.y, bv[2] = b0.z, bv[3] = b0.w;
     bv[4] = b1.x, bv[5] = b1.y, bv[6] = b1.z, bv[7] = b1.w;
 #pragma unroll
-    for (int j = 0; j < kTM; ++j)
+    for (int j = 0; j < TM; ++j)
 #pragma unroll
       for (int q = 0; q < kTN; ++q) acc[j][q] += av[j] * bv[q];
   }
@@ -162,21 +201,23 @@ struct LayerArgs {
   float slope;
 };
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) jet_layer_kernel(LayerArgs a) {
-  __shared__ __align__(16) float As[kBK][kPadM];
+  using J = Jet<D>;
+  __shared__ __align__(16) float As[kBK][J::kPadM];
   __shared__ __align__(16) float Bs[kBK][kPadN];
-  __shared__ __align__(16) float Fs[kBK][kPointRows + 4];
+  __shared__ __align__(16) float Fs[kBK][J::kPointRows + 4];
   const int tid = threadIdx.x;
   const int tx = tid % kColThreads, ty = tid / kColThreads;
-  const long long q0 = (long long)blockIdx.x * kBM;
-  const long long r0 = q0 / kChains;
+  const long long q0 = (long long)blockIdx.x * J::kBM;
+  const long long r0 = q0 / J::kChains;
   const int n0 = blockIdx.y * kBN;
-  const long long mrows = (long long)a.rows * kChains;
-  float acc[kTM][kTN] = {};
+  const long long mrows = (long long)a.rows * J::kChains;
+  float acc[J::kTM][kTN] = {};
 
   // All chains: X_{i-1} @ Wh_i.
   for (int k0 = 0; k0 < a.kp; k0 += kBK) {
-    for (int i = tid; i < kBM * kBK; i += kThreads) {
+    for (int i = tid; i < J::kBM * kBK; i += kThreads) {
       const int m = i / kBK, k = i % kBK;
       const long long gq = q0 + m;
       const int gk = k0 + k;
@@ -189,12 +230,12 @@ __global__ void __launch_bounds__(kThreads) jet_layer_kernel(LayerArgs a) {
                                          : 0.f;
     }
     __syncthreads();
-    mma_tile(acc, As, Bs, ty, tx);
+    mma_tile<J::kTM, J::kPadM>(acc, As, Bs, ty, tx);
     __syncthreads();
   }
   // Primal chains only: feats @ Wx_feat[:, sl_i].
   for (int k0 = 0; k0 < a.c; k0 += kBK) {
-    for (int i = tid; i < kPointRows * kBK; i += kThreads) {
+    for (int i = tid; i < J::kPointRows * kBK; i += kThreads) {
       const int m = i / kBK, k = i % kBK;
       const long long gr = r0 + m;
       const int gk = k0 + k;
@@ -217,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) jet_layer_kernel(LayerArgs a) {
 #pragma unroll
       for (int q = 0; q < kTN; ++q) {
         acc[0][q] += f0 * bv[q];
-        acc[kChains][q] += f1 * bv[q];
+        acc[J::kChains][q] += f1 * bv[q];
       }
     }
     __syncthreads();
@@ -227,27 +268,28 @@ __global__ void __launch_bounds__(kThreads) jet_layer_kernel(LayerArgs a) {
   for (int s2 = 0; s2 < 2; ++s2) {
     const long long r = r0 + ty * 2 + s2;
     if (r >= a.rows) continue;
-    const long long p = r / kCorners;
-    const int k = (int)(r % kCorners);
-    float fr[kDim];
+    const long long p = r / J::kCorners;
+    const int k = (int)(r % J::kCorners);
+    float fr[D];
 #pragma unroll
-    for (int d = 0; d < kDim; ++d) fr[d] = a.frac[p * kDim + d];
+    for (int d = 0; d < D; ++d) fr[d] = a.frac[p * D + d];
 #pragma unroll
     for (int q = 0; q < kTN; ++q) {
       const int n = n0 + tx * kTN + q;
       if (n >= a.w) continue;
-      float pre = acc[s2 * kChains][q];
+      float pre = acc[s2 * J::kChains][q];
 #pragma unroll
-      for (int d = 0; d < kDim; ++d) pre += fr[d] * a.wxr[(long long)d * a.s + n];
+      for (int d = 0; d < D; ++d) pre += fr[d] * a.wxr[(long long)d * a.s + n];
       pre += a.cb[(long long)k * a.s + n];
       const bool pos = pre >= 0.f;
       const float m = pos ? 1.f : a.slope;
-      const long long base = r * kChains * a.w + n;
+      const long long base = r * J::kChains * a.w + n;
       a.x[base] = m * pre;
 #pragma unroll
-      for (int t = 0; t < kDim; ++t)
+      for (int t = 0; t < D; ++t)
         a.x[base + (long long)(t + 1) * a.w] =
-            m * (acc[s2 * kChains + 1 + t][q] + a.wxr[(long long)t * a.s + n]);
+            m * (acc[s2 * J::kChains + 1 + t][q] +
+                 a.wxr[(long long)t * a.s + n]);
       a.mask[r * a.w + n] = pos ? 1 : 0;
     }
   }
@@ -257,11 +299,13 @@ __global__ void __launch_bounds__(kThreads) jet_layer_kernel(LayerArgs a) {
 // Jet-block coefficients of one point: coef[blk][k * CH + c] (zeroed by the
 // caller) so that block blk = sum_{k,c} coef X4[p, k, c]. Thread k < 2^D
 // fills corner k's columns.
+template <int D>
 __device__ void fill_coefs(const float* fr, float* coef, int k) {
-  float f[kDim], sg[kDim];
+  using J = Jet<D>;
+  float f[D], sg[D];
 #pragma unroll
-  for (int d = 0; d < kDim; ++d) {
-    const bool bit = (k >> (kDim - 1 - d)) & 1;
+  for (int d = 0; d < D; ++d) {
+    const bool bit = (k >> (D - 1 - d)) & 1;
     f[d] = bit ? fr[d] : 1.f - fr[d];
     sg[d] = bit ? 1.f : -1.f;
   }
@@ -269,20 +313,20 @@ __device__ void fill_coefs(const float* fr, float* coef, int k) {
   auto prod = [&](int e1, int e2) {
     float v = 1.f;
 #pragma unroll
-    for (int d = 0; d < kDim; ++d)
+    for (int d = 0; d < D; ++d)
       if (d != e1 && d != e2) v *= f[d];
     return v;
   };
-  const int col = k * kChains;
-  coef[0 * kRowsPerPoint + col] = prod(-1, -1);
-  for (int a = 0; a < kDim; ++a) {
-    coef[(1 + a) * kRowsPerPoint + col] = sg[a] * prod(a, -1);
-    coef[(1 + a) * kRowsPerPoint + col + 1 + a] = prod(-1, -1);
+  const int col = k * J::kChains;
+  coef[0 * J::kRowsPerPoint + col] = prod(-1, -1);
+  for (int a = 0; a < D; ++a) {
+    coef[(1 + a) * J::kRowsPerPoint + col] = sg[a] * prod(a, -1);
+    coef[(1 + a) * J::kRowsPerPoint + col + 1 + a] = prod(-1, -1);
   }
-  int blk = 1 + kDim;
-  for (int a = 0; a < kDim; ++a) {
-    for (int b = a; b < kDim; ++b, ++blk) {
-      float* row = coef + blk * kRowsPerPoint + col;
+  int blk = 1 + D;
+  for (int a = 0; a < D; ++a) {
+    for (int b = a; b < D; ++b, ++blk) {
+      float* row = coef + blk * J::kRowsPerPoint + col;
       row[1 + b] += sg[a] * prod(a, -1);
       row[1 + a] += sg[b] * prod(b, -1);
       if (a != b) row[0] = sg[a] * sg[b] * prod(a, b);
@@ -292,49 +336,52 @@ __device__ void fill_coefs(const float* fr, float* coef, int k) {
 
 // Forward head: blend the chain rows into the jet blocks, then W5 (+ b5 on
 // the value block). One column j per thread; a block walks `ppb` points.
+template <int D>
 __global__ void jet_head_fwd_kernel(const float* __restrict__ x4,
                                     const float* __restrict__ frac,
                                     const float* __restrict__ w5,
                                     const float* __restrict__ b5,
                                     float* __restrict__ out, int n, int nf,
                                     int out_dim, int ppb) {
+  using J = Jet<D>;
   extern __shared__ float sm[];
-  float* coef = sm;                                  // [blocks][32]
-  float* stk = sm + kBlocksOut * kRowsPerPoint;      // [blocks][nf]
+  float* coef = sm;                                    // [blocks][rows/pt]
+  float* stk = sm + J::kBlocksOut * J::kRowsPerPoint;  // [blocks][nf]
   const int j = threadIdx.x;
   const int p_begin = (int)blockIdx.x * ppb;
   const int p_end = min(n, p_begin + ppb);
   for (int p = p_begin; p < p_end; ++p) {
     __syncthreads();
-    for (int i = j; i < kBlocksOut * kRowsPerPoint; i += blockDim.x)
+    for (int i = j; i < J::kBlocksOut * J::kRowsPerPoint; i += blockDim.x)
       coef[i] = 0.f;
     __syncthreads();
-    if (j < kCorners) fill_coefs(frac + (long long)p * kDim, coef, j);
+    if (j < J::kCorners) fill_coefs<D>(frac + (long long)p * D, coef, j);
     __syncthreads();
     if (j < nf) {
-      float acc[kBlocksOut] = {};
-      for (int kc = 0; kc < kRowsPerPoint; ++kc) {
-        const float x = x4[((long long)p * kRowsPerPoint + kc) * nf + j];
+      float acc[J::kBlocksOut] = {};
+      for (int kc = 0; kc < J::kRowsPerPoint; ++kc) {
+        const float x = x4[((long long)p * J::kRowsPerPoint + kc) * nf + j];
 #pragma unroll
-        for (int b = 0; b < kBlocksOut; ++b)
-          acc[b] += coef[b * kRowsPerPoint + kc] * x;
+        for (int b = 0; b < J::kBlocksOut; ++b)
+          acc[b] += coef[b * J::kRowsPerPoint + kc] * x;
       }
 #pragma unroll
-      for (int b = 0; b < kBlocksOut; ++b) stk[b * nf + j] = acc[b];
+      for (int b = 0; b < J::kBlocksOut; ++b) stk[b * nf + j] = acc[b];
     }
     __syncthreads();
-    for (int t = j; t < kBlocksOut * out_dim; t += blockDim.x) {
+    for (int t = j; t < J::kBlocksOut * out_dim; t += blockDim.x) {
       const int b = t / out_dim, o = t % out_dim;
       float s = 0.f;
       for (int jj = 0; jj < nf; ++jj) s += stk[b * nf + jj] * w5[jj * out_dim + o];
       if (b == 0) s += b5[o];
-      out[((long long)p * kBlocksOut + b) * out_dim + o] = s;
+      out[((long long)p * J::kBlocksOut + b) * out_dim + o] = s;
     }
   }
 }
 
 // Backward head: ybar -> P_4 = Xbar_4 * m_4, and per-block partial sums of
 // dW5 ([nf, out]) and db5 ([out]), laid out [blocks][nf * out + out].
+template <int D>
 __global__ void jet_head_bwd_kernel(const float* __restrict__ x4,
                                     const uint8_t* __restrict__ mask4,
                                     const float* __restrict__ frac,
@@ -343,8 +390,9 @@ __global__ void jet_head_bwd_kernel(const float* __restrict__ x4,
                                     float* __restrict__ p4,
                                     float* __restrict__ part, int n, int nf,
                                     int out_dim, float slope, int ppb) {
-  __shared__ float coef[kBlocksOut * kRowsPerPoint];
-  __shared__ float yb[kBlocksOut * kMaxOut];
+  using J = Jet<D>;
+  __shared__ float coef[J::kBlocksOut * J::kRowsPerPoint];
+  __shared__ float yb[J::kBlocksOut * kMaxOut];
   const int j = threadIdx.x;
   float dw5[kMaxOut] = {};
   float db5 = 0.f;
@@ -352,41 +400,41 @@ __global__ void jet_head_bwd_kernel(const float* __restrict__ x4,
   const int p_end = min(n, p_begin + ppb);
   for (int p = p_begin; p < p_end; ++p) {
     __syncthreads();
-    for (int i = j; i < kBlocksOut * kRowsPerPoint; i += blockDim.x)
+    for (int i = j; i < J::kBlocksOut * J::kRowsPerPoint; i += blockDim.x)
       coef[i] = 0.f;
-    for (int i = j; i < kBlocksOut * out_dim; i += blockDim.x)
+    for (int i = j; i < J::kBlocksOut * out_dim; i += blockDim.x)
       yb[(i / out_dim) * kMaxOut + i % out_dim] =
-          ybar[(long long)p * kBlocksOut * out_dim + i];
+          ybar[(long long)p * J::kBlocksOut * out_dim + i];
     __syncthreads();
-    if (j < kCorners) fill_coefs(frac + (long long)p * kDim, coef, j);
+    if (j < J::kCorners) fill_coefs<D>(frac + (long long)p * D, coef, j);
     __syncthreads();
     if (j < out_dim) db5 += yb[j];
     if (j >= nf) continue;
-    float bar[kBlocksOut], stk[kBlocksOut];
+    float bar[J::kBlocksOut], stk[J::kBlocksOut];
 #pragma unroll
-    for (int b = 0; b < kBlocksOut; ++b) {
+    for (int b = 0; b < J::kBlocksOut; ++b) {
       float s = 0.f;
       for (int o = 0; o < out_dim; ++o) s += yb[b * kMaxOut + o] * w5[j * out_dim + o];
       bar[b] = s;
       stk[b] = 0.f;
     }
-    for (int kc = 0; kc < kRowsPerPoint; ++kc) {
-      const long long idx = ((long long)p * kRowsPerPoint + kc) * nf + j;
+    for (int kc = 0; kc < J::kRowsPerPoint; ++kc) {
+      const long long idx = ((long long)p * J::kRowsPerPoint + kc) * nf + j;
       const float x = x4[idx];
       float xb = 0.f;
 #pragma unroll
-      for (int b = 0; b < kBlocksOut; ++b) {
-        const float cf = coef[b * kRowsPerPoint + kc];
+      for (int b = 0; b < J::kBlocksOut; ++b) {
+        const float cf = coef[b * J::kRowsPerPoint + kc];
         stk[b] += cf * x;
         xb += cf * bar[b];
       }
-      const long long r = (long long)p * kCorners + kc / kChains;
+      const long long r = (long long)p * J::kCorners + kc / J::kChains;
       p4[idx] = mask4[r * nf + j] ? xb : slope * xb;
     }
     for (int o = 0; o < out_dim; ++o) {
       float s = 0.f;
 #pragma unroll
-      for (int b = 0; b < kBlocksOut; ++b) s += stk[b] * yb[b * kMaxOut + o];
+      for (int b = 0; b < J::kBlocksOut; ++b) s += stk[b] * yb[b * kMaxOut + o];
       dw5[o] += s;
     }
   }
@@ -398,7 +446,7 @@ __global__ void jet_head_bwd_kernel(const float* __restrict__ x4,
 
 // ---------------------------------------------------------------------------
 // C[M, N] (+)= A[M, K] @ B[N, K]^T, optionally times the layer mask
-// (row q of C belongs to corner row q / CH).
+// (row q of C belongs to corner row q / Chains).
 struct NTArgs {
   const float* a;
   long long lda;
@@ -409,11 +457,12 @@ struct NTArgs {
   long long m;
   int n, k;
   int accumulate;
-  const uint8_t* mask;  // [M / CH, mask_ld] or null
+  const uint8_t* mask;  // [M / Chains, mask_ld] or null
   int mask_ld;
   float slope;
 };
 
+template <int Chains>
 __global__ void __launch_bounds__(kThreads) gemm_nt_kernel(NTArgs g) {
   __shared__ __align__(16) float As[kBK][kPadM];
   __shared__ __align__(16) float Bs[kBK][kPadN];
@@ -435,7 +484,7 @@ __global__ void __launch_bounds__(kThreads) gemm_nt_kernel(NTArgs g) {
       Bs[k][n] = (gn < g.n && gk < g.k) ? g.b[gn * g.ldb + gk] : 0.f;
     }
     __syncthreads();
-    mma_tile(acc, As, Bs, ty, tx);
+    mma_tile<kTM, kPadM>(acc, As, Bs, ty, tx);
     __syncthreads();
   }
 #pragma unroll
@@ -447,7 +496,7 @@ __global__ void __launch_bounds__(kThreads) gemm_nt_kernel(NTArgs g) {
       const int col = n0 + tx * kTN + q;
       if (col >= g.n) continue;
       float v = acc[j][q];
-      if (g.mask && !g.mask[(row / kChains) * g.mask_ld + col]) v *= g.slope;
+      if (g.mask && !g.mask[(row / Chains) * g.mask_ld + col]) v *= g.slope;
       float* dst = g.c + row * g.ldc + col;
       *dst = g.accumulate ? *dst + v : v;
     }
@@ -490,7 +539,7 @@ __global__ void __launch_bounds__(kThreads) gemm_tn_kernel(TNArgs g) {
       Bs[k][n] = (gm < m_end && gn < g.nb) ? g.b[gm * g.ldb + gn] : 0.f;
     }
     __syncthreads();
-    mma_tile(acc, As, Bs, ty, tx);
+    mma_tile<kTM, kPadM>(acc, As, Bs, ty, tx);
     __syncthreads();
   }
   float* dst = g.part + (long long)blockIdx.z * g.ka * g.nb;
@@ -509,34 +558,36 @@ __global__ void __launch_bounds__(kThreads) gemm_tn_kernel(TNArgs g) {
 // Per-chunk partials of the layer's bias-side gradients, [chunks][K + D][w]:
 // rows k < K: sum_p P[p, k, primal]; rows K + a: sum_p frac_pa
 // sum_k P[p, k, primal] + sum_{p,k} P[p, k, tangent a].
+template <int D>
 __global__ void bias_grad_kernel(const float* __restrict__ pbuf,
                                  const float* __restrict__ frac, int n,
                                  int w, int ppc, float* __restrict__ part) {
+  using J = Jet<D>;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= w) return;
-  float cb[kCorners] = {}, xr[kDim] = {};
+  float cb[J::kCorners] = {}, xr[D] = {};
   const int p_begin = (int)blockIdx.y * ppc;
   const int p_end = min(n, p_begin + ppc);
   for (int p = p_begin; p < p_end; ++p) {
     float s = 0.f;
 #pragma unroll
-    for (int k = 0; k < kCorners; ++k) {
+    for (int k = 0; k < J::kCorners; ++k) {
       const long long base =
-          ((long long)p * kRowsPerPoint + k * kChains) * w + j;
+          ((long long)p * J::kRowsPerPoint + k * J::kChains) * w + j;
       const float v = pbuf[base];
       cb[k] += v;
       s += v;
 #pragma unroll
-      for (int d = 0; d < kDim; ++d) xr[d] += pbuf[base + (long long)(d + 1) * w];
+      for (int d = 0; d < D; ++d) xr[d] += pbuf[base + (long long)(d + 1) * w];
     }
 #pragma unroll
-    for (int d = 0; d < kDim; ++d) xr[d] += frac[(long long)p * kDim + d] * s;
+    for (int d = 0; d < D; ++d) xr[d] += frac[(long long)p * D + d] * s;
   }
-  float* dst = part + (long long)blockIdx.y * (kCorners + kDim) * w + j;
+  float* dst = part + (long long)blockIdx.y * (J::kCorners + D) * w + j;
 #pragma unroll
-  for (int k = 0; k < kCorners; ++k) dst[(long long)k * w] = cb[k];
+  for (int k = 0; k < J::kCorners; ++k) dst[(long long)k * w] = cb[k];
 #pragma unroll
-  for (int d = 0; d < kDim; ++d) dst[(long long)(kCorners + d) * w] = xr[d];
+  for (int d = 0; d < D; ++d) dst[(long long)(J::kCorners + d) * w] = xr[d];
 }
 
 // out[e / cols, e % cols] (stride ldo) = sum_z part[z * stride + e], z in
@@ -562,7 +613,7 @@ __global__ void reduce_kernel(const float* __restrict__ part, int chunks,
   } while (0)
 
 struct Shape {
-  int n, c, nf, out_dim;
+  int n, c, dim, nf, out_dim;
   long long rows;  // R = N * 2^D corner rows
   int s;           // 31 nf
   int w[kLayers];
@@ -570,11 +621,11 @@ struct Shape {
 };
 
 bool make_shape(int n, int c, int dim, int nf, int out_dim, Shape* sh) {
-  if (dim != kDim || n < 0 || c < 1 || nf < 1 || out_dim < 1 ||
+  if ((dim != 3 && dim != 4) || n < 0 || c < 1 || nf < 1 || out_dim < 1 ||
       out_dim > kMaxOut || nf > 1024)
     return false;
-  sh->n = n, sh->c = c, sh->nf = nf, sh->out_dim = out_dim;
-  sh->rows = (long long)n * kCorners;
+  sh->n = n, sh->c = c, sh->dim = dim, sh->nf = nf, sh->out_dim = out_dim;
+  sh->rows = (long long)n << dim;
   int off = 0;
   for (int i = 0; i < kLayers; ++i) {
     sh->w[i] = nf * kMults[i];
@@ -583,6 +634,12 @@ bool make_shape(int n, int c, int dim, int nf, int out_dim, Shape* sh) {
   }
   sh->s = off;
   return true;
+}
+
+// f(Jet<D>{}) for the shape's D (make_shape admits 3 and 4 only).
+template <typename F>
+auto by_dim(const Shape& sh, F&& f) {
+  return sh.dim == 3 ? f(Jet<3>{}) : f(Jet<4>{});
 }
 
 // Row chunks of a reduction over `m` rows into `tiles` output tiles.
@@ -617,7 +674,7 @@ constexpr int kHeadPoints = 64;  // points a head block walks
 int head_threads(int nf) { return cdiv(nf, 32) * 32; }
 
 long long fwd_workspace_bytes(const Shape& sh) {
-  return sh.rows * kChains * sh.s * (long long)sizeof(float) +
+  return sh.rows * (sh.dim + 1) * sh.s * (long long)sizeof(float) +
          sh.rows * sh.s;
 }
 
@@ -625,20 +682,22 @@ long long fwd_workspace_bytes(const Shape& sh) {
 // 8 nf alternate) and one partial-sum buffer shared by every reduction.
 void bwd_layout(const Shape& sh, long long* buf_a, long long* buf_b,
                 long long* part) {
-  *buf_a = sh.rows * kChains * sh.w[0];
-  *buf_b = sh.rows * kChains * sh.w[1];
+  const int chains = sh.dim + 1, corners = 1 << sh.dim;
+  *buf_a = sh.rows * chains * sh.w[0];
+  *buf_b = sh.rows * chains * sh.w[1];
   long long p = (long long)cdiv(sh.n, kHeadPoints) *
                 (sh.nf * sh.out_dim + sh.out_dim);
   for (int i = 0; i < kLayers; ++i) {
     const int w = sh.w[i];
     if (i > 0) {
-      const long long t = tn_partial_floats(sh.rows * kChains, sh.w[i - 1], w);
+      const long long t = tn_partial_floats(sh.rows * chains, sh.w[i - 1], w);
       p = t > p ? t : p;
     }
     const long long f = tn_partial_floats(sh.rows, sh.c, w);
     p = f > p ? f : p;
     int ppc;
-    const long long b = (long long)bias_chunks(sh, w, &ppc) * (kCorners + kDim) * w;
+    const long long b =
+        (long long)bias_chunks(sh, w, &ppc) * (corners + sh.dim) * w;
     p = b > p ? b : p;
   }
   *part = p;
@@ -657,7 +716,7 @@ void fwd_views(const Shape& sh, void* ws, float* x[kLayers],
   long long fo = 0;
   for (int i = 0; i < kLayers; ++i) {
     x[i] = xf + fo;
-    fo += sh.rows * kChains * sh.w[i];
+    fo += sh.rows * (sh.dim + 1) * sh.w[i];
   }
   uint8_t* mb = reinterpret_cast<uint8_t*>(xf + fo);
   long long mo = 0;
@@ -690,20 +749,23 @@ int gemm_tn(const float* a, long long lda, const float* b, long long ldb,
   return reduce(part, chunks, (long long)ka * nb, ka, nb, out, ldo, st);
 }
 
+template <int Chains>
 int gemm_nt(const float* a, long long lda, const float* b, long long ldb,
             float* c, long long ldc, long long m, int n, int k, int accumulate,
             const uint8_t* mask, int mask_ld, float slope, cudaStream_t st) {
   if (m == 0) return 0;
   NTArgs g{a, lda, b, ldb, c, ldc, m, n, k, accumulate, mask, mask_ld, slope};
   dim3 grid(cdiv(m, kBM), cdiv(n, kBN));
-  gemm_nt_kernel<<<grid, kThreads, 0, st>>>(g);
+  gemm_nt_kernel<Chains><<<grid, kThreads, 0, st>>>(g);
   STPDE_LAUNCH_CHECK();
   return 0;
 }
 
+template <class J>
 int run_forward(const Shape& sh, const float* feats, const float* frac,
                 const Weights& wt, float* out, void* ws, float slope,
                 cudaStream_t st) {
+  constexpr int D = J::kDim;
   float* x[kLayers];
   uint8_t* mask[kLayers];
   fwd_views(sh, ws, x, mask);
@@ -712,25 +774,27 @@ int run_forward(const Shape& sh, const float* feats, const float* frac,
                 i ? sh.w[i - 1] : 0, feats, wt.wx_feat + sh.off[i],
                 wt.wx_rel + sh.off[i], wt.corner_bias + sh.off[i], sh.c,
                 sh.s, frac, x[i], mask[i], (int)sh.rows, sh.w[i], slope};
-    dim3 grid(cdiv(sh.rows * kChains, kBM), cdiv(sh.w[i], kBN));
-    jet_layer_kernel<<<grid, kThreads, 0, st>>>(a);
+    dim3 grid(cdiv(sh.rows * J::kChains, J::kBM), cdiv(sh.w[i], kBN));
+    jet_layer_kernel<D><<<grid, kThreads, 0, st>>>(a);
     STPDE_LAUNCH_CHECK();
   }
   const int threads = head_threads(sh.nf);
   const size_t smem =
-      sizeof(float) * (size_t)kBlocksOut * (kRowsPerPoint + sh.nf);
+      sizeof(float) * (size_t)J::kBlocksOut * (J::kRowsPerPoint + sh.nf);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  jet_head_fwd_kernel<<<cdiv(sh.n, kHeadPoints), threads, smem, st>>>(
+  jet_head_fwd_kernel<D><<<cdiv(sh.n, kHeadPoints), threads, smem, st>>>(
       x[kLayers - 1], frac, wt.w5, wt.b5, out, sh.n, sh.nf, sh.out_dim,
       kHeadPoints);
   STPDE_LAUNCH_CHECK();
   return 0;
 }
 
+template <class J>
 int run_backward(const Shape& sh, const float* feats, const float* frac,
                  const Weights& wt, void* fws, const float* ybar,
                  float* dfeats, const Grads& gr, void* bws, float slope,
                  cudaStream_t st) {
+  constexpr int D = J::kDim;
   float* x[kLayers];
   uint8_t* mask[kLayers];
   fwd_views(sh, fws, x, mask);
@@ -739,12 +803,12 @@ int run_backward(const Shape& sh, const float* feats, const float* frac,
   float* buf_a = static_cast<float*>(bws);
   float* buf_b = buf_a + na;
   float* part = buf_b + nb;
-  const long long mrows = sh.rows * kChains;
+  const long long mrows = sh.rows * J::kChains;
 
   // Head: P_4 into buf_a (layer widths alternate buffers: 4, 2, 0 -> a).
   const int hblocks = cdiv(sh.n, kHeadPoints);
   if (sh.n > 0) {
-    jet_head_bwd_kernel<<<hblocks, head_threads(sh.nf), 0, st>>>(
+    jet_head_bwd_kernel<D><<<hblocks, head_threads(sh.nf), 0, st>>>(
         x[4], mask[4], frac, wt.w5, ybar, buf_a, part, sh.n, sh.nf,
         sh.out_dim, slope, kHeadPoints);
     STPDE_LAUNCH_CHECK();
@@ -760,7 +824,7 @@ int run_backward(const Shape& sh, const float* feats, const float* frac,
   float* cur = buf_a;
   for (int i = kLayers - 1; i >= 0; --i) {
     const int w = sh.w[i];
-    const long long ldp = (long long)kChains * w;  // primal-row stride
+    const long long ldp = (long long)J::kChains * w;  // primal-row stride
     float* nxt = cur == buf_a ? buf_b : buf_a;
     if (i > 0) {
       e = gemm_tn(x[i - 1], sh.w[i - 1], cur, w, mrows, sh.w[i - 1], w, part,
@@ -774,22 +838,25 @@ int run_backward(const Shape& sh, const float* feats, const float* frac,
     const int bchunks = bias_chunks(sh, w, &ppc);
     if (sh.n > 0) {
       dim3 grid(cdiv(w, 128), bchunks);
-      bias_grad_kernel<<<grid, 128, 0, st>>>(cur, frac, sh.n, w, ppc, part);
+      bias_grad_kernel<D><<<grid, 128, 0, st>>>(cur, frac, sh.n, w, ppc,
+                                                part);
       STPDE_LAUNCH_CHECK();
     }
-    const long long bstride = (long long)(kCorners + kDim) * w;
-    e = reduce(part, sh.n > 0 ? bchunks : 0, bstride, kCorners, w,
+    const long long bstride = (long long)(J::kCorners + D) * w;
+    e = reduce(part, sh.n > 0 ? bchunks : 0, bstride, J::kCorners, w,
                gr.corner_bias + sh.off[i], sh.s, st);
     if (e) return e;
-    e = reduce(part + (long long)kCorners * w, sh.n > 0 ? bchunks : 0,
-               bstride, kDim, w, gr.wx_rel + sh.off[i], sh.s, st);
+    e = reduce(part + (long long)J::kCorners * w, sh.n > 0 ? bchunks : 0,
+               bstride, D, w, gr.wx_rel + sh.off[i], sh.s, st);
     if (e) return e;
-    e = gemm_nt(cur, ldp, wt.wx_feat + sh.off[i], sh.s, dfeats, sh.c,
-                sh.rows, sh.c, w, i != kLayers - 1, nullptr, 0, slope, st);
+    e = gemm_nt<J::kChains>(cur, ldp, wt.wx_feat + sh.off[i], sh.s, dfeats,
+                            sh.c, sh.rows, sh.c, w, i != kLayers - 1,
+                            nullptr, 0, slope, st);
     if (e) return e;
     if (i > 0) {
-      e = gemm_nt(cur, w, wt.wh[i - 1], w, nxt, sh.w[i - 1], mrows,
-                  sh.w[i - 1], w, 0, mask[i - 1], sh.w[i - 1], slope, st);
+      e = gemm_nt<J::kChains>(cur, w, wt.wh[i - 1], w, nxt, sh.w[i - 1],
+                              mrows, sh.w[i - 1], w, 0, mask[i - 1],
+                              sh.w[i - 1], slope, st);
       if (e) return e;
       cur = nxt;
     }
@@ -827,6 +894,7 @@ long long stpde_jet_bwd_workspace(int n, int c, int dim, int nf,
 
 // feats2 [N * 2^D, C], frac [N, D], packed weights -> out
 // [N, 1 + D + D(D+1)/2, out_dim]; workspace: stpde_jet_fwd_workspace bytes.
+// D is 3 or 4.
 int stpde_jet_fwd(const float* feats2, const float* frac,
                   const float* wx_feat, const float* wx_rel,
                   const float* corner_bias, const float* wh1,
@@ -838,10 +906,12 @@ int stpde_jet_fwd(const float* feats2, const float* frac,
   if (!make_shape(n, c, dim, nf, out_dim, &sh))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  return run_forward(sh, feats2, frac,
-                     pack(wx_feat, wx_rel, corner_bias, wh1, wh2, wh3, wh4,
-                          w5, b5),
-                     out, workspace, slope, (cudaStream_t)stream);
+  const Weights wt =
+      pack(wx_feat, wx_rel, corner_bias, wh1, wh2, wh3, wh4, w5, b5);
+  return by_dim(sh, [&](auto j) {
+    return run_forward<decltype(j)>(sh, feats2, frac, wt, out, workspace,
+                                    slope, (cudaStream_t)stream);
+  });
 }
 
 // Backward of stpde_jet_fwd for the cotangent ybar (same layout as out),
@@ -864,7 +934,7 @@ int stpde_jet_bwd(const float* feats2, const float* frac,
   if (n == 0) {
     // No rows: every gradient is zero.
     const size_t sizes[] = {
-        (size_t)c * sh.s, (size_t)kDim * sh.s, (size_t)kCorners * sh.s,
+        (size_t)c * sh.s, (size_t)dim * sh.s, ((size_t)1 << dim) * sh.s,
         (size_t)sh.w[0] * sh.w[1], (size_t)sh.w[1] * sh.w[2],
         (size_t)sh.w[2] * sh.w[3], (size_t)sh.w[3] * sh.w[4],
         (size_t)nf * out_dim, (size_t)out_dim};
@@ -877,13 +947,14 @@ int stpde_jet_bwd(const float* feats2, const float* frac,
     }
     return 0;
   }
-  return run_backward(
-      sh, feats2, frac,
-      pack(wx_feat, wx_rel, corner_bias, wh1, wh2, wh3, wh4, w5, b5),
-      fwd_workspace, ybar, dfeats,
-      Grads{d_wx_feat, d_wx_rel, d_corner_bias, {d_wh1, d_wh2, d_wh3, d_wh4},
-            d_w5, d_b5},
-      workspace, slope, st);
+  const Weights wt =
+      pack(wx_feat, wx_rel, corner_bias, wh1, wh2, wh3, wh4, w5, b5);
+  const Grads gr{d_wx_feat, d_wx_rel, d_corner_bias,
+                 {d_wh1, d_wh2, d_wh3, d_wh4}, d_w5, d_b5};
+  return by_dim(sh, [&](auto j) {
+    return run_backward<decltype(j)>(sh, feats2, frac, wt, fwd_workspace,
+                                     ybar, dfeats, gr, workspace, slope, st);
+  });
 }
 
 }  // extern "C"

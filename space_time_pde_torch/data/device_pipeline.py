@@ -28,10 +28,19 @@ from space_time_pde_torch.ops.grid_interp import (
 __all__ = ["DeviceSampler"]
 
 
+def _crop_geometry(ds):
+    """(crop_sizes, lres_sizes) of the 3-D ``RB2DataLoader`` or the 4-D
+    ``Field4DDataset``."""
+    if hasattr(ds, "crop"):            # Field4DDataset
+        return tuple(ds.crop), tuple(ds.lres)
+    return (ds.nt, ds.nz, ds.nx), (ds.nt_l, ds.nz_l, ds.nx_l)
+
+
 class DeviceSampler:
-    """Device-side ``sample_batch`` of an :class:`RB2DataLoader` (its
-    stats and crop geometry): ``batch_fn(origins [B, 3], pts [B, N, 3])``
-    -> the host pipeline's batch dict, on ``device``."""
+    """Device-side ``sample_batch`` of an :class:`RB2DataLoader` or a
+    :class:`Field4DDataset` (its stats and crop geometry):
+    ``batch_fn(origins [B, D], pts [B, N, D])`` -> the host pipeline's
+    batch dict, on ``device``."""
 
     def __init__(self, ds, device):
         if getattr(ds, "lres_filter", "none") != "none":
@@ -49,11 +58,10 @@ class DeviceSampler:
                                     device=self.device)
         self.std = torch.as_tensor(ds.channel_std, dtype=torch.float32,
                                    device=self.device)
-        self.crop_sizes = (ds.nt, ds.nz, ds.nx)
-        self.lres_sizes = (ds.nt_l, ds.nz_l, ds.nx_l)
+        self.crop_sizes, self.lres_sizes = _crop_geometry(ds)
         self.dim = len(self.crop_sizes)
-        self.lres_interp = ds.lres_interp
-        self.velonly = ds.velonly
+        self.lres_interp = getattr(ds, "lres_interp", "linear")
+        self.velonly = getattr(ds, "velonly", False)
         self._origins = ds._origins
         self._valid_t0 = np.asarray(ds.valid_t0, np.int32)
         self.n_samp_pts = ds.n_samp_pts_per_crop
@@ -115,7 +123,7 @@ class DeviceSampler:
         return torch.einsum("bnkc,bnk->bnc", feats, weights)
 
     def batch_fn(self, origins, pts) -> Dict[str, torch.Tensor]:
-        """(origins [B, 3], pts [B, N, 3]) -> normalised batch dict."""
+        """(origins [B, D], pts [B, N, D]) -> normalised batch dict."""
         origins = torch.as_tensor(origins, device=self.device)
         pts = torch.as_tensor(pts, device=self.device)
         b = pts.shape[0]

@@ -26,9 +26,9 @@ CPU tensor it runs the plain twin in this module: :func:`jet_fwd_plain`
 computes the forward math in PyTorch, and :func:`jet_bwd_plain` is
 autograd through it, a derivation independent of the backward kernel.
 
-The kernels are f32 and D = 3 only (the rb2d flagship); a bf16
-``compute_dtype`` raises ``NotImplementedError``, and so does another D
-on the card (the 4-D stack runs the twins until the turb3d slice). A
+The kernels are f32 and take D = 3 (8 corners, the rb2d family) and
+D = 4 (16 corners, the turb3d family); a bf16 ``compute_dtype`` raises
+``NotImplementedError``, and so does another D on the card. A
 non-piecewise-linear activation raises ``ValueError``; ``relu`` is
 LeakyReLU with slope 0.
 
@@ -61,10 +61,11 @@ __all__ = [
     "jet_bwd",
     "jet_fwd_plain",
     "jet_bwd_plain",
+    "workspace_masks",
     "fused_query_jet",
 ]
 
-KERNEL_DIM = 3
+KERNEL_DIMS = (3, 4)
 
 LAUNCHES = {"jet_fwd": 0, "jet_bwd": 0}
 
@@ -93,11 +94,18 @@ def _n_blocks(dim: int) -> int:
     return 1 + dim + len(tri_pairs(dim))
 
 
-def jet_fwd_plain(feats2, frac, packed, *, nf: int,
-                  slope: float = 0.01) -> torch.Tensor:
+def jet_fwd_plain(feats2, frac, packed, *, nf: int, slope: float = 0.01,
+                  masks=None, return_pre: bool = False):
     """Plain PyTorch twin of :func:`jet_fwd`: feats2 ``[N*2^D, C]``,
     frac ``[N, D]`` -> ``[N, blocks, O]`` (value, jac_a, hess_ab for
-    a <= b)."""
+    a <= b).
+
+    ``masks``: the five layers' branch decisions to use in place of
+    ``pre >= 0`` (``[N*2^D, w_i]`` bool, e.g. a kernel's, from
+    :func:`workspace_masks`); ``return_pre``: also return the five
+    primal pre-activations ``[N, 2^D, w_i]``. Both serve the card
+    checks, which tell a LeakyReLU branch flip at a pre-activation
+    within rounding of 0 from an arithmetic fault."""
     n, dim = frac.shape
     k = 2 ** dim
     feats = feats2.reshape(n, k, feats2.shape[-1])
@@ -114,14 +122,21 @@ def jet_fwd_plain(feats2, frac, packed, *, nf: int,
     def inj(i):                                      # [D, w_i]
         return wxr[:, bounds[i]:bounds[i + 1]]
 
+    pres = []
+
+    def branch(i, pre):
+        pres.append(pre)
+        pos = pre >= 0 if masks is None else masks[i].reshape(pre.shape)
+        return torch.where(pos, 1.0, slope).to(pre.dtype)
+
     pre = skip(0)
-    mask = torch.where(pre >= 0, 1.0, slope).to(pre.dtype)
+    mask = branch(0, pre)
     h = pre * mask
     g = mask[:, :, None] * inj(0)                    # [N, K, D, w_0]
     for i in range(1, 5):
         wh = packed[f"wh{i}"]
         pre = h @ wh + skip(i)
-        mask = torch.where(pre >= 0, 1.0, slope).to(pre.dtype)
+        mask = branch(i, pre)
         h = pre * mask
         g = mask[:, :, None] * (g @ wh + inj(i))
     w, dw, d2w = (t.to(h.dtype) for t in multilinear_weight_jet(frac))
@@ -139,21 +154,39 @@ def jet_fwd_plain(feats2, frac, packed, *, nf: int,
         blocks.append(acc)
     out = torch.stack(blocks, dim=1) @ packed["w5"]  # [N, blocks, O]
     value = out[:, :1] + packed["b5"]
-    return torch.cat([value, out[:, 1:]], dim=1)
+    out = torch.cat([value, out[:, 1:]], dim=1)
+    return (out, pres) if return_pre else out
 
 
 def jet_bwd_plain(feats2, frac, packed, ybar, *, nf: int,
-                  slope: float = 0.01
+                  slope: float = 0.01, masks=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Plain twin of :func:`jet_bwd`: autograd through
-    :func:`jet_fwd_plain` for the cotangent ``ybar [N, blocks, O]``."""
+    :func:`jet_fwd_plain` (with its ``masks``) for the cotangent
+    ``ybar [N, blocks, O]``."""
     with torch.enable_grad():
         f = feats2.detach().requires_grad_(True)
         ps = {name: packed[name].detach().requires_grad_(True)
               for name in _WEIGHTS}
-        out = jet_fwd_plain(f, frac.detach(), ps, nf=nf, slope=slope)
+        out = jet_fwd_plain(f, frac.detach(), ps, nf=nf, slope=slope,
+                            masks=masks)
         grads = torch.autograd.grad(out, [f, *ps.values()], ybar)
     return grads[0], dict(zip(_WEIGHTS, grads[1:]))
+
+
+def workspace_masks(workspace, n: int, dim: int, nf: int):
+    """The five layers' branch decisions that :func:`jet_fwd` stored in
+    its workspace (``csrc/fused_jet.cu``: every layer's chains, f32
+    ``[R, D+1, w_i]``, then every layer's masks, bytes ``[R, w_i]``,
+    R = N 2^D) -> ``[R, w_i]`` bool tensors."""
+    rows = n * 2 ** dim
+    widths = [nf * m for m in _MULTS]
+    start = 4 * rows * (dim + 1) * sum(widths)
+    out = []
+    for w in widths:
+        out.append(workspace[start:start + rows * w].view(rows, w).bool())
+        start += rows * w
+    return out
 
 
 def _kernel_args(feats2, frac, packed, *, nf: int):
@@ -166,10 +199,9 @@ def _kernel_args(feats2, frac, packed, *, nf: int):
     c = feats2.shape[-1]
     device = _check({"feats2": feats2, "frac": frac}, packed, n=n, c=c,
                     dim=dim, nf=nf)
-    if device.type == "cuda" and dim != KERNEL_DIM:
+    if device.type == "cuda" and dim not in KERNEL_DIMS:
         raise NotImplementedError(
-            f"the jet kernels take D = {KERNEL_DIM} (rb2d); D = {dim} runs "
-            "the plain twin on the CPU until the turb3d slice")
+            f"the jet kernels take D in {KERNEL_DIMS}, got D = {dim}")
     return device, n, c, dim, packed["w5"].shape[-1]
 
 

@@ -1,8 +1,8 @@
 """Training engine: models, initial state, loss and step functions.
 
 Counterpart of ``space_time_pde_tpu/train/trainer.py``. Encode the
-low-res crop with UNet3d, take the derivative jet of the local implicit
-grid at the sampled points, regression loss (l1 / l2 / huber) of the
+low-res crop with UNet3d (UNet4d for a 4-D crop), take the derivative
+jet of the local implicit grid at the sampled points, regression loss (l1 / l2 / huber) of the
 jet's value against the point ground truth, PDE residual loss from its
 Jacobian and Hessian, total = reg + alpha_pde * pde, and the optimizer
 of ``train/optim.py``.
@@ -33,7 +33,7 @@ import torch
 import torch.nn as nn
 
 from space_time_pde_torch.models import (
-    ImNet, UNet3d, query_local_implicit_grid)
+    ImNet, UNet3d, UNet4d, query_local_implicit_grid)
 from space_time_pde_torch.models.nonlinearities import PIECEWISE_LINEAR
 from space_time_pde_torch.ops.fused_jet import fused_query_jet
 from space_time_pde_torch.ops.fused_query import (
@@ -53,7 +53,7 @@ class TrainState:
     """Step count, the two models (their parameters are the trained
     state), the optimizer state and the run's generator."""
     step: int
-    unet: UNet3d
+    unet: nn.Module
     imnet: ImNet
     opt_state: Dict
     generator: torch.Generator
@@ -66,19 +66,35 @@ class TrainState:
         return out
 
 
-def build_models(cfg, lres_shape: Tuple[int, int, int],
-                 device="cpu") -> Tuple[UNet3d, ImNet]:
+def build_models(cfg, lres_shape: Tuple[int, ...],
+                 device="cpu") -> Tuple[nn.Module, ImNet]:
+    """The encoder and decoder for a low-res grid of ``lres_shape``:
+    UNet3d + ImNet(dim=3) for a (t, z, x) grid (rb2d), UNet4d +
+    ImNet(dim=4) for a (t, z, y, x) grid (turb3d, GroupNorm only, as in
+    the JAX package's ``experiments/turb3d/train.py``)."""
     m = cfg.model
     if m.use_bf16:
         raise NotImplementedError(
             "use_bf16: the port trains in f32 (its kernels are f32 only)")
-    unet = UNet3d(in_features=m.in_channels, out_features=m.lat_dims,
-                  igres=tuple(lres_shape), nf=m.unet_nf, mf=m.unet_mf,
-                  negative_slope=m.negative_slope, activation=m.activation,
-                  norm=m.norm)
-    imnet = ImNet(dim=3, in_features=m.lat_dims, out_features=m.out_channels,
-                  nf=m.imnet_nf, activation=m.activation,
-                  negative_slope=m.negative_slope)
+    dim = len(lres_shape)
+    if dim == 4:
+        if m.norm != "group":
+            raise ValueError(f"UNet4d has GroupNorm only, got norm "
+                             f"{m.norm!r}")
+        unet = UNet4d(in_features=m.in_channels, out_features=m.lat_dims,
+                      igres=tuple(lres_shape), nf=m.unet_nf, mf=m.unet_mf,
+                      negative_slope=m.negative_slope,
+                      activation=m.activation)
+    elif dim == 3:
+        unet = UNet3d(in_features=m.in_channels, out_features=m.lat_dims,
+                      igres=tuple(lres_shape), nf=m.unet_nf, mf=m.unet_mf,
+                      negative_slope=m.negative_slope,
+                      activation=m.activation, norm=m.norm)
+    else:
+        raise ValueError(f"no encoder for a {dim}-D grid {lres_shape}")
+    imnet = ImNet(dim=dim, in_features=m.lat_dims,
+                  out_features=m.out_channels, nf=m.imnet_nf,
+                  activation=m.activation, negative_slope=m.negative_slope)
     return unet.to(device), imnet.to(device)
 
 
@@ -100,7 +116,7 @@ def flax_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     norm scales 1 and offsets 0. Draws on the CPU from ``gen``, so a
     seed gives the same weights on any device."""
     for mod in module.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv3d)):
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv3d)):
             fan_in = mod.weight[0].numel()
         elif isinstance(mod, nn.ConvTranspose3d):
             fan_in = mod.weight.shape[0] * mod.weight[0, 0].numel()
@@ -116,7 +132,7 @@ def flax_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     return module
 
 
-def init_state(seed: int, unet: UNet3d, imnet: ImNet,
+def init_state(seed: int, unet: nn.Module, imnet: ImNet,
                opt: Optimizer) -> TrainState:
     gen = torch.Generator().manual_seed(seed)
     flax_init_(unet, gen)
@@ -142,10 +158,10 @@ def _reg_loss(kind: str, pred, target):
     raise ValueError(f"unknown reg_loss_type {kind!r}")
 
 
-def make_loss_fn(cfg, unet: UNet3d, imnet: ImNet, pde_layer):
+def make_loss_fn(cfg, unet: nn.Module, imnet: ImNet, pde_layer):
     """loss_fn(batch) -> (loss, metrics dict of 0-d tensors); batch:
-    lres [B,t,z,x,C], point_coord [B,N,3], point_value [B,N,V]. The
-    parameters are the models'."""
+    lres [B, *grid, C], point_coord [B, N, D], point_value [B, N, V]
+    (D = 3 for rb2d, 4 for turb3d). The parameters are the models'."""
     if cfg.model.norm == "batch":
         raise NotImplementedError(
             "norm='batch' training: BatchNorm's train mode is not ported "
@@ -198,10 +214,14 @@ def make_loss_fn(cfg, unet: UNet3d, imnet: ImNet, pde_layer):
 @contextlib.contextmanager
 def _without_cudnn():
     """The step's convolutions on PyTorch's own kernels (im2col + f32
-    GEMM), not cuDNN's: on the flagship step on an H100 (TF32 off),
-    cuDNN's f32 backward left the UNet's gradients a median 4.2x farther
-    from a float64 recomputation than JAX's f32 CPU step, PyTorch's own
-    0.4x (``chip_smoke.py``'s training-step phase)."""
+    GEMM), not cuDNN's: on the rb2d flagship step on an H100 (TF32 off),
+    cuDNN's f32 convolutions left the UNet's gradients a median 4.2x
+    farther from a float64 recomputation than JAX's f32 CPU step, and as
+    far (4.2x) with cuDNN in the forward only, so the loss is in cuDNN's
+    forward; PyTorch's own kernels in both directions 0.4x
+    (``chip_smoke.py``'s training-step phase). UNet4d's spatial
+    ``Conv3d`` takes the same path; its temporal conv is a plain matrix
+    product either way (``models/unet4d.py``)."""
     enabled = torch.backends.cudnn.enabled
     torch.backends.cudnn.enabled = False
     try:
@@ -247,7 +267,7 @@ def make_multi_step(loss_fn, opt: Optimizer, n_inner: int):
     return step
 
 
-def make_eval_fn(cfg, unet: UNet3d, imnet: ImNet):
+def make_eval_fn(cfg, unet: nn.Module, imnet: ImNet):
     """Relative L2 of predictions vs point ground truth (overall and per
     channel), through the fused decode (the CUDA decode kernel on a
     card) when ``fused_query`` is set."""

@@ -1,11 +1,12 @@
 """Import hygiene of the port: no JAX stack and no JAX package.
 
 Walks the AST of every ``.py`` under ``space_time_pde_torch/`` plus
-``chip_smoke.py`` and ``experiments/rb2d/{evaluation,train}_torch.py``.
+``chip_smoke.py`` and ``experiments/{rb2d,turb3d}/{evaluation,
+train}_torch.py``.
 (A ``sys.modules`` check cannot work: the test process imports jax for
 the parity tests.) Also holds the port's copies of JAX-free modules (the
-config's fields; the prefetcher, metrics logger and cliff detector,
-class for class) to the JAX package's.
+config's fields; the prefetcher, metrics logger, cliff detector and 4-D
+dataset, class for class) to the JAX package's.
 """
 
 import ast
@@ -23,10 +24,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "experiments", "rb2d",
-                          "evaluation_torch.py"),
-             os.path.join(ROOT, "experiments", "rb2d", "train_torch.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += [os.path.join(ROOT, "experiments", family, f"{name}_torch.py")
+              for family in ("rb2d", "turb3d")
+              for name in ("evaluation", "train")]
     for d, _, names in os.walk(os.path.join(ROOT, "space_time_pde_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -63,7 +64,8 @@ def test_config_copy_matches_jax():
 
 COPIES = [("data/prefetch.py", "data/prefetch.py", "BatchPrefetcher"),
           ("utils/logging.py", "utils/logging.py", "MetricsLogger"),
-          ("train/recovery.py", "train/recovery.py", "CliffDetector")]
+          ("train/recovery.py", "train/recovery.py", "CliffDetector"),
+          ("data/dataset4d.py", "data/dataset4d.py", "Field4DDataset")]
 
 
 @pytest.mark.parametrize("port,jax_path,cls", COPIES,

@@ -9,13 +9,17 @@ Phases (any failure raises and exits non-zero):
    (switched off);
 2. build every kernel from ``space_time_pde_torch/csrc`` (one nvcc per
    source, in parallel); print each kernel's registers and spills from
-   ptxas, both D instantiations of the jet kernels apart;
+   ptxas, both D instantiations of the jet kernels apart, and the decode
+   block's rows and dynamic shared memory at the flagship widths;
 3. both decode kernels against their plain PyTorch twins on the card,
    at the rb2d flagship widths (C = 64, nf = 64, D = 3, out = 4) on
    65,536 seeded points that include lattice faces, cell edges and
-   points outside the domain; tolerance rtol = atol = 1e-4 (both f32;
-   only the summation order and the order of the blend-before-head
-   rounding differ); CUDA-event times of both;
+   points outside the domain; tolerance rtol = atol = 1e-4 against the
+   f32 twin (the kernel's 3xTF32 products are f32-grade; the summation
+   order and the order of the blend-before-head rounding differ); and
+   against the twin run in float64 on the card, at most DECODE_SLACK
+   times as far from it as the f32 twin, ``|err| <= 1e-4 |ref| + atol
+   max|ref|`` (both distances printed); CUDA-event times of both;
 4. both jet kernels against their plain twins at the flagship widths on
    8,192 such points (the flagship step's count): the forward's value,
    Jacobian and Hessian blocks against ``jet_fwd_plain``, the backward's
@@ -77,8 +81,10 @@ corners):
     loss flags on three Beltrami realizations made here, 2 epochs x 8
     steps, then a resume; as phase 9;
 16. one JSON line of all four kernels (``path``: eval, train or
-    off_path; launches per path and per D; times, plain times and
-    bounds at D = 4, and at D = 3 under ``d3``), then the status line.
+    off_path; ``math``: tf32x3 or ffma; launches per path and per D;
+    times, plain times and bounds at D = 4, and at D = 3 under ``d3``:
+    ``bound_ms`` against the kernel's own arithmetic, ``bound_f32_ms``
+    against f32 FFMA), then the status line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -107,6 +113,7 @@ N_CHECK = 65536                 # points per decode kernel-vs-plain call
 N_JET = 8192                    # the flagship step: 8 crops x 1,024 points
 N_JET4 = 4096                   # the turb3d step: 4 crops x 1,024 points
 RTOL = ATOL = 1e-4              # decode kernel vs plain, f32 both
+DECODE_SLACK = 2.0              # decode vs float64: x the f32 twin's need
 # Port vs the JAX-CPU reference points, per point:
 #   |err| <= REF_RTOL * |ref| + REF_ATOL * max |ref|.
 # On this input the RB2D model's latents reach ~5e6 and its outputs
@@ -142,8 +149,12 @@ STEP_SLACK = 2.0
 TURB3D_REL_TOL = 1e-5
 REF_SLACK = 2.0                 # turb3d reference points: x JAX's own
 # The card's peaks (NVIDIA's H100 SXM data sheet, 700 W): f32 outside the
-# tensor cores, and HBM3.
-F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
+# tensor cores, dense TF32 in them, and HBM3.
+F32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
+# How each kernel does its products: the decode in 3xTF32 on the tensor
+# cores (three TF32 products each), the jet kernels in f32 FFMA.
+MATH = {"decode_blend_gather": "tf32x3", "decode_blend": "tf32x3",
+        "jet_fwd": "ffma", "jet_bwd": "ffma"}
 REPLACES = {
     "decode_blend_gather": "space_time_pde_tpu/ops/fused_query.py:244",
     "decode_blend": "space_time_pde_tpu/ops/fused_query.py:400",
@@ -233,10 +244,12 @@ def ptxas_summary(log: str):
     return out
 
 
-def bound(kind, *, n, c, dim, nf, out, n_cells=0):
-    """(bound_ms, bound_by) of one call: the larger of the f32
-    operations it needs over F32_FLOPS and of the bytes it must move
-    (each input read once, each output written once) over HBM_BYTES.
+def bound(kind, *, n, c, dim, nf, out, n_cells=0, math="ffma"):
+    """(bound_ms, bound_by) of one call: the larger of the operations it
+    needs over the peak of ``math`` (f32 operations over F32_FLOPS for
+    "ffma"; three TF32 operations for each over TF32_FLOPS for
+    "tf32x3") and of the bytes it must move (each input read once, each
+    output written once) over HBM_BYTES.
     Per corner row the decode needs (C + D) 31nf multiply-adds for the
     skip terms and 170 nf^2 for the hidden layers; the jet runs the
     hidden layers on D + 1 chains, the skip terms on the primal only,
@@ -265,7 +278,9 @@ def bound(kind, *, n, c, dim, nf, out, n_cells=0):
         saved = rows * chains * s * 4 + rows * s
         byts = 2 * 4 * rows * c + 4 * n * dim + 2 * weights + saved \
             + 4 * n * blocks * out
-    t_op, t_mem = flop / F32_FLOPS * 1e3, byts / HBM_BYTES * 1e3
+    t_op = (3 * flop / TF32_FLOPS if math == "tf32x3"
+            else flop / F32_FLOPS) * 1e3
+    t_mem = byts / HBM_BYTES * 1e3
     return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
 
 
@@ -317,6 +332,12 @@ def kernel_vs_plain(imnet, device, spatial):
             lambda: fq.decode_blend_plain(feats2, frac, packed,
                                           n_corners=2 ** dim, **kw)),
     }
+    # The float64 twin (both entries compute the same function).
+    want64 = fq.decode_blend_gather_plain(
+        table.double(), cell_flat, frac.double(),
+        {k: v.double() for k, v in packed.items()}, **kw)
+    want64 = want64.cpu().numpy()
+    scale = float(np.abs(want64).max())
     rows = {}
     for name, (kernel, plain) in calls.items():
         got, want = kernel(), plain()
@@ -325,23 +346,33 @@ def kernel_vs_plain(imnet, device, spatial):
         max_abs = float(err.max())
         max_rel = float((err / want.abs().clamp_min(1e-6)).max())
         ok = bool((err <= ATOL + RTOL * want.abs()).all())
+        need_k = atol_needed(got.cpu().numpy(), want64, scale, RTOL)
+        need_p = atol_needed(want.cpu().numpy(), want64, scale, RTOL)
+        ok64 = need_k <= DECODE_SLACK * need_p
         # Plain, kernel, kernel, plain: both see the same card state.
         p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kernel, kernel,
                                                    plain))
-        b_ms, b_by = bound(name, n=N_CHECK, c=imnet.in_features, dim=dim,
-                           nf=imnet.nf, out=imnet.out_features,
-                           n_cells=table.shape[0])
+        shape = dict(n=N_CHECK, c=imnet.in_features, dim=dim, nf=imnet.nf,
+                     out=imnet.out_features, n_cells=table.shape[0])
+        b_ms, b_by = bound(name, math=MATH[name], **shape)
+        b32, _ = bound(name, **shape)
         rows[name] = {"max_abs_err": max_abs, "ms": (k1 + k2) / 2,
                       "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
-                      "bound_by": b_by}
+                      "bound_by": b_by, "bound_f32_ms": b32,
+                      "atol_vs_f64": need_k, "plain_atol_vs_f64": need_p}
         say(f"{name}: {N_CHECK} pts at D={dim} C={imnet.in_features} "
             f"nf={imnet.nf}: max abs err {max_abs:.3e}, max rel err "
-            f"{max_rel:.3e} (tolerance rtol=atol={RTOL:g}); kernel "
-            f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, bound "
-            f"{b_ms:.3f} ms ({b_by})")
-        if not ok or not torch.isfinite(got).all():
+            f"{max_rel:.3e} (tolerance rtol=atol={RTOL:g}); vs the "
+            f"float64 twin (max|ref| {scale:.4e}, rtol {RTOL:g}) the kernel "
+            f"needs atol {need_k:.3e}, the f32 twin {need_p:.3e}, limit "
+            f"{DECODE_SLACK * need_p:.3e}; kernel {k1:.3f}/{k2:.3f} ms, "
+            f"plain {p1:.3f}/{p2:.3f} ms, bound {b_ms:.3f} ms ({b_by}, "
+            f"{MATH[name]}; f32 FFMA {b32:.3f} ms)")
+        if not ok or not ok64 or not torch.isfinite(got).all():
             raise SystemExit(f"{name}: kernel disagrees with its plain "
-                             f"twin (max abs err {max_abs:.3e})")
+                             f"twin (max abs err {max_abs:.3e}; vs float64 "
+                             f"atol {need_k:.3e}, f32 twin {need_p:.3e})")
+    del want64
     return rows
 
 
@@ -471,7 +502,7 @@ def jet_vs_plain(imnet, device, spatial, n):
                            nf=imnet.nf, out=imnet.out_features)
         rows[name] = {"max_abs_err": err, "ms": (k1 + k2) / 2,
                       "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
-                      "bound_by": b_by}
+                      "bound_by": b_by, "bound_f32_ms": b_ms}
         say(f"{name} (D={dim}, {n} pts): max abs err vs f32 twin "
             f"{err:.3e}; kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/"
             f"{p2:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
@@ -926,6 +957,11 @@ def main():
     for src in ("fused_query", "fused_jet"):
         for line in ptxas_summary(log.get(src, "")):
             print(f"{src}.cu {line}", flush=True)
+    lib = _build.load()
+    print("fused_query.cu decode block: "
+          f"{lib.stpde_block_rows()} corner rows, dynamic shared memory "
+          f"{lib.stpde_decode_smem_bytes(64, 3, 64)} bytes at C = 64, "
+          "nf = 64", flush=True)
     say(f"kernels loaded in {time.perf_counter() - t0:.1f}s ("
         + (f"nvcc {log['seconds']:.1f}s, all sources in parallel" if log
            else "already built") + ")")
@@ -979,7 +1015,8 @@ def main():
         paths = {p: c[name] for p, c in {**by_path, **off}.items()
                  if c.get(name)}
         main_path = sum(c.get(name, 0) for c in by_path.values())
-        entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+        entry = {"name": name, "route": "cuda", "math": MATH[name],
+                 "source": SOURCES[name],
                  "replaces": REPLACES[name], "path": PATHS[name],
                  "launches": main_path, "launches_by_path": paths,
                  "launches_by_dim": {

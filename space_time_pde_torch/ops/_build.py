@@ -34,13 +34,16 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _ARGTYPES = {
     "fused_query": {
-        # table, cell_flat, frac, 9 weights, out, n, n_cells, c, dim, nf,
-        # out_dim, act_code, negative_slope, stream
+        # table, cell_flat, frac, 9 weights (fused_query.kernel_weights),
+        # out, n, n_cells, c, dim, nf, out_dim, act_code, negative_slope,
+        # stream
         "stpde_decode_blend_gather": ([_P] * 13 + [_I] * 7 + [_F, _P], _I),
         # feats2, frac, 9 weights, out, n, c, dim, nf, out_dim, act_code,
         # negative_slope, stream
         "stpde_decode_blend": ([_P] * 12 + [_I] * 6 + [_F, _P], _I),
         "stpde_block_rows": ([], _I),
+        # c, dim, nf
+        "stpde_decode_smem_bytes": ([_I] * 3, _I),
         "stpde_error_string": ([_I], ctypes.c_char_p),
     },
     "fused_jet": {

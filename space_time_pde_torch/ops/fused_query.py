@@ -22,6 +22,14 @@ PyTorch twin in this module (:func:`decode_blend_gather_plain`,
 have no backward, so the wrappers run under ``no_grad`` on every
 device; the twins themselves stay differentiable.
 
+The kernel runs its products on the tensor cores in 3xTF32 (each f32
+operand split into two TF32 parts, three products, f32 accumulation) on
+64 corner rows a block (:func:`block_points`). It takes its weights in
+the layout of :func:`kernel_weights`, which the CUDA branch of each
+wrapper builds from :func:`pack_imnet_params`'s output: each layer's
+``[Wh_i ; Wx_feat[:, sl_i]]`` stacked, widths zero-padded to multiples
+of 64 and C to a multiple of 32.
+
 Dropped from the TPU module, with nothing in their place: the one-hot
 MXU gather, ``corner_tables`` and the sorted 2 x 128-cell windows
 (window anchors, the fits-check and its ``lax.cond`` pregather
@@ -50,6 +58,7 @@ __all__ = [
     "reset_launches",
     "block_points",
     "pack_imnet_params",
+    "kernel_weights",
     "cell_major_features",
     "decode_blend",
     "decode_blend_gather",
@@ -61,6 +70,9 @@ __all__ = [
 _MULTS = (16, 8, 4, 2, 1)
 _WEIGHTS = ("wx_feat", "wx_rel", "corner_bias", "wh1", "wh2", "wh3", "wh4",
             "w5", "b5")
+# The kernel's padding: widths to its 8 column warps x 8 columns, the
+# latent rows to its 32-row weight tile (csrc/fused_query.cu).
+_WIDTH_ALIGN, _C_ALIGN = 64, 32
 
 # Kernel launches per entry point; only the CUDA branch of a wrapper
 # adds to them.
@@ -113,6 +125,52 @@ def pack_imnet_params(imnet) -> Dict[str, torch.Tensor]:
     # no_grad would still require grad.
     return {k: v.float().clone(memory_format=torch.contiguous_format)
             for k, v in packed.items()}
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def kernel_weights(packed, *, nf: int) -> Dict[str, torch.Tensor]:
+    """:func:`pack_imnet_params`'s output in the decode kernel's layout,
+    in the order of its C arguments.
+
+    Layer widths are zero-padded to multiples of ``_WIDTH_ALIGN`` (a
+    block's 8 column warps x 8 columns) and the latent rows to a multiple
+    of ``_C_ALIGN`` (the kernel's K tile), as the kernel derives them from
+    nf and C; zero weights make the padding inert whatever the activation
+    gives at 0.
+
+    - ``wx0`` ``[Cp, W0]``: layer 0's latent projection;
+    - ``rel`` ``[D, Sp]``, ``cb`` ``[2^D, Sp]``: ``wx_rel`` and
+      ``corner_bias``, each layer's columns at their padded offset;
+    - ``wb1..wb4`` ``[W_{i-1} + Cp, W_i]``: ``[Wh_i ; Wx_feat[:, sl_i]]``,
+      so one K loop over ``[h_{i-1} | latents]`` gives the hidden product
+      and the skip term together;
+    - ``w5``, ``b5`` as packed.
+    """
+    c = packed["wx_feat"].shape[0]
+    widths = [nf * m for m in _MULTS]
+    padded = [_round_up(w, _WIDTH_ALIGN) for w in widths]
+    bounds = np.cumsum([0] + widths)
+
+    def cols(t, i):
+        sl = t[:, int(bounds[i]):int(bounds[i + 1])]
+        return torch.nn.functional.pad(sl, (0, padded[i] - widths[i]))
+
+    wxf = torch.nn.functional.pad(packed["wx_feat"],
+                                  (0, 0, 0, _round_up(c, _C_ALIGN) - c))
+    out = {"wx0": cols(wxf, 0),
+           "rel": torch.cat([cols(packed["wx_rel"], i) for i in range(5)], 1),
+           "cb": torch.cat([cols(packed["corner_bias"], i)
+                            for i in range(5)], 1)}
+    for i in range(1, 5):
+        wh = torch.nn.functional.pad(
+            packed[f"wh{i}"], (0, padded[i] - widths[i],
+                               0, padded[i - 1] - widths[i - 1]))
+        out[f"wb{i}"] = torch.cat([wh, cols(wxf, i)], 0)
+    out["w5"], out["b5"] = packed["w5"], packed["b5"]
+    return {k: v.contiguous() for k, v in out.items()}
 
 
 def cell_major_features(grid: torch.Tensor) -> torch.Tensor:
@@ -223,10 +281,11 @@ def _check(tensors: Dict[str, torch.Tensor], packed, *, n: int, c: int,
 
 def block_points(dim: int, device) -> int | None:
     """Points a kernel block decodes on ``device`` (None on the CPU,
-    where the plain twin has no blocks). The kernel owns its block shape
-    and shared-memory size; a launch whose nf and C need more shared
-    memory than the card has returns the CUDA error, and the wrapper
-    raises it."""
+    where the plain twin has no blocks): 64 corner rows, 8 points at
+    D = 3 and 4 at D = 4. The kernel owns its block shape and
+    shared-memory size; a launch whose nf and C need more shared memory
+    than the card has (nf above 64, or C above 96 at nf = 64) returns
+    the CUDA error, and the wrapper raises it."""
     if torch.device(device).type != "cuda":
         return None
     return _build.load().stpde_block_rows() >> dim
@@ -258,9 +317,10 @@ def decode_blend_gather(table, cell_flat, frac, packed, *, nf: int,
     lib = _build.load()
     out = torch.empty((n, packed["w5"].shape[-1]), dtype=torch.float32,
                       device=device)
+    kw = kernel_weights(packed, nf=nf)
     code = lib.stpde_decode_blend_gather(
         table.data_ptr(), cell_flat.data_ptr(), frac.data_ptr(),
-        *[packed[name].data_ptr() for name in _WEIGHTS], out.data_ptr(),
+        *[w.data_ptr() for w in kw.values()], out.data_ptr(),
         n, table.shape[0], c, dim, nf, out.shape[-1],
         ACTIVATION_CODES[activation], negative_slope,
         torch.cuda.current_stream(device).cuda_stream)
@@ -291,9 +351,10 @@ def decode_blend(feats2, frac, packed, *, nf: int, n_corners: int,
     lib = _build.load()
     out = torch.empty((n, packed["w5"].shape[-1]), dtype=torch.float32,
                       device=device)
+    kw = kernel_weights(packed, nf=nf)
     code = lib.stpde_decode_blend(
         feats2.data_ptr(), frac.data_ptr(),
-        *[packed[name].data_ptr() for name in _WEIGHTS], out.data_ptr(),
+        *[w.data_ptr() for w in kw.values()], out.data_ptr(),
         n, c, dim, nf, out.shape[-1], ACTIVATION_CODES[activation],
         negative_slope, torch.cuda.current_stream(device).cuda_stream)
     _build.check(code, "decode_blend")

@@ -10,9 +10,12 @@ CPU mode). On a machine with one, from the repo root:
 (``--noconftest``: the suite's conftest configures jax, which that
 machine does not have; this file imports only torch and the port.)
 
-Tolerance rtol = atol = 1e-4: f32 operands and accumulation on both
-sides; the kernel sums in another order than cuBLAS and blends before
-the head in its own order.
+Decode tolerance rtol = atol = 1e-4 against the f32 twin: the kernel
+runs its products in 3xTF32 (f32-grade operands, f32 accumulation), sums
+in another order than cuBLAS and blends before the head in its own
+order. At the flagship widths it is also held to the plain twin run in
+float64: at most twice as far from it as the f32 twin,
+``|err| <= 1e-4 |ref| + atol max|ref|``.
 """
 
 import copy
@@ -66,10 +69,16 @@ def test_kernels_build(device):
         print(f"{src}.cu:\n{log.get(src, '')}")
 
 
+# A block is 64 corner rows: 8 points at D = 3, 4 at D = 4. The edge cases
+# take n = 1, one short of a block, one past it and a multiple of it.
+EDGES = [(p, dim) for dim, b in ((3, 8), (4, 4))
+         for p in (1, b - 1, b + 1, 4 * b)]
 CASES = ([(4, 8, 3, 257, a) for a in NONLINEARITIES]
          + [(8, 8, 2, 100, "leaky_relu"), (2, 4, 4, 33, "elu"),
             (64, 64, 3, 4096, "leaky_relu"), (64, 64, 3, 4096, "gelu"),
-            (64, 64, 4, 4096, "leaky_relu")])
+            (64, 64, 4, 4096, "leaky_relu")]
+         + [(8, 16, dim, n, "leaky_relu") for n, dim in EDGES]
+         + [(64, 64, dim, n, "leaky_relu") for n, dim in EDGES])
 
 
 @pytest.mark.parametrize("nf,c,dim,n,activation", CASES)
@@ -98,14 +107,48 @@ def test_out_of_range_cell_decodes_nan(device):
     assert bad[3] and bad.sum() == 1
 
 
-def test_shared_memory_overflow_raises(device):
-    """The kernel sizes its shared memory; nf = 128 needs ~390 KB a
-    block, more than the card has, and the launch's error is raised."""
-    packed, table, cell_flat, frac = _inputs(device, 128, 8, 3, 16,
+@pytest.mark.parametrize("dim", [3, 4])
+def test_kernels_within_twice_f32_twin_of_float64(device, dim):
+    """The 3xTF32 products at the flagship widths: the kernel sits at most
+    twice as far from the float64 twin as the f32 twin does."""
+    packed, table, cell_flat, frac = _inputs(device, 64, 64, dim, 4096,
                                              "leaky_relu")
+    p64 = {k: v.double() for k, v in packed.items()}
+    got = fq.decode_blend_gather(table, cell_flat, frac, packed, nf=64)
+    want32 = fq.decode_blend_gather_plain(table, cell_flat, frac, packed,
+                                          nf=64)
+    want64 = fq.decode_blend_gather_plain(table.double(), cell_flat,
+                                          frac.double(), p64, nf=64)
+    torch.cuda.synchronize()
+    need, floor = _atol_needed(got, want64), _atol_needed(want32, want64)
+    assert bool(torch.isfinite(got).all()) and need <= 2 * floor, \
+        (need, floor)
+
+
+def test_shared_memory_overflow_raises(device):
+    """The kernel sizes its shared memory from nf and C (227 KiB a block
+    at most). At C = 8, nf = 64 fits (layer 1's 512 columns; 205 KiB) and
+    nf = 65, whose widths pad to 576 columns, needs 237 KiB; at nf = 64,
+    C = 96 fits (221 KiB) and C = 97 (latent rows padded to 128) needs
+    229 KiB. The
+    refused launch's CUDA error is raised, and the next launch runs."""
     assert fq.block_points(3, device) == _build.load().stpde_block_rows() // 8
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        fq.decode_blend_gather(table, cell_flat, frac, packed, nf=128)
+    assert fq.block_points(4, device) == 4
+    for nf, c, fits in ((64, 8, True), (65, 8, False), (64, 96, True),
+                        (64, 97, False)):
+        packed, table, cell_flat, frac = _inputs(device, nf, c, 3, 16,
+                                                 "leaky_relu")
+        if fits:
+            got = fq.decode_blend_gather(table, cell_flat, frac, packed,
+                                         nf=nf)
+            want = fq.decode_blend_gather_plain(table, cell_flat, frac,
+                                                packed, nf=nf)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       want.cpu().numpy(), **TOL)
+        else:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                fq.decode_blend_gather(table, cell_flat, frac, packed, nf=nf)
 
 
 # --- jet kernels (csrc/fused_jet.cu) ----------------------------------------

@@ -81,7 +81,8 @@ corners):
     loss flags on three Beltrami realizations made here, 2 epochs x 8
     steps, then a resume; as phase 9;
 16. one JSON line of all four kernels (``path``: eval, train or
-    off_path; ``math``: tf32x3 or ffma; launches per path and per D;
+    off_path; ``math``: tf32x3, the products' arithmetic (all four run
+    them in 3xTF32 on the tensor cores); launches per path and per D;
     times, plain times and bounds at D = 4, and at D = 3 under ``d3``:
     ``bound_ms`` against the kernel's own arithmetic, ``bound_f32_ms``
     against f32 FFMA), then the status line.
@@ -151,10 +152,10 @@ REF_SLACK = 2.0                 # turb3d reference points: x JAX's own
 # The card's peaks (NVIDIA's H100 SXM data sheet, 700 W): f32 outside the
 # tensor cores, dense TF32 in them, and HBM3.
 F32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
-# How each kernel does its products: the decode in 3xTF32 on the tensor
-# cores (three TF32 products each), the jet kernels in f32 FFMA.
+# How each kernel does its products: all four in 3xTF32 on the tensor
+# cores (three TF32 products each).
 MATH = {"decode_blend_gather": "tf32x3", "decode_blend": "tf32x3",
-        "jet_fwd": "ffma", "jet_bwd": "ffma"}
+        "jet_fwd": "tf32x3", "jet_bwd": "tf32x3"}
 REPLACES = {
     "decode_blend_gather": "space_time_pde_tpu/ops/fused_query.py:244",
     "decode_blend": "space_time_pde_tpu/ops/fused_query.py:400",
@@ -223,14 +224,16 @@ def atol_needed(got, want, scale, rtol=REF_RTOL):
 
 
 def ptxas_summary(log: str):
-    """``kernel<template arg>: registers, spills`` per entry function of
+    """``kernel<template args>: registers, spills`` per entry function of
     a ptxas ``-v`` log."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)(?:IL[ib](\d+)E)?", m.group(1))
-            name = k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+            k = re.search(r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?",
+                          m.group(1))
+            args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
+            name = k.group(1) + (f"<{', '.join(args)}>" if args else "")
             spills = "spill not reported"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -255,7 +258,9 @@ def bound(kind, *, n, c, dim, nf, out, n_cells=0, math="ffma"):
     hidden layers on D + 1 chains, the skip terms on the primal only,
     and blends 1 + D + D(D+1)/2 blocks; its backward needs two products
     per layer (the weight gradient and the back-propagated chain) and
-    reads the forward's stored chains and masks."""
+    reads the forward's stored chains and masks. The head and blend are
+    counted at the same peak as the products (the kernels run them in
+    f32 FFMA; they are under 1% of the operations)."""
     k, s = 2 ** dim, 31 * nf
     hidden = 170 * nf * nf
     rows = n * k
@@ -421,10 +426,9 @@ def _flips_near_zero(kmasks, pres64):
     return ok
 
 
-def jet_vs_plain(imnet, device, spatial, n):
-    """Phases 4 and 11: both jet kernels against their plain twins on n
-    points of a seeded latent grid of ``spatial``."""
-    from space_time_pde_torch.ops import _build
+def jet_inputs(imnet, device, spatial, n):
+    """The jet kernels' seeded inputs on n points of a latent grid of
+    ``spatial``: (feats2, frac, packed, ybar, kwargs of the wrappers)."""
     from space_time_pde_torch.ops import fused_jet as fj
     from space_time_pde_torch.ops import fused_query as fq
     from space_time_pde_torch.ops.grid_interp import _locate
@@ -438,11 +442,24 @@ def jet_vs_plain(imnet, device, spatial, n):
     table = fq.cell_major_features(grid)
     feats2 = table[fq._flat_cells(cell, spatial).long()].reshape(
         -1, grid.shape[-1]).contiguous()
-    frac = frac.contiguous()
     with torch.no_grad():
         packed = fq.pack_imnet_params(imnet)
-    slope = fj.jet_slope(imnet.activation, imnet.negative_slope)
-    kw = dict(nf=imnet.nf, slope=slope)
+    blocks = 1 + dim + dim * (dim + 1) // 2
+    ybar = torch.from_numpy(rng.randn(n, blocks, imnet.out_features).astype(
+        np.float32)).to(device)
+    kw = dict(nf=imnet.nf,
+              slope=fj.jet_slope(imnet.activation, imnet.negative_slope))
+    return feats2, frac.contiguous(), packed, ybar, kw
+
+
+def jet_vs_plain(imnet, device, spatial, n):
+    """Phases 4 and 11: both jet kernels against their plain twins on n
+    points of a seeded latent grid of ``spatial``."""
+    from space_time_pde_torch.ops import _build
+    from space_time_pde_torch.ops import fused_jet as fj
+
+    dim = len(spatial)
+    feats2, frac, packed, ybar, kw = jet_inputs(imnet, device, spatial, n)
     p64 = {k: v.double() for k, v in packed.items()}
     f64, fr64 = feats2.double(), frac.double()
 
@@ -465,8 +482,6 @@ def jet_vs_plain(imnet, device, spatial, n):
                   for i, nm in enumerate(names))
     del want64, want_m, want64_m
 
-    ybar = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(
-        device)
     y64 = ybar.double()
     dfeats, grads = fj.jet_bwd(feats2, frac, packed, ws, ybar, **kw)
     torch.cuda.synchronize()
@@ -498,14 +513,18 @@ def jet_vs_plain(imnet, device, spatial, n):
                                      ("jet_bwd", bwd_k, bwd_p, bwd_err)):
         p1, k1, k2, p2 = (cuda_ms(f, 3) for f in (plain, kernel, kernel,
                                                    plain))
-        b_ms, b_by = bound(name, n=n, c=imnet.in_features, dim=dim,
-                           nf=imnet.nf, out=imnet.out_features)
-        rows[name] = {"max_abs_err": err, "ms": (k1 + k2) / 2,
+        shape = dict(n=n, c=imnet.in_features, dim=dim, nf=imnet.nf,
+                     out=imnet.out_features)
+        b_ms, b_by = bound(name, math=MATH[name], **shape)
+        b32, _ = bound(name, **shape)
+        ms = (k1 + k2) / 2
+        rows[name] = {"max_abs_err": err, "ms": ms,
                       "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
-                      "bound_by": b_by, "bound_f32_ms": b_ms}
+                      "bound_by": b_by, "bound_f32_ms": b32}
         say(f"{name} (D={dim}, {n} pts): max abs err vs f32 twin "
             f"{err:.3e}; kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/"
-            f"{p2:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+            f"{p2:.3f} ms, bound {b_ms:.3f} ms ({b_by}, {MATH[name]}; "
+            f"{100 * b_ms / ms:.1f}% of it), f32 FFMA {b32:.3f} ms")
     return rows
 
 

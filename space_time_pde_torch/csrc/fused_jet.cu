@@ -1,9 +1,11 @@
 // Derivative jet of the local-implicit-grid decode, forward and backward,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a): every matrix product in 3xTF32 on the tensor cores.
 //
 // Replaces the two Pallas TPU kernels of space_time_pde_tpu/ops/fused_jet.py:
-//   _jet_fwd_kernel (make_fused_jet's forward) -> stpde_jet_fwd
-//   _jet_bwd_kernel (its custom-VJP backward)  -> stpde_jet_bwd
+//   _jet_fwd_kernel (:175, pallas_call :436; make_fused_jet's forward)
+//     -> stpde_jet_fwd
+//   _jet_bwd_kernel (:219, pallas_call :507; its custom-VJP backward)
+//     -> stpde_jet_bwd
 //
 // Math (ops/fused_jet.py and ops/jet.py derive it). Per corner row r = p*K+k
 // (point p, corner k of 2^D = K) there are D + 1 chains: the primal and one
@@ -19,25 +21,6 @@
 // derivatives dw_ak and d2w_abk), each through the linear head:
 //   out[p, blk] = (sum_{k,c} coef[blk, k, c] X4[p, k, c]) @ W5 (+ b5, value).
 // Derivatives are in frac units; the caller rescales by d frac / d p.
-//
-// Design: one hand-written kernel per layer over all rows, through global
-// memory, not one block per point chain. A point's chains hold 8 rows x 4
-// chains x 31 nf activations (~250 KB at nf = 64), more than a block's
-// shared memory, so the chains are stored in a workspace and every layer is
-// a tiled f32 matrix product over all R*(D+1) chain rows at once:
-//   * the chain rows of one corner row are interleaved ([R, D+1, w]), so a
-//     thread's register tile holds the primal and its D tangents of two
-//     corner rows, and the layer's epilogue applies the primal's mask to the
-//     tangents in registers;
-//   * the forward writes every layer's chains (X_i) and masks to the
-//     workspace: R*(D+1)*31nf f32 + R*31nf bytes (2.21 GB at the flagship
-//     step, N = 8192 points), and the backward reads them instead of
-//     recomputing the forward (the TPU kernel recomputes because VMEM cannot
-//     hold them);
-//   * parameter gradients are sums over all rows. Blocks run in parallel, so
-//     each block writes the partial sum of its slice of rows, and a second
-//     kernel adds the partials in a fixed order: bitwise reproducible, no
-//     atomics. The partial counts depend on the shapes only.
 // Backward, per layer i = 4..0, with P_i = Xbar_i * m_i (all chains):
 //   dWh_i   = X_{i-1}^T P_i                       (reduction over R*(D+1) rows)
 //   Xbar_{i-1} = P_i Wh_i^T, then P_{i-1} = Xbar_{i-1} * m_{i-1}
@@ -47,42 +30,75 @@
 //                      + sum_{p,k} P_i[p, k, tangent a]
 // and the head: dW5 = sum_p stacked^T ybar, db5 = sum_p ybar[p, value].
 //
-// What bounds it on an H100: arithmetic in f32 on the CUDA cores. The
-// forward is ~2.9 M multiply-adds per corner row (4 chains through the
-// hidden layers plus the latent projection), 190 G at the flagship step;
-// the backward about twice that again. Each product kernel keeps a
-// 256 x 64 output tile per block in registers (8 x 8 per thread) and streams
-// 16-deep slices of both operands through shared memory, so a thread does
-// 64 multiply-adds per four 16-byte shared loads. No wgmma, TMA, TF32 or
-// bf16 yet: f32 operands and f32 accumulation throughout.
+// WHAT BOUNDS THEM (chip_smoke.py::bound; C = 64, nf = 64, O = 4, 8,192
+// points at D = 3 and 4,096 at D = 4; H100 SXM peaks). Operations: the
+// hidden layers on D + 1 chains are ~98% of the forward; the backward does
+// two products a layer. In 3xTF32 (three TF32 products each, 495 TFLOP/s)
+// the forward needs 2.32 / 2.88 ms and the backward 4.63 / 5.74 ms at
+// D = 3 / 4; in f32 FFMA (67 TFLOP/s) 5.71 / 7.08 and 11.41 / 14.14 ms.
+// Bytes: the forward's inputs and outputs are 22 MB (0.006 ms at 3.35
+// TB/s), but it also writes the workspace that the backward reads back
+// (every layer's chains and masks, 2.21 / 2.73 GB: 0.66 / 0.82 ms each
+// way). Both are bound by operations. In the 3xTF32 pattern below,
+// mma.sync issues at most 245 of the card's 495 TFLOP/s of TF32, 81.6 of
+// products (scripts/profile_torch_step.py --mma-ceiling): only wgmma
+// reaches the bound.
 //
-// TPU workarounds deliberately NOT carried over: _axis_onehot (tangent
-// injections are indexed rows here), the _rep mask tiling (the tangents sit
-// beside their primal), pad_to = 128 lane padding, the block-major
-// per-grid-block output layout and block_pts padding (the output is
-// [N, blocks, O], any N), the sequential-grid accumulation of the parameter
-// gradients (partials + fixed-order reduction instead).
+// DESIGN.
+// - One product core (mainloop + mma_stage): mma.sync.m16n8k8 TF32 with
+//   f32 accumulation. Activations split into hi = TF32(x) and lo =
+//   TF32(x - hi), weights' lo passed unrounded (the tensor cores read its
+//   top bits); a k8 step's three products go into a zeroed temporary that
+//   is added to the f32 accumulator in round-to-nearest (the tensor cores'
+//   own accumulation truncates, and across all of K it drifts 20x farther
+//   from float64 than f32: csrc/fused_query.cu). A block is 8 warps, 2
+//   along rows x 4 along columns; a warp holds MT m16 x NT n8 tiles.
+// - Staging: a 3-deep ring of cp.async stages 32 deep, in 16-byte copies
+//   with zero fill past the ragged edges (4-byte copies where a pointer or
+//   a stride is not 16-byte aligned, so C = 4 or widths below 8 work), at
+//   padded strides (36 floats for [rows][k] tiles read by ldmatrix, W + 8
+//   for [k][W] tiles) that keep every fragment load free of bank
+//   conflicts. One barrier a stage.
+// - Forward (jet_layer_kernel, one launch a layer over all chain rows): a
+//   block is 32 corner rows x (D + 1) chains x 128 columns, its rows
+//   ordered [chain][corner row], so a warp's m-tile s holds chain s of the
+//   same 16 corner rows at the same fragment positions: the primal's sign
+//   picks every chain's mask in registers, and the mask bytes are written
+//   from there. The skip product feats @ Wx_feat[:, sl_i] runs as two more
+//   K stages on the primal m-tile alone; the coordinate term and the
+//   corner bias are added in f32 in the epilogue, which stores column
+//   pairs. Layer 0, whose tangents are constants, runs the primal m-tile
+//   alone, two blocks an SM.
+// - Backward (run_backward): the head kernel gives P_4; then per layer
+//   i = 4..0, dWh_i = X_{i-1}^T P_i over all R (D+1) chain rows and
+//   dWx_feat on the primal rows (gemm_tn: split-K, each block summing its
+//   own chunk of rows, about 4 x 132 blocks in all; both operands k-major
+//   and split once a stage in shared memory, since 32-bit elements have no
+//   ldmatrix.trans), the bias-side sums (bias_grad_kernel), dfeats +=
+//   P_i[primal] Wx_feat^T and P_{i-1} = (P_i Wh_i^T) * m_{i-1} (gemm_nt;
+//   the mask applied in registers from the mask bytes). Every parameter
+//   gradient is per-block partials reduced in a fixed order
+//   (reduce_kernel): no atomics, bitwise the same in every run.
+// - Head kernels: 4 points a block (2,048 blocks at D = 3, 1,024 at D = 4).
 //
-// Both dimensions on the card: D = 3 (8 corners, the rb2d model family) and
-// D = 4 (16 corners, the turb3d family), each a template instantiation of
-// every kernel below (struct Jet<D>), so one build serves both. What D
-// changes:
-//   * a corner row has D + 1 chains, so the layer kernel's register tile of
-//     2 corner rows x chains is 8 rows at D = 3 and 10 at D = 4. Ten rows
-//     are not a multiple of four, so at D = 4 a thread reads its A column as
-//     five 8-byte float2 loads (a 10-float offset keeps 8-byte alignment)
-//     instead of two float4s, and a tile is 32 x 10 = 320 chain rows
-//     (256 is not a multiple of 5), still 64 corner rows. Four corner rows
-//     a thread (20 rows) would need 160 accumulators; two need 80, near
-//     the 64 of D = 3.
-//   * the generic products of the backward (gemm_nt / gemm_tn) keep their
-//     8 x 8 tile at both D; only the layer mask's row -> corner-row divisor
-//     (row / (D + 1)) is a template parameter.
-//   * the head's coefficient buffer is (1 + D + D(D+1)/2) x 2^D (D + 1)
-//     floats: 10 x 32 at D = 3, 15 x 80 at D = 4.
-// Any other D is rejected (cudaErrorInvalidValue; -1 workspace bytes).
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-// -Xcompiler -fPIC (space_time_pde_torch/ops/_build.py).
+// WORKSPACE (stpde_jet_fwd_workspace bytes): every layer's chain planes,
+// f32 [D+1][R][w_i] (R = N 2^D corner rows, plane 0 the primal), then every
+// layer's masks, bytes [R][w_i] (1 where the primal pre-activation >= 0;
+// ops/fused_jet.py::workspace_masks reads them). The backward's scratch
+// (stpde_jet_bwd_workspace bytes): two chain buffers for P (16 nf and 8 nf
+// wide, alternating layers) and one partial-sum buffer for every reduction.
+//
+// MEASURED (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phases 4 and 11,
+// the FFMA body this file replaced from scripts/profile_torch_step.py
+// --sources):
+//   jet_fwd  D = 3:  8.69 ms (plain twin 19.0, FFMA body 20.9), 26.7% of
+//                    the 3xTF32 bound; D = 4: 10.45 ms (21.1, 37.1), 27.5%
+//   jet_bwd  D = 3: 17.37 ms (45.8, 53.0), 26.7%; D = 4: 21.30 ms (55.0,
+//                    66.1), 27.0%
+// Layer 1's product (~65% of the forward) and the backward's two largest
+// (X_0^T P_1, P_1 Wh_1^T) at 60-63% of the mma.sync ceiling (81.6 TFLOP/s
+// of 3xTF32 products); the rest goes to per-block set-up and epilogues of
+// the smaller layers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,17 +109,33 @@ constexpr int kMaxOut = 8;
 constexpr int kLayers = 5;
 constexpr int kMults[kLayers] = {16, 8, 4, 2, 1};
 
-// Product-kernel tiling: 256 threads as 32 row groups x 8 column groups,
-// each with a kTM x 8 register tile (kTM = 8 in the generic products).
-constexpr int kBK = 16;
-constexpr int kTN = 8;
-constexpr int kRowThreads = 32, kColThreads = 8;
-constexpr int kThreads = kRowThreads * kColThreads;  // 256
-constexpr int kBN = kColThreads * kTN;               // 64
-constexpr int kPadN = kBN + 4;
-constexpr int kTM = 8;                               // generic products
-constexpr int kBM = kRowThreads * kTM;               // 256
-constexpr int kPadM = kBM + 4;                       // keeps float4 alignment
+// Tensor-core tiling. A block is 8 warps, 2 along rows x 4 along columns;
+// a warp holds MT m16 tiles x NT n8 tiles of f32 accumulators, so a block
+// is MT x 32 rows by 32 NT columns. The rows of a block tile are MT slots
+// of kT rows; warp wm's m-tile s covers rows [s kT + 16 wm, +16) of the
+// tile. In the chain kernels a slot is a chain (the rows of slot s are
+// chain s of the block's kT corner rows), so a warp's m-tiles hold the
+// primal and its tangents of the same 16 corner rows at the same fragment
+// positions. In the plain products a slot is just the next kT rows.
+constexpr int kWarpsM = 2, kWarpsN = 4;
+constexpr int kThreads = 32 * kWarpsM * kWarpsN;  // 256
+constexpr int kT = kWarpsM * 16;                  // 32 rows a slot
+constexpr int kBK = 32;                           // depth of a stage
+constexpr int kStages = 3;                        // cp.async ring
+// n8 tiles a warp (the block is 32 NT columns wide), measured per product:
+// kLayerNT in the forward's layer product, kBackNT in the backward's
+// P Wh^T, kPlainNT in the TN product, kFeatNT in P[primal] Wx_feat^T
+// (C = 64 columns).
+constexpr int kLayerNT = 4, kBackNT = 8, kPlainNT = 4, kFeatNT = 2;
+constexpr int kPlainMT = 4;  // slots of a plain tile: 128 rows
+// Padded strides: every fragment load below is free of bank conflicts.
+constexpr int kLdRow = kBK + 4;        // [rows][kBK]: row-major A, [n][k] B
+constexpr int kRowTile = kT * kLdRow;  // one slot of a [rows][kBK] tile
+template <int NT>
+__host__ __device__ constexpr int block_cols() { return kWarpsN * NT * 8; }
+// [kBK][W] tiles (k-major A, [k][n] B): W + 8 floats a row.
+template <int W>
+__host__ __device__ constexpr int col_tile() { return kBK * (W + 8); }
 
 // The chain layout of dimension D (see the header).
 template <int D>
@@ -113,16 +145,10 @@ struct Jet {
   static constexpr int kChains = D + 1;                      // primal + D
   static constexpr int kRowsPerPoint = kCorners * kChains;   // 32 / 80
   static constexpr int kBlocksOut = 1 + D + D * (D + 1) / 2;  // 10 / 15
-  // Layer kernel: a thread holds 2 corner rows x chains.
-  static constexpr int kTM = 2 * kChains;                    // 8 / 10
-  static constexpr int kBM = kRowThreads * kTM;              // 256 / 320
-  static constexpr int kPadM = kBM + 4;   // row stride stays 16-byte aligned
-  static constexpr int kPointRows = kBM / kChains;           // 64
-  static_assert(kTM % 2 == 0 && kPadM % 4 == 0, "vector loads");
 };
 
-// Blocks the row reductions aim for (about four per SM of an H100).
-constexpr int kTargetBlocks = 528;
+// Blocks a split-K reduction aims for (four waves of one block per SM).
+constexpr int kTargetBlocks = 4 * 132;
 
 struct Weights {
   const float* wx_feat;      // [C, S], S = 31 nf
@@ -146,153 +172,572 @@ __host__ __device__ inline int cdiv(long long a, long long b) {
   return (int)((a + b - 1) / b);
 }
 
-// acc[j][q] += A[k][row0 + j] * B[k][col0 + q] over one kBK slice. A tile
-// of TM rows a multiple of 4 reads A as float4s, otherwise as float2s.
-template <int TM, int PadM>
-__device__ __forceinline__ void mma_tile(float (&acc)[TM][kTN],
-                                         const float (*As)[PadM],
-                                         const float (*Bs)[kPadN], int ty,
-                                         int tx) {
+// A matrix operand in device memory. Row rr of slot s of a tile whose
+// first row is r0 is rr = r0 + s * step + j (j < kT), at
+// p + s * plane + rr * ld; rows >= `rows` and columns >= `cols` read as 0.
+// Chain planes: plane = the chain stride, step = 0. Plain rows: plane = 0,
+// step = kT. vec: p, ld and plane are 16-byte aligned, so a tile moves in
+// 16-byte copies (else in 4-byte ones).
+struct Mat {
+  const float* p;
+  long long ld, plane, step, rows;
+  int cols;
+  int vec;
+};
+
+// ---------------------------------------------------------------------------
+// Staging: cp.async with zero fill (src_bytes < copy size fills with 0).
+
+__device__ __forceinline__ void cp16(float* dst, const float* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(float* dst, const float* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Each thread stages the same rows and 16-byte column chunk at every stage:
+// row tid / 8 of every slot of a [rows][kBK] tile; rows tid / (W / 4) + i
+// kThreads / (W / 4) of a [kBK][W] tile.
+static_assert(kThreads == kT * (kBK / 4), "one chunk per thread and row");
+
+// dst[s kT + j][kLdRow] <- columns [k0, k0 + kBK) of row j of slot s, for
+// kSlots slots.
+template <int kSlots>
+__device__ __forceinline__ void load_rows(float* dst, const Mat& m,
+                                          long long r0, int k0) {
+  if (m.vec) {
+    const int j = threadIdx.x >> 3, c4 = (threadIdx.x & 7) * 4;
+    const int col = k0 + c4;
+    const int n = col < m.cols ? min(4, m.cols - col) : 0;
 #pragma unroll
-  for (int k = 0; k < kBK; ++k) {
-    float av[TM], bv[kTN];
-    if constexpr (TM % 4 == 0) {
-#pragma unroll
-      for (int v = 0; v < TM; v += 4) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(&As[k][ty * TM + v]);
-        av[v] = a.x, av[v + 1] = a.y, av[v + 2] = a.z, av[v + 3] = a.w;
-      }
-    } else {
-#pragma unroll
-      for (int v = 0; v < TM; v += 2) {
-        const float2 a =
-            *reinterpret_cast<const float2*>(&As[k][ty * TM + v]);
-        av[v] = a.x, av[v + 1] = a.y;
-      }
+    for (int s = 0; s < kSlots; ++s) {
+      const long long rr = r0 + s * m.step + j;
+      const bool ok = rr < m.rows && n > 0;
+      cp16(dst + (s * kT + j) * kLdRow + c4,
+           ok ? m.p + s * m.plane + rr * m.ld + col : m.p, ok ? 4 * n : 0);
     }
-    const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * kTN]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][tx * kTN + 4]);
-    bv[0] = b0.x, bv[1] = b0.y, bv[2] = b0.z, bv[3] = b0.w;
-    bv[4] = b1.x, bv[5] = b1.y, bv[6] = b1.z, bv[7] = b1.w;
+  } else {
+    for (int i = threadIdx.x; i < kSlots * kT * kBK; i += kThreads) {
+      const int s = i / (kT * kBK), j = (i / kBK) % kT, c = i % kBK;
+      const long long rr = r0 + s * m.step + j;
+      const int col = k0 + c;
+      const bool ok = rr < m.rows && col < m.cols;
+      cp4(dst + (s * kT + j) * kLdRow + c,
+          ok ? m.p + s * m.plane + rr * m.ld + col : m.p, ok ? 4 : 0);
+    }
+  }
+}
+
+// dst[k][W + 8] <- columns [c0, c0 + W) of rows k0 + k, k < kBK, rows below
+// kend only.
+template <int W>
+__device__ __forceinline__ void load_cols(float* dst, const Mat& m,
+                                          long long k0, long long kend,
+                                          int c0) {
+  constexpr int kChunks = W / 4, kPass = kThreads / kChunks, kLd = W + 8;
+  static_assert(kThreads % kChunks == 0 && kBK % kPass == 0, "tiling");
+  if (m.vec) {
+    const int k = threadIdx.x / kChunks, c4 = (threadIdx.x % kChunks) * 4;
+    const int col = c0 + c4;
+    const int n = col < m.cols ? min(4, m.cols - col) : 0;
+    const float* src = m.p + (k0 + k) * m.ld + col;
 #pragma unroll
-    for (int j = 0; j < TM; ++j)
-#pragma unroll
-      for (int q = 0; q < kTN; ++q) acc[j][q] += av[j] * bv[q];
+    for (int i = 0; i < kBK / kPass; ++i) {
+      const bool ok = k0 + k + kPass * i < kend && n > 0;
+      cp16(dst + (k + kPass * i) * kLd + c4,
+           ok ? src + kPass * i * m.ld : m.p, ok ? 4 * n : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBK * W; i += kThreads) {
+      const int k = i / W, c = i % W;
+      const long long row = k0 + k;
+      const int col = c0 + c;
+      const bool ok = row < kend && col < m.cols;
+      cp4(dst + k * kLd + c, ok ? m.p + row * m.ld + col : m.p, ok ? 4 : 0);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one ImNet layer for every chain row.
+// 3xTF32 products on the tensor cores (as csrc/fused_query.cu): x splits
+// into hi = tf32_rna(x) and lo = x - hi, rounded to TF32 for activations and
+// passed unrounded for weights (the tensor cores read its top bits); a
+// product is lo_a hi_b + hi_a lo_b + hi_a hi_b, and each k8 step's three
+// products go into a zeroed temporary that is added to the f32 accumulator
+// with round-to-nearest (the tensor cores' own accumulation truncates).
+
+// Round to TF32, to nearest with ties away from zero: cvt.rna.tf32.f32 for
+// every finite x (and inf), in two integer operations where ptxas lowers
+// the cvt to four (an inf test, an add, a select, a mask).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+template <bool kRoundLo>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  const float r = x - __uint_as_float(hi);
+  lo = kRoundLo ? tf32(r) : __float_as_uint(r);
+}
+
+// The TN product's activations are split once a stage, in shared memory:
+// each thread splits the 16-byte chunks it staged (the loaders' mapping, so
+// after its own cp.async wait no barrier is needed), hi in place and lo
+// into a plane of the same layout.
+__device__ __forceinline__ void split4(float* hi, float* lo) {
+  const float4 v = *reinterpret_cast<float4*>(hi);
+  uint32_t h[4], l[4];
+  split<true>(v.x, h[0], l[0]);
+  split<true>(v.y, h[1], l[1]);
+  split<true>(v.z, h[2], l[2]);
+  split<true>(v.w, h[3], l[3]);
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+template <int W>
+__device__ __forceinline__ void split_cols(float* hi, float* lo) {
+  constexpr int kChunks = W / 4, kPass = kThreads / kChunks, kLd = W + 8;
+  const int o = (threadIdx.x / kChunks) * kLd + (threadIdx.x % kChunks) * 4;
+#pragma unroll
+  for (int i = 0; i < kBK / kPass; ++i)
+    split4(hi + o + kPass * i * kLd, lo + o + kPass * i * kLd);
+}
+
+// Four 8 x 4 f32 matrices (8 x 8 b16) from shared memory: lane i gives the
+// address of row i % 8 of matrix i / 8 and receives element (i / 4, i % 4)
+// of each.
+__device__ __forceinline__ void ldsm4(const float* p, uint32_t (&r)[4]) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(p, al, bh[0], bh[1]);
+  mma(p, ah, bl[0], bl[1]);
+  mma(p, ah, bh[0], bh[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += p[e];
+}
+
+// Operand tiles of one stage in shared memory.
+template <int MT, int NT, bool kACols, bool kBCols>
+struct Tiles {
+  static constexpr int kBN = block_cols<NT>();
+  // A: k-major [kBK][MT kT + 8] (the TN product's transposed operand) or
+  // row-major [MT kT][kLdRow]; B: [kBK][kBN + 8] or [kBN][kLdRow].
+  static constexpr int kLdA = MT * kT + 8, kLdB = kBN + 8;
+  static constexpr int kASize = kACols ? col_tile<MT * kT>() : MT * kRowTile;
+  static constexpr int kBSize = kBCols ? col_tile<kBN>() : kBN * kLdRow;
+};
+
+// One stage (kBK deep) of acc[mi][j] += A[rows of m-tile mi] B[cols of n-tile
+// j] for the first `active` m-tiles. A is an activation; kPre: both
+// operands are activations split once in shared memory (hi in as / bs, lo
+// in al_s / bl_s); else A is split here (row-major, read by ldmatrix) and B
+// is a weight split here with its lo unrounded. kBCols: B is stored [k][n],
+// else [n][k] (ldmatrix).
+template <int MT, int NT, bool kACols, bool kBCols, bool kPre>
+__device__ __forceinline__ void mma_stage(float (&acc)[MT][NT][4],
+                                          const float* __restrict__ as,
+                                          const float* __restrict__ al_s,
+                                          const float* __restrict__ bs,
+                                          const float* __restrict__ bl_s,
+                                          int active, int wm, int wn, int g,
+                                          int t) {
+  using L = Tiles<MT, NT, kACols, kBCols>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < kBK; ks += 8) {
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      // b0, b1 of n-tile j, then of n-tile j + 1.
+      if (kBCols) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int o = (ks + t + 4 * (q & 1)) * L::kLdB +
+                        (wn * NT + j + (q >> 1)) * 8 + g;
+          if (kPre) {
+            bh[j + (q >> 1)][q & 1] = __float_as_uint(bs[o]);
+            bl[j + (q >> 1)][q & 1] = __float_as_uint(bl_s[o]);
+          } else {
+            split<false>(bs[o], bh[j + (q >> 1)][q & 1],
+                         bl[j + (q >> 1)][q & 1]);
+          }
+        }
+      } else {
+        uint32_t r[4];
+        ldsm4(bs + ((wn * NT + j + (lane >> 4)) * 8 + (lane & 7)) * kLdRow +
+                  ks + ((lane >> 3) & 1) * 4,
+              r);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split<false>(__uint_as_float(r[q]), bh[j + (q >> 1)][q & 1],
+                       bl[j + (q >> 1)][q & 1]);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      if (mi >= active) break;
+      const int r = mi * kT + wm * 16;
+      uint32_t ah[4], al[4];
+      if (kACols) {
+        const int o = (ks + t) * L::kLdA + r + g;
+        const int os[4] = {o, o + 8, o + 4 * L::kLdA, o + 4 * L::kLdA + 8};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ah[e] = __float_as_uint(as[os[e]]);
+          al[e] = __float_as_uint(al_s[os[e]]);
+        }
+      } else {
+        uint32_t v[4];
+        ldsm4(as + (r + (lane & 15)) * kLdRow + ks + (lane >> 4) * 4, v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split<true>(__uint_as_float(v[e]), ah[e], al[e]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma3(acc[mi][j], ah, al, bh[j], bl[j]);
+    }
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+}
+
+// Shared memory of a mainloop: the ring, then (kPre) two lo planes of each
+// operand.
+template <int MT, int NT, bool kACols, bool kBCols, bool kPre>
+constexpr int mainloop_smem() {
+  using L = Tiles<MT, NT, kACols, kBCols>;
+  return (kStages + (kPre ? 2 : 0)) * (L::kASize + L::kBSize) *
+         (int)sizeof(float);
+}
+
+// The mainloop: `nk` stages through a kStages-deep cp.async ring. stage(kt,
+// as, bs) issues stage kt's copies; active(kt) is its m-tile count. With
+// kPre, each landed stage is split (both operands k-major [kBK][W] tiles)
+// into hi in place and lo in one of two planes (alternating stages) before
+// the barrier that publishes it. `vec`: every operand moved in 16-byte
+// copies, so each thread splits what it staged itself; else a barrier
+// comes first.
+template <int MT, int NT, bool kACols, bool kBCols, bool kPre, class Stage,
+          class Active>
+__device__ __forceinline__ void mainloop(float (&acc)[MT][NT][4],
+                                         float* smem, int nk, bool vec,
+                                         Stage stage, Active active, int wm,
+                                         int wn, int g, int t) {
+  using L = Tiles<MT, NT, kACols, kBCols>;
+  static_assert(!kPre || (kACols && kBCols), "split planes are k-major");
+  constexpr int kSlot = L::kASize + L::kBSize;
+  float* lo = smem + kStages * kSlot;  // [2][kSlot] if kPre
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) stage(s, smem + s * kSlot, smem + s * kSlot + L::kASize);
+    cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<kStages - 2>();
+    float* as = smem + (kt % kStages) * kSlot;
+    float* bs = as + L::kASize;
+    float* al = lo + (kt & 1) * kSlot;
+    float* bl = al + L::kASize;
+    if constexpr (kPre) {
+      if (!vec) __syncthreads();
+      split_cols<MT * kT>(as, al);
+      split_cols<L::kBN>(bs, bl);
+    }
+    __syncthreads();
+    const int nxt = kt + kStages - 1;
+    if (nxt < nk) {
+      float* base = smem + (nxt % kStages) * kSlot;
+      stage(nxt, base, base + L::kASize);
+    }
+    cp_commit();
+    mma_stage<MT, NT, kACols, kBCols, kPre>(acc, as, al, bs, bl, active(kt),
+                                            wm, wn, g, t);
+  }
+  cp_wait<0>();
+}
+
+__device__ __forceinline__ void warp_coords(int& wm, int& wn, int& g,
+                                            int& t) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  wm = warp % kWarpsM, wn = warp / kWarpsM, g = lane >> 2, t = lane & 3;
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one ImNet layer for every chain row. Block: kT corner rows x
+// D + 1 chains x 128 columns. K runs over X_{i-1} (all chains), then over
+// the latents for the primal m-tile alone (the skip product).
 
 struct LayerArgs {
-  const float* xprev;  // [R*CH, kp] chains of layer i-1 (null at layer 0)
-  const float* wh;     // [kp, w]
-  int kp;
-  const float* feats;  // [R, C]
-  const float* wxf;    // wx_feat + off_i, row stride s
+  Mat a;               // X_{i-1}: chain planes [D+1][R][w_{i-1}]
+  Mat b;               // Wh_i [w_{i-1}, w_i]
+  Mat fa;              // feats [R, C]
+  Mat fb;              // Wx_feat[:, sl_i] (row stride S)
+  int kh, c;           // K of the hidden and of the skip product
+  const float* frac;   // [N, D]
   const float* wxr;    // wx_rel + off_i, row stride s
   const float* cb;     // corner_bias + off_i, row stride s
-  int c, s;
-  const float* frac;   // [N, D]
-  float* x;            // [R*CH, w] chains of layer i
+  int s;
+  float* x;            // X_i: [D+1][R][w]
   uint8_t* mask;       // [R, w] 1 where the primal pre-activation >= 0
-  int rows, w;
+  long long rows;
+  int w, col_blocks;
   float slope;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) jet_layer_kernel(LayerArgs a) {
+// MT = D + 1 m-tiles (every chain) for the hidden layers; MT = 1 for layer
+// 0, whose tangents are constants (m_0 Wx_rel[a, sl_0]) and whose product
+// is the primal's skip term alone: its 16-float accumulator lets two
+// blocks share an SM, so one block's loads and stores overlap the other's.
+template <int D, int MT>
+__global__ void __launch_bounds__(kThreads, MT == 1 ? 2 : 1)
+    jet_layer_kernel(LayerArgs a) {
   using J = Jet<D>;
-  __shared__ __align__(16) float As[kBK][J::kPadM];
-  __shared__ __align__(16) float Bs[kBK][kPadN];
-  __shared__ __align__(16) float Fs[kBK][J::kPointRows + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % kColThreads, ty = tid / kColThreads;
-  const long long q0 = (long long)blockIdx.x * J::kBM;
-  const long long r0 = q0 / J::kChains;
-  const int n0 = blockIdx.y * kBN;
-  const long long mrows = (long long)a.rows * J::kChains;
-  float acc[J::kTM][kTN] = {};
+  constexpr int NT = kLayerNT, kBN = block_cols<NT>();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  int wm, wn, g, t;
+  warp_coords(wm, wn, g, t);
+  const long long r0 = (long long)(blockIdx.x / a.col_blocks) * kT;
+  const int n0 = (blockIdx.x % a.col_blocks) * kBN;
+  const int nkh = cdiv(a.kh, kBK), nk = nkh + cdiv(a.c, kBK);
+  float acc[MT][NT][4];
+  zero(acc);
+  mainloop<MT, NT, false, true, false>(
+      acc, smem, nk, true,
+      [&](int kt, float* as, float* bs) {
+        if (kt < nkh) {
+          load_rows<MT>(as, a.a, r0, kt * kBK);
+          load_cols<kBN>(bs, a.b, (long long)kt * kBK, a.kh, n0);
+        } else {
+          const int k0 = (kt - nkh) * kBK;
+          load_rows<1>(as, a.fa, r0, k0);
+          load_cols<kBN>(bs, a.fb, k0, a.c, n0);
+        }
+      },
+      [&](int kt) { return kt < nkh ? MT : 1; }, wm, wn, g, t);
 
-  // All chains: X_{i-1} @ Wh_i.
-  for (int k0 = 0; k0 < a.kp; k0 += kBK) {
-    for (int i = tid; i < J::kBM * kBK; i += kThreads) {
-      const int m = i / kBK, k = i % kBK;
-      const long long gq = q0 + m;
-      const int gk = k0 + k;
-      As[k][m] = (gq < mrows && gk < a.kp) ? a.xprev[gq * a.kp + gk] : 0.f;
-    }
-    for (int i = tid; i < kBK * kBN; i += kThreads) {
-      const int k = i / kBN, n = i % kBN;
-      const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < a.kp && gn < a.w) ? a.wh[(long long)gk * a.w + gn]
-                                         : 0.f;
-    }
-    __syncthreads();
-    mma_tile<J::kTM, J::kPadM>(acc, As, Bs, ty, tx);
-    __syncthreads();
-  }
-  // Primal chains only: feats @ Wx_feat[:, sl_i].
-  for (int k0 = 0; k0 < a.c; k0 += kBK) {
-    for (int i = tid; i < J::kPointRows * kBK; i += kThreads) {
-      const int m = i / kBK, k = i % kBK;
-      const long long gr = r0 + m;
-      const int gk = k0 + k;
-      Fs[k][m] = (gr < a.rows && gk < a.c) ? a.feats[gr * a.c + gk] : 0.f;
-    }
-    for (int i = tid; i < kBK * kBN; i += kThreads) {
-      const int k = i / kBN, n = i % kBN;
-      const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < a.c && gn < a.w) ? a.wxf[(long long)gk * a.s + gn]
-                                        : 0.f;
-    }
-    __syncthreads();
+  // Epilogue: coordinate projection + corner bias on the primal, its mask
+  // on every chain, in registers. A thread holds columns n, n + 1 of a
+  // row: one 8-byte store a chain (and a 2-byte mask store) where w is
+  // even.
+  const long long plane = a.rows * a.w;
+  const bool pair = a.w % 2 == 0;
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float f0 = Fs[k][ty * 2], f1 = Fs[k][ty * 2 + 1];
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * kTN]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[k][tx * kTN + 4]);
-      const float bv[kTN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int q = 0; q < kTN; ++q) {
-        acc[0][q] += f0 * bv[q];
-        acc[J::kChains][q] += f1 * bv[q];
-      }
-    }
-    __syncthreads();
-  }
-  // Epilogue: coordinate projection + corner bias, mask, chain outputs.
-#pragma unroll
-  for (int s2 = 0; s2 < 2; ++s2) {
-    const long long r = r0 + ty * 2 + s2;
+  for (int half = 0; half < 2; ++half) {
+    const long long r = r0 + wm * 16 + g + 8 * half;
     if (r >= a.rows) continue;
-    const long long p = r / J::kCorners;
-    const int k = (int)(r % J::kCorners);
+    const long long p = r >> D;
+    const int k = (int)(r & (J::kCorners - 1));
     float fr[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) fr[d] = a.frac[p * D + d];
 #pragma unroll
-    for (int q = 0; q < kTN; ++q) {
-      const int n = n0 + tx * kTN + q;
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + (wn * NT + j) * 8 + 2 * t;
       if (n >= a.w) continue;
-      float pre = acc[s2 * J::kChains][q];
+      float v[D + 1][2];
+      uint8_t pos[2];
 #pragma unroll
-      for (int d = 0; d < D; ++d) pre += fr[d] * a.wxr[(long long)d * a.s + n];
-      pre += a.cb[(long long)k * a.s + n];
-      const bool pos = pre >= 0.f;
-      const float m = pos ? 1.f : a.slope;
-      const long long base = r * J::kChains * a.w + n;
-      a.x[base] = m * pre;
+      for (int e = 0; e < 2; ++e) {
+        const int col = min(n + e, a.w - 1);  // in range; stored if < w
+        float wr[D];
 #pragma unroll
-      for (int t = 0; t < D; ++t)
-        a.x[base + (long long)(t + 1) * a.w] =
-            m * (acc[s2 * J::kChains + 1 + t][q] +
-                 a.wxr[(long long)t * a.s + n]);
-      a.mask[r * a.w + n] = pos ? 1 : 0;
+        for (int d = 0; d < D; ++d) wr[d] = a.wxr[(long long)d * a.s + col];
+        float pre = acc[0][j][2 * half + e];
+#pragma unroll
+        for (int d = 0; d < D; ++d) pre += fr[d] * wr[d];
+        pre += a.cb[(long long)k * a.s + col];
+        pos[e] = pre >= 0.f;
+        const float m = pos[e] ? 1.f : a.slope;
+        v[0][e] = m * pre;
+#pragma unroll
+        for (int c = 1; c <= D; ++c) {
+          float tan = wr[c - 1];
+          if constexpr (MT > 1) tan += acc[c][j][2 * half + e];
+          v[c][e] = m * tan;
+        }
+      }
+      const long long o = r * a.w + n;
+      if (pair) {
+#pragma unroll
+        for (int c = 0; c <= D; ++c)
+          *reinterpret_cast<float2*>(a.x + o + c * plane) =
+              make_float2(v[c][0], v[c][1]);
+        *reinterpret_cast<uchar2*>(a.mask + o) = make_uchar2(pos[0], pos[1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (n + e >= a.w) continue;
+#pragma unroll
+          for (int c = 0; c <= D; ++c) a.x[o + e + c * plane] = v[c][e];
+          a.mask[o + e] = pos[e];
+        }
+      }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// C (+)= A @ B^T for B given as rows [N, K]: the backward's P_i Wh_i^T, with
+// the next layer's mask applied in registers (kChain: A and C are chain
+// planes and the mask of corner row r covers every chain), and P_i[primal]
+// Wx_feat^T into d feats (plain rows).
+
+struct NTArgs {
+  Mat a;                // [rows, K] (chain planes or plain rows)
+  Mat b;                // [N, K]
+  float* c;             // row rr of slot s at c + s * cplane + rr * ldc
+  long long ldc, cplane, cstep;
+  int n, k, accumulate, col_blocks;
+  const uint8_t* mask;  // [R, mask_ld] or null
+  int mask_ld;
+  float slope;
+};
+
+template <int MT, int NT, bool kChain>
+__global__ void __launch_bounds__(kThreads, 1) gemm_nt_kernel(NTArgs a) {
+  constexpr int kBN = block_cols<NT>();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  int wm, wn, g, t;
+  warp_coords(wm, wn, g, t);
+  const long long r0 =
+      (long long)(blockIdx.x / a.col_blocks) * (kChain ? kT : MT * kT);
+  const int n0 = (blockIdx.x % a.col_blocks) * kBN;
+  float acc[MT][NT][4];
+  zero(acc);
+  mainloop<MT, NT, false, false, false>(
+      acc, smem, cdiv(a.k, kBK), true,
+      [&](int kt, float* as, float* bs) {
+        load_rows<MT>(as, a.a, r0, kt * kBK);
+        load_rows<kBN / kT>(bs, a.b, n0, kt * kBK);
+      },
+      [&](int) { return MT; }, wm, wn, g, t);
+  // A thread holds columns n, n + 1 of a row: one 8-byte store where the
+  // output's strides are even.
+  const bool pair = a.ldc % 2 == 0 && a.cplane % 2 == 0 &&
+                    (uintptr_t)a.c % 8 == 0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + (wn * NT + j) * 8 + 2 * t;
+      if (n >= a.n) continue;
+      const long long rw = r0 + wm * 16 + g + 8 * half;
+      float m[2] = {1.f, 1.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (kChain && a.mask && rw < a.a.rows && n + e < a.n &&
+            !a.mask[rw * a.mask_ld + n + e])
+          m[e] = a.slope;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const long long rr = rw + mi * a.cstep;
+        if (rr >= a.a.rows) continue;
+        float* dst = a.c + mi * a.cplane + rr * a.ldc + n;
+        float v[2] = {m[0] * acc[mi][j][2 * half],
+                      m[1] * acc[mi][j][2 * half + 1]};
+        if (pair && n + 1 < a.n) {
+          float2* d2 = reinterpret_cast<float2*>(dst);
+          if (a.accumulate) {
+            const float2 o = *d2;
+            v[0] = o.x + v[0], v[1] = o.y + v[1];
+          }
+          *d2 = make_float2(v[0], v[1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (n + e < a.n) dst[e] = a.accumulate ? dst[e] + v[e] : v[e];
+        }
+      }
+    }
+  }
+}
+
+// part[z][KA, NB] = sum over rows m of chunk z of A[m, :]^T B[m, :]: split-K
+// partials, each over at most `chunk` rows.
+struct TNArgs {
+  Mat a, b;           // [m, ka], [m, nb]
+  float* part;
+  long long m, chunk;
+  int ka, nb, col_blocks;
+};
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1) gemm_tn_kernel(TNArgs a) {
+  constexpr int NT = kPlainNT, kBN = block_cols<NT>();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  int wm, wn, g, t;
+  warp_coords(wm, wn, g, t);
+  const int i0 = (blockIdx.x / a.col_blocks) * (MT * kT);
+  const int n0 = (blockIdx.x % a.col_blocks) * kBN;
+  const long long m0 = (long long)blockIdx.y * a.chunk;
+  const long long m1 = min(a.m, m0 + a.chunk);
+  float acc[MT][NT][4];
+  zero(acc);
+  mainloop<MT, NT, true, true, true>(
+      acc, smem, cdiv(m1 - m0, kBK), a.a.vec && a.b.vec,
+      [&](int kt, float* as, float* bs) {
+        const long long k0 = m0 + (long long)kt * kBK;
+        load_cols<MT * kT>(as, a.a, k0, m1, i0);
+        load_cols<kBN>(bs, a.b, k0, m1, n0);
+      },
+      [&](int) { return MT; }, wm, wn, g, t);
+  float* dst = a.part + (long long)blockIdx.y * a.ka * a.nb;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = i0 + mi * kT + wm * 16 + g + 8 * half;
+      if (i >= a.ka) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + (wn * NT + j) * 8 + 2 * t + e;
+          if (n < a.nb) dst[(long long)i * a.nb + n] = acc[mi][j][2 * half + e];
+        }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -334,6 +779,15 @@ __device__ void fill_coefs(const float* fr, float* coef, int k) {
   }
 }
 
+// Offset of chain row (corner k, chain c) of point p in a chain-plane
+// buffer of R corner rows and width nf.
+template <int D>
+__device__ __forceinline__ long long chain_row(long long rows, long long p,
+                                               int kc) {
+  using J = Jet<D>;
+  return (kc % J::kChains) * rows + p * J::kCorners + kc / J::kChains;
+}
+
 // Forward head: blend the chain rows into the jet blocks, then W5 (+ b5 on
 // the value block). One column j per thread; a block walks `ppb` points.
 template <int D>
@@ -348,6 +802,7 @@ __global__ void jet_head_fwd_kernel(const float* __restrict__ x4,
   float* coef = sm;                                    // [blocks][rows/pt]
   float* stk = sm + J::kBlocksOut * J::kRowsPerPoint;  // [blocks][nf]
   const int j = threadIdx.x;
+  const long long rows = (long long)n * J::kCorners;
   const int p_begin = (int)blockIdx.x * ppb;
   const int p_end = min(n, p_begin + ppb);
   for (int p = p_begin; p < p_end; ++p) {
@@ -360,7 +815,7 @@ __global__ void jet_head_fwd_kernel(const float* __restrict__ x4,
     if (j < nf) {
       float acc[J::kBlocksOut] = {};
       for (int kc = 0; kc < J::kRowsPerPoint; ++kc) {
-        const float x = x4[((long long)p * J::kRowsPerPoint + kc) * nf + j];
+        const float x = x4[chain_row<D>(rows, p, kc) * nf + j];
 #pragma unroll
         for (int b = 0; b < J::kBlocksOut; ++b)
           acc[b] += coef[b * J::kRowsPerPoint + kc] * x;
@@ -394,6 +849,7 @@ __global__ void jet_head_bwd_kernel(const float* __restrict__ x4,
   __shared__ float coef[J::kBlocksOut * J::kRowsPerPoint];
   __shared__ float yb[J::kBlocksOut * kMaxOut];
   const int j = threadIdx.x;
+  const long long rows = (long long)n * J::kCorners;
   float dw5[kMaxOut] = {};
   float db5 = 0.f;
   const int p_begin = (int)blockIdx.x * ppb;
@@ -419,7 +875,7 @@ __global__ void jet_head_bwd_kernel(const float* __restrict__ x4,
       stk[b] = 0.f;
     }
     for (int kc = 0; kc < J::kRowsPerPoint; ++kc) {
-      const long long idx = ((long long)p * J::kRowsPerPoint + kc) * nf + j;
+      const long long idx = chain_row<D>(rows, p, kc) * nf + j;
       const float x = x4[idx];
       float xb = 0.f;
 #pragma unroll
@@ -444,162 +900,90 @@ __global__ void jet_head_bwd_kernel(const float* __restrict__ x4,
   if (j < out_dim) dst[nf * out_dim + j] = db5;
 }
 
-// ---------------------------------------------------------------------------
-// C[M, N] (+)= A[M, K] @ B[N, K]^T, optionally times the layer mask
-// (row q of C belongs to corner row q / Chains).
-struct NTArgs {
-  const float* a;
-  long long lda;
-  const float* b;
-  long long ldb;
-  float* c;
-  long long ldc;
-  long long m;
-  int n, k;
-  int accumulate;
-  const uint8_t* mask;  // [M / Chains, mask_ld] or null
-  int mask_ld;
-  float slope;
-};
-
-template <int Chains>
-__global__ void __launch_bounds__(kThreads) gemm_nt_kernel(NTArgs g) {
-  __shared__ __align__(16) float As[kBK][kPadM];
-  __shared__ __align__(16) float Bs[kBK][kPadN];
-  const int tid = threadIdx.x;
-  const int tx = tid % kColThreads, ty = tid / kColThreads;
-  const long long q0 = (long long)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  float acc[kTM][kTN] = {};
-  for (int k0 = 0; k0 < g.k; k0 += kBK) {
-    for (int i = tid; i < kBM * kBK; i += kThreads) {
-      const int m = i / kBK, k = i % kBK;
-      const long long gq = q0 + m;
-      const int gk = k0 + k;
-      As[k][m] = (gq < g.m && gk < g.k) ? g.a[gq * g.lda + gk] : 0.f;
-    }
-    for (int i = tid; i < kBN * kBK; i += kThreads) {
-      const int n = i / kBK, k = i % kBK;
-      const int gn = n0 + n, gk = k0 + k;
-      Bs[k][n] = (gn < g.n && gk < g.k) ? g.b[gn * g.ldb + gk] : 0.f;
-    }
-    __syncthreads();
-    mma_tile<kTM, kPadM>(acc, As, Bs, ty, tx);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < kTM; ++j) {
-    const long long row = q0 + ty * kTM + j;
-    if (row >= g.m) continue;
-#pragma unroll
-    for (int q = 0; q < kTN; ++q) {
-      const int col = n0 + tx * kTN + q;
-      if (col >= g.n) continue;
-      float v = acc[j][q];
-      if (g.mask && !g.mask[(row / Chains) * g.mask_ld + col]) v *= g.slope;
-      float* dst = g.c + row * g.ldc + col;
-      *dst = g.accumulate ? *dst + v : v;
-    }
-  }
-}
-
-// part[z][KA, NB] = sum over rows m of chunk z of A[m, :]^T B[m, :].
-struct TNArgs {
-  const float* a;
-  long long lda;
-  const float* b;
-  long long ldb;
-  float* part;
-  long long m;
-  int ka, nb;
-  long long chunk;
-};
-
-__global__ void __launch_bounds__(kThreads) gemm_tn_kernel(TNArgs g) {
-  __shared__ __align__(16) float As[kBK][kPadM];
-  __shared__ __align__(16) float Bs[kBK][kPadN];
-  const int tid = threadIdx.x;
-  const int tx = tid % kColThreads, ty = tid / kColThreads;
-  const int i0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const long long m_begin = (long long)blockIdx.z * g.chunk;
-  const long long m_end = min(g.m, m_begin + g.chunk);
-  float acc[kTM][kTN] = {};
-  for (long long m0 = m_begin; m0 < m_end; m0 += kBK) {
-    for (int t = tid; t < kBK * kBM; t += kThreads) {
-      const int k = t / kBM, i = t % kBM;
-      const long long gm = m0 + k;
-      const int gi = i0 + i;
-      As[k][i] = (gm < m_end && gi < g.ka) ? g.a[gm * g.lda + gi] : 0.f;
-    }
-    for (int t = tid; t < kBK * kBN; t += kThreads) {
-      const int k = t / kBN, n = t % kBN;
-      const long long gm = m0 + k;
-      const int gn = n0 + n;
-      Bs[k][n] = (gm < m_end && gn < g.nb) ? g.b[gm * g.ldb + gn] : 0.f;
-    }
-    __syncthreads();
-    mma_tile<kTM, kPadM>(acc, As, Bs, ty, tx);
-    __syncthreads();
-  }
-  float* dst = g.part + (long long)blockIdx.z * g.ka * g.nb;
-#pragma unroll
-  for (int j = 0; j < kTM; ++j) {
-    const int i = i0 + ty * kTM + j;
-    if (i >= g.ka) continue;
-#pragma unroll
-    for (int q = 0; q < kTN; ++q) {
-      const int n = n0 + tx * kTN + q;
-      if (n < g.nb) dst[(long long)i * g.nb + n] = acc[j][q];
-    }
-  }
-}
-
 // Per-chunk partials of the layer's bias-side gradients, [chunks][K + D][w]:
 // rows k < K: sum_p P[p, k, primal]; rows K + a: sum_p frac_pa
-// sum_k P[p, k, primal] + sum_{p,k} P[p, k, tangent a].
-template <int D>
+// sum_k P[p, k, primal] + sum_{p,k} P[p, k, tangent a]. P: chain planes. A
+// thread sums V adjacent columns (16-byte loads where w allows).
+template <int V>
+__device__ __forceinline__ void load_v(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int D, int V>
 __global__ void bias_grad_kernel(const float* __restrict__ pbuf,
                                  const float* __restrict__ frac, int n,
                                  int w, int ppc, float* __restrict__ part) {
   using J = Jet<D>;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = (blockIdx.x * blockDim.x + threadIdx.x) * V;
   if (j >= w) return;
-  float cb[J::kCorners] = {}, xr[D] = {};
+  const long long plane = (long long)n * J::kCorners * w;
+  float cb[J::kCorners][V] = {}, xr[D][V] = {};
   const int p_begin = (int)blockIdx.y * ppc;
   const int p_end = min(n, p_begin + ppc);
   for (int p = p_begin; p < p_end; ++p) {
-    float s = 0.f;
+    float s[V] = {};
 #pragma unroll
     for (int k = 0; k < J::kCorners; ++k) {
-      const long long base =
-          ((long long)p * J::kRowsPerPoint + k * J::kChains) * w + j;
-      const float v = pbuf[base];
-      cb[k] += v;
-      s += v;
+      const float* base = pbuf + ((long long)p * J::kCorners + k) * w + j;
+      float v[V];
+      load_v<V>(base, v);
 #pragma unroll
-      for (int d = 0; d < D; ++d) xr[d] += pbuf[base + (long long)(d + 1) * w];
+      for (int c = 0; c < V; ++c) cb[k][c] += v[c], s[c] += v[c];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        load_v<V>(base + (d + 1) * plane, v);
+#pragma unroll
+        for (int c = 0; c < V; ++c) xr[d][c] += v[c];
+      }
     }
 #pragma unroll
-    for (int d = 0; d < D; ++d) xr[d] += frac[(long long)p * D + d] * s;
+    for (int d = 0; d < D; ++d) {
+      const float f = frac[(long long)p * D + d];
+#pragma unroll
+      for (int c = 0; c < V; ++c) xr[d][c] += f * s[c];
+    }
   }
   float* dst = part + (long long)blockIdx.y * (J::kCorners + D) * w + j;
 #pragma unroll
-  for (int k = 0; k < J::kCorners; ++k) dst[(long long)k * w] = cb[k];
+  for (int c = 0; c < V; ++c) {
 #pragma unroll
-  for (int d = 0; d < D; ++d) dst[(long long)(J::kCorners + d) * w] = xr[d];
+    for (int k = 0; k < J::kCorners; ++k) dst[(long long)k * w + c] = cb[k][c];
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      dst[(long long)(J::kCorners + d) * w + c] = xr[d][c];
+  }
 }
 
-// out[e / cols, e % cols] (stride ldo) = sum_z part[z * stride + e], z in
-// order.
-__global__ void reduce_kernel(const float* __restrict__ part, int chunks,
-                              long long stride, int rows, int cols,
-                              float* __restrict__ out, long long ldo) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)rows * cols) return;
+// out[e / cols, e % cols] (stride ldo) = sum_z part[z * stride + e]. A
+// block sums 32 elements, warp q of kReduceWarps over the chunks z = q mod
+// kReduceWarps; the warps' sums are added in warp order: bitwise the same
+// in every run.
+constexpr int kReduceWarps = 8;
+
+__global__ void __launch_bounds__(32 * kReduceWarps)
+    reduce_kernel(const float* __restrict__ part, int chunks, long long stride,
+                  int rows, int cols, float* __restrict__ out,
+                  long long ldo) {
+  __shared__ float sums[kReduceWarps][32];
+  const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
+  const long long e = (long long)blockIdx.x * 32 + lane;
+  const bool ok = e < (long long)rows * cols;
   float s = 0.f;
-  for (int z = 0; z < chunks; ++z) s += part[z * stride + e];
-  out[(e / cols) * ldo + e % cols] = s;
+  if (ok)
+    for (int z = q; z < chunks; z += kReduceWarps) s += part[z * stride + e];
+  sums[q][lane] = s;
+  __syncthreads();
+  if (q == 0 && ok) {
+    float v = sums[0][lane];
+#pragma unroll
+    for (int w = 1; w < kReduceWarps; ++w) v += sums[w][lane];
+    out[(e / cols) * ldo + e % cols] = v;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -642,9 +1026,42 @@ auto by_dim(const Shape& sh, F&& f) {
   return sh.dim == 3 ? f(Jet<3>{}) : f(Jet<4>{});
 }
 
+Mat mat(const float* p, long long ld, long long rows, int cols,
+        long long plane = 0, long long step = 0) {
+  const bool vec = ((uintptr_t)p % 16 == 0) && ld % 4 == 0 && plane % 4 == 0;
+  return Mat{p, ld, plane, step, rows, cols, vec ? 1 : 0};
+}
+
+// A refused attribute's error, cleared so that it does not stick to the
+// next launch.
+int attr_error(cudaError_t e) {
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+#define STPDE_SMEM(kernel, bytes)                                      \
+  do {                                                                 \
+    const int e_ = attr_error(cudaFuncSetAttribute(                    \
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));  \
+    if (e_) return e_;                                                 \
+  } while (0)
+
+// Shared memory of the three products.
+template <int MT>
+constexpr int layer_smem() {
+  return mainloop_smem<MT, kLayerNT, false, true, false>();
+}
+template <int MT, int NT>
+constexpr int nt_smem() {
+  return mainloop_smem<MT, NT, false, false, false>();
+}
+template <int MT>
+constexpr int tn_smem() {
+  return mainloop_smem<MT, kPlainNT, true, true, true>();
+}
+
 // Row chunks of a reduction over `m` rows into `tiles` output tiles.
 long long chunk_rows(long long m, int tiles, int* chunks) {
-  int want = cdiv(kTargetBlocks, tiles);
+  int want = kTargetBlocks / tiles;
   const int most = cdiv(m, kBK);
   want = want < 1 ? 1 : (want > most ? most : want);
   long long chunk = (long long)cdiv(cdiv(m, want), kBK) * kBK;
@@ -653,7 +1070,13 @@ long long chunk_rows(long long m, int tiles, int* chunks) {
   return chunk;
 }
 
-int tn_tiles(int ka, int nb) { return cdiv(ka, kBM) * cdiv(nb, kBN); }
+// Slots of the TN product's A tile: 64 rows where KA is at most 64 (the
+// latent width C of the skip products), else 128.
+int tn_mt(int ka) { return ka <= 2 * kT ? 2 : kPlainMT; }
+
+int tn_tiles(int ka, int nb) {
+  return cdiv(ka, tn_mt(ka) * kT) * cdiv(nb, block_cols<kPlainNT>());
+}
 
 long long tn_partial_floats(long long m, int ka, int nb) {
   int chunks;
@@ -661,15 +1084,20 @@ long long tn_partial_floats(long long m, int ka, int nb) {
   return (long long)chunks * ka * nb;
 }
 
+// The bias-side sums: V columns a thread, 128 threads a block, enough
+// point chunks for about 8 blocks per SM.
+constexpr int kBiasThreads = 128;
+int bias_vec(int w) { return w % 4 == 0 ? 4 : 1; }
+
 int bias_chunks(const Shape& sh, int w, int* ppc) {
-  const int xblocks = cdiv(w, 128);
-  int chunks = cdiv(kTargetBlocks, xblocks);
+  const int xblocks = cdiv(cdiv(w, bias_vec(w)), kBiasThreads);
+  int chunks = cdiv(2 * kTargetBlocks, xblocks);
   if (chunks > sh.n) chunks = sh.n > 0 ? sh.n : 1;
   *ppc = sh.n > 0 ? cdiv(sh.n, chunks) : 1;
   return sh.n > 0 ? cdiv(sh.n, *ppc) : 1;
 }
 
-constexpr int kHeadPoints = 64;  // points a head block walks
+constexpr int kHeadPoints = 4;  // points a head block walks
 
 int head_threads(int nf) { return cdiv(nf, 32) * 32; }
 
@@ -709,7 +1137,8 @@ long long bwd_workspace_bytes(const Shape& sh) {
   return (a + b + p) * (long long)sizeof(float);
 }
 
-// Forward workspace views.
+// Forward workspace views: every layer's chain planes [D+1][R][w_i], then
+// every layer's masks [R][w_i].
 void fwd_views(const Shape& sh, void* ws, float* x[kLayers],
                uint8_t* mask[kLayers]) {
   float* xf = static_cast<float*>(ws);
@@ -730,33 +1159,45 @@ int reduce(const float* part, int chunks, long long stride, int rows,
            int cols, float* out, long long ldo, cudaStream_t st) {
   const long long e = (long long)rows * cols;
   if (e == 0) return 0;
-  reduce_kernel<<<cdiv(e, 256), 256, 0, st>>>(part, chunks, stride, rows,
-                                               cols, out, ldo);
+  reduce_kernel<<<cdiv(e, 32), 32 * kReduceWarps, 0, st>>>(
+      part, chunks, stride, rows, cols, out, ldo);
   STPDE_LAUNCH_CHECK();
   return 0;
 }
 
 // out[KA, NB] (row stride ldo) = A[m, KA]^T B[m, NB], deterministic.
-int gemm_tn(const float* a, long long lda, const float* b, long long ldb,
-            long long m, int ka, int nb, float* part, float* out,
-            long long ldo, cudaStream_t st) {
+int gemm_tn(const Mat& a, const Mat& b, long long m, int ka, int nb,
+            float* part, float* out, long long ldo, cudaStream_t st) {
   int chunks;
   const long long chunk = chunk_rows(m, tn_tiles(ka, nb), &chunks);
-  TNArgs g{a, lda, b, ldb, part, m, ka, nb, chunk};
-  dim3 grid(cdiv(ka, kBM), cdiv(nb, kBN), chunks);
-  gemm_tn_kernel<<<grid, kThreads, 0, st>>>(g);
+  const int cb = cdiv(nb, block_cols<kPlainNT>());
+  TNArgs g{a, b, part, m, chunk, ka, nb, cb};
+  dim3 grid(cdiv(ka, tn_mt(ka) * kT) * cb, chunks);
+  if (tn_mt(ka) == 2) {
+    STPDE_SMEM(gemm_tn_kernel<2>, tn_smem<2>());
+    gemm_tn_kernel<2><<<grid, kThreads, tn_smem<2>(), st>>>(g);
+  } else {
+    STPDE_SMEM(gemm_tn_kernel<kPlainMT>, tn_smem<kPlainMT>());
+    gemm_tn_kernel<kPlainMT><<<grid, kThreads, tn_smem<kPlainMT>(), st>>>(g);
+  }
   STPDE_LAUNCH_CHECK();
   return reduce(part, chunks, (long long)ka * nb, ka, nb, out, ldo, st);
 }
 
-template <int Chains>
-int gemm_nt(const float* a, long long lda, const float* b, long long ldb,
-            float* c, long long ldc, long long m, int n, int k, int accumulate,
+// C = A B^T (or C += ...). kChain: A and C are chain planes of MT chains
+// (rows = corner rows), else plain rows.
+template <int MT, int NT, bool kChain>
+int gemm_nt(const Mat& a, const Mat& b, float* c, long long ldc,
+            long long cplane, int n, int k, int accumulate,
             const uint8_t* mask, int mask_ld, float slope, cudaStream_t st) {
-  if (m == 0) return 0;
-  NTArgs g{a, lda, b, ldb, c, ldc, m, n, k, accumulate, mask, mask_ld, slope};
-  dim3 grid(cdiv(m, kBM), cdiv(n, kBN));
-  gemm_nt_kernel<Chains><<<grid, kThreads, 0, st>>>(g);
+  if (a.rows == 0) return 0;
+  const int cb = cdiv(n, block_cols<NT>());
+  const int row_blocks = cdiv(a.rows, kChain ? kT : MT * kT);
+  NTArgs g{a, b, c, ldc, cplane, kChain ? 0 : kT, n, k, accumulate, cb,
+           mask, mask_ld, slope};
+  STPDE_SMEM((gemm_nt_kernel<MT, NT, kChain>), (nt_smem<MT, NT>()));
+  gemm_nt_kernel<MT, NT, kChain>
+      <<<row_blocks * cb, kThreads, nt_smem<MT, NT>(), st>>>(g);
   STPDE_LAUNCH_CHECK();
   return 0;
 }
@@ -769,13 +1210,25 @@ int run_forward(const Shape& sh, const float* feats, const float* frac,
   float* x[kLayers];
   uint8_t* mask[kLayers];
   fwd_views(sh, ws, x, mask);
+  constexpr int MT = J::kChains;
+  STPDE_SMEM((jet_layer_kernel<D, 1>), layer_smem<1>());
+  STPDE_SMEM((jet_layer_kernel<D, MT>), layer_smem<MT>());
+  const Mat fa = mat(feats, sh.c, sh.rows, sh.c);
   for (int i = 0; i < kLayers; ++i) {
-    LayerArgs a{i ? x[i - 1] : nullptr, i ? wt.wh[i - 1] : nullptr,
-                i ? sh.w[i - 1] : 0, feats, wt.wx_feat + sh.off[i],
-                wt.wx_rel + sh.off[i], wt.corner_bias + sh.off[i], sh.c,
-                sh.s, frac, x[i], mask[i], (int)sh.rows, sh.w[i], slope};
-    dim3 grid(cdiv(sh.rows * J::kChains, J::kBM), cdiv(sh.w[i], kBN));
-    jet_layer_kernel<D><<<grid, kThreads, 0, st>>>(a);
+    const int kp = i ? sh.w[i - 1] : 0, w = sh.w[i];
+    const Mat a = i ? mat(x[i - 1], kp, sh.rows, kp, sh.rows * kp)
+                    : mat(feats, sh.c, 0, 0);
+    const Mat b = i ? mat(wt.wh[i - 1], w, kp, w) : mat(feats, sh.c, 0, 0);
+    const int cb = cdiv(w, block_cols<kLayerNT>());
+    LayerArgs a_{a, b, fa, mat(wt.wx_feat + sh.off[i], sh.s, sh.c, w), kp,
+                 sh.c, frac, wt.wx_rel + sh.off[i],
+                 wt.corner_bias + sh.off[i], sh.s, x[i], mask[i], sh.rows,
+                 w, cb, slope};
+    const int blocks = cdiv(sh.rows, kT) * cb;
+    if (i == 0)
+      jet_layer_kernel<D, 1><<<blocks, kThreads, layer_smem<1>(), st>>>(a_);
+    else
+      jet_layer_kernel<D, MT><<<blocks, kThreads, layer_smem<MT>(), st>>>(a_);
     STPDE_LAUNCH_CHECK();
   }
   const int threads = head_threads(sh.nf);
@@ -821,25 +1274,32 @@ int run_backward(const Shape& sh, const float* feats, const float* frac,
              hstride, 1, sh.out_dim, gr.b5, sh.out_dim, st);
   if (e) return e;
 
+  const Mat fa = mat(feats, sh.c, sh.rows, sh.c);
   float* cur = buf_a;
   for (int i = kLayers - 1; i >= 0; --i) {
     const int w = sh.w[i];
-    const long long ldp = (long long)J::kChains * w;  // primal-row stride
     float* nxt = cur == buf_a ? buf_b : buf_a;
+    const Mat pm = mat(cur, w, sh.rows, w, 0, kT);  // P_i[primal] rows
     if (i > 0) {
-      e = gemm_tn(x[i - 1], sh.w[i - 1], cur, w, mrows, sh.w[i - 1], w, part,
-                  gr.wh[i - 1], w, st);
+      const int kp = sh.w[i - 1];
+      e = gemm_tn(mat(x[i - 1], kp, mrows, kp), mat(cur, w, mrows, w), mrows,
+                  kp, w, part, gr.wh[i - 1], w, st);
       if (e) return e;
     }
-    e = gemm_tn(feats, sh.c, cur, ldp, sh.rows, sh.c, w, part,
-                gr.wx_feat + sh.off[i], sh.s, st);
+    e = gemm_tn(fa, pm, sh.rows, sh.c, w, part, gr.wx_feat + sh.off[i], sh.s,
+                st);
     if (e) return e;
     int ppc;
     const int bchunks = bias_chunks(sh, w, &ppc);
     if (sh.n > 0) {
-      dim3 grid(cdiv(w, 128), bchunks);
-      bias_grad_kernel<D><<<grid, 128, 0, st>>>(cur, frac, sh.n, w, ppc,
-                                                part);
+      const int v = bias_vec(w);
+      dim3 grid(cdiv(cdiv(w, v), kBiasThreads), bchunks);
+      if (v == 4)
+        bias_grad_kernel<D, 4><<<grid, kBiasThreads, 0, st>>>(
+            cur, frac, sh.n, w, ppc, part);
+      else
+        bias_grad_kernel<D, 1><<<grid, kBiasThreads, 0, st>>>(
+            cur, frac, sh.n, w, ppc, part);
       STPDE_LAUNCH_CHECK();
     }
     const long long bstride = (long long)(J::kCorners + D) * w;
@@ -849,14 +1309,15 @@ int run_backward(const Shape& sh, const float* feats, const float* frac,
     e = reduce(part + (long long)J::kCorners * w, sh.n > 0 ? bchunks : 0,
                bstride, D, w, gr.wx_rel + sh.off[i], sh.s, st);
     if (e) return e;
-    e = gemm_nt<J::kChains>(cur, ldp, wt.wx_feat + sh.off[i], sh.s, dfeats,
-                            sh.c, sh.rows, sh.c, w, i != kLayers - 1,
-                            nullptr, 0, slope, st);
+    e = gemm_nt<kPlainMT, kFeatNT, false>(
+        pm, mat(wt.wx_feat + sh.off[i], sh.s, sh.c, w, 0, kT), dfeats, sh.c,
+        0, sh.c, w, i != kLayers - 1, nullptr, 0, slope, st);
     if (e) return e;
     if (i > 0) {
-      e = gemm_nt<J::kChains>(cur, w, wt.wh[i - 1], w, nxt, sh.w[i - 1],
-                              mrows, sh.w[i - 1], w, 0, mask[i - 1],
-                              sh.w[i - 1], slope, st);
+      const int kp = sh.w[i - 1];
+      e = gemm_nt<J::kChains, kBackNT, true>(
+          mat(cur, w, sh.rows, w, sh.rows * w), mat(wt.wh[i - 1], w, kp, w, 0, kT),
+          nxt, kp, sh.rows * kp, kp, w, 0, mask[i - 1], kp, slope, st);
       if (e) return e;
       cur = nxt;
     }

@@ -26,8 +26,11 @@ CPU tensor it runs the plain twin in this module: :func:`jet_fwd_plain`
 computes the forward math in PyTorch, and :func:`jet_bwd_plain` is
 autograd through it, a derivation independent of the backward kernel.
 
-The kernels are f32 and take D = 3 (8 corners, the rb2d family) and
-D = 4 (16 corners, the turb3d family); a bf16 ``compute_dtype`` raises
+The kernels take f32 and run their matrix products in 3xTF32 on the
+tensor cores (each operand split into a TF32 high and low part, three
+products a k-step, f32 accumulation: f32-grade results), the rest in
+f32. They take D = 3 (8 corners, the rb2d family) and D = 4 (16
+corners, the turb3d family); a bf16 ``compute_dtype`` raises
 ``NotImplementedError``, and so does another D on the card. A
 non-piecewise-linear activation raises ``ValueError``; ``relu`` is
 LeakyReLU with slope 0.
@@ -139,6 +142,16 @@ def jet_fwd_plain(feats2, frac, packed, *, nf: int, slope: float = 0.01,
         mask = branch(i, pre)
         h = pre * mask
         g = mask[:, :, None] * (g @ wh + inj(i))
+    out = _jet_blocks(h, g, frac, packed)
+    return (out, pres) if return_pre else out
+
+
+def _jet_blocks(h, g, frac, packed):
+    """The jet blocks of layer 4's chains, h ``[N, K, nf]`` (primal) and
+    g ``[N, K, D, nf]`` (tangents): the multilinear blends of the value,
+    Jacobian and Hessian, then the head (``b5`` on the value block) ->
+    ``[N, blocks, O]``."""
+    dim = frac.shape[1]
     w, dw, d2w = (t.to(h.dtype) for t in multilinear_weight_jet(frac))
 
     def blend(coef, x):                              # [N, K], [N, K, nf]
@@ -154,8 +167,7 @@ def jet_fwd_plain(feats2, frac, packed, *, nf: int, slope: float = 0.01,
         blocks.append(acc)
     out = torch.stack(blocks, dim=1) @ packed["w5"]  # [N, blocks, O]
     value = out[:, :1] + packed["b5"]
-    out = torch.cat([value, out[:, 1:]], dim=1)
-    return (out, pres) if return_pre else out
+    return torch.cat([value, out[:, 1:]], dim=1)
 
 
 def jet_bwd_plain(feats2, frac, packed, ybar, *, nf: int,
@@ -176,8 +188,8 @@ def jet_bwd_plain(feats2, frac, packed, ybar, *, nf: int,
 
 def workspace_masks(workspace, n: int, dim: int, nf: int):
     """The five layers' branch decisions that :func:`jet_fwd` stored in
-    its workspace (``csrc/fused_jet.cu``: every layer's chains, f32
-    ``[R, D+1, w_i]``, then every layer's masks, bytes ``[R, w_i]``,
+    its workspace (``csrc/fused_jet.cu``: every layer's chain planes, f32
+    ``[D+1, R, w_i]``, then every layer's masks, bytes ``[R, w_i]``,
     R = N 2^D) -> ``[R, w_i]`` bool tensors."""
     rows = n * 2 ** dim
     widths = [nf * m for m in _MULTS]

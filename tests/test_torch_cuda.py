@@ -153,8 +153,10 @@ def test_shared_memory_overflow_raises(device):
 
 # --- jet kernels (csrc/fused_jet.cu) ----------------------------------------
 #
-# Against the plain twin run in float64 on the card: per quantity, the
-# kernel may sit at most twice as far from it as the f32 twin does,
+# The kernels run their products in 3xTF32 like the decode (f32-grade, in
+# another summation order than cuBLAS's). Against the plain twin run in
+# float64 on the card: per quantity, the kernel may sit at most twice as
+# far from it as the f32 twin does,
 # |err| <= 1e-4 |ref| + atol max|ref| (a LeakyReLU mask that flips within
 # f32 rounding moves a point's Jacobian and Hessian by a finite step, so
 # the f32 floor is scale-relative), never below 1e-6 of max|ref|. Where the

@@ -80,12 +80,48 @@ corners):
 15. ``experiments/turb3d/train_torch.main`` with the recipe's model and
     loss flags on three Beltrami realizations made here, 2 epochs x 8
     steps, then a resume; as phase 9;
-16. one JSON line of all four kernels (``path``: eval, train or
-    off_path; ``math``: tf32x3, the products' arithmetic (all four run
-    them in 3xTF32 on the tensor cores); launches per path and per D;
-    times, plain times and bounds at D = 4, and at D = 3 under ``d3``:
-    ``bound_ms`` against the kernel's own arithmetic, ``bound_f32_ms``
-    against f32 FFMA), then the status line.
+
+then three paths of the rb2d flagship added later (each phase's launch
+counts are set to 0 just before its path runs and read just after):
+
+A. real RB2D windows: the 8 eval windows of the JAX-CPU log
+   ``log/r5_rb2d_4x_e900/eval_cpu.log`` (val s7 at t0 0/46/92/138, test
+   s123 at t0 23/69/115/161), exported with their low-res input, 4,096
+   seeded lattice points each, JAX's f32 and float64 decode there and
+   the high-res truth (``assets/r5_rb2d_4x_e900_230400_rb2d_windows.npz``;
+   the datasets themselves are not in the repo); the port's eval path
+   (the eval CLI's models, UNet3d on cuDNN, ``make_dense_decoder``
+   through ``decode_blend_gather``) decodes each window's whole (16, 128,
+   512) lattice; every point is held to phase 7's rule with the atol
+   twice JAX f32's own worst distance from float64 over the windows
+   (REF_SLACK); the port's and JAX's pointwise rel-L2 against the truth;
+B. a BatchNorm step: one flagship-width ``norm="batch"`` step against
+   ``assets/rb2d_bn_train_step_ref.npz`` by phase 8's rule, plus every
+   new running statistic against float64 at rtol STATS_RTOL with an
+   atol twice JAX f32's own worst (STEP_SLACK); then ``train_torch.main``
+   with the flagship flags and ``--norm batch`` for 2 epochs x 8 steps,
+   a resume that trains no epoch (its running statistics equal the first
+   run's bit for bit) and a resume that trains epoch 2, as phase 9;
+C. a JAX run resumed: the flagship's exported optimizer state
+   (``assets/r5_rb2d_4x_e900_230400_opt.npz``) restored bit for bit
+   (parameters, Adam moments, count, counters); one step on the batch of
+   ``assets/rb2d_resume_step_ref.npz`` with the resumed run's schedule
+   (``--epochs 1800``: the flagship's own ends at the checkpoint, with a
+   learning rate of 0 there): the loss terms and the gradients' global
+   norm within LOSS_RTOL of JAX f32, per parameter the norms of its
+   change and of the changes of ``mu`` and ``nu`` within DNORM_RTOL of
+   JAX's, the ImNet's parameter changes within DP_RTOL plus twice JAX
+   f32's own atol against float64 Adam; then ``train_torch.main
+   --resume <the export> --epochs 1800 --run_epochs 1`` on the
+   Taylor–Green field (the cliff detector off: the model is far off its
+   data there): it starts at step 230,400, finite losses;
+
+and last, one JSON line of all four kernels (``path``: eval, train or
+off_path; ``math``: tf32x3, the products' arithmetic (all four run them
+in 3xTF32 on the tensor cores); launches per path and per D; times,
+plain times and bounds at D = 4, and at D = 3 under ``d3``:
+``bound_ms`` against the kernel's own arithmetic, ``bound_f32_ms``
+against f32 FFMA), then the status line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -110,6 +146,11 @@ STEP_REF = os.path.join(ASSETS, "rb2d_train_step_ref.npz")
 TURB3D_ASSET = os.path.join(ASSETS, "r5_turb3d_200x_big_76800.npz")
 TURB3D_STEP_REF = os.path.join(ASSETS, "turb3d_train_step_ref.npz")
 TURB3D_LOG = os.path.join(ASSETS, "r5_turb3d_200x_big_76800_eval_cpu.log")
+WINDOWS_REF = os.path.join(ASSETS, "r5_rb2d_4x_e900_230400_rb2d_windows.npz")
+BN_STEP_REF = os.path.join(ASSETS, "rb2d_bn_train_step_ref.npz")
+OPT_ASSET = os.path.join(ASSETS, "r5_rb2d_4x_e900_230400_opt.npz")
+RESUME_REF = os.path.join(ASSETS, "rb2d_resume_step_ref.npz")
+RESUME_EPOCHS = 1800            # the resumed flagship run's --epochs
 N_CHECK = 65536                 # points per decode kernel-vs-plain call
 N_JET = 8192                    # the flagship step: 8 crops x 1,024 points
 N_JET4 = 4096                   # the turb3d step: 4 crops x 1,024 points
@@ -149,6 +190,13 @@ STEP_SLACK = 2.0
 # ~6e-3 rel-L2 and one unit in the printed last digit.
 TURB3D_REL_TOL = 1e-5
 REF_SLACK = 2.0                 # turb3d reference points: x JAX's own
+# BatchNorm's new running statistics vs float64 (phase B).
+STATS_RTOL = 1e-4
+# The resumed step (phase C): per parameter, the norms of the changes of
+# the parameter, mu and nu against JAX f32's, relative; the ImNet's
+# parameter changes point by point at rtol DP_RTOL plus STEP_SLACK times
+# JAX f32's own atol against float64 Adam.
+DNORM_RTOL = DP_RTOL = 1e-3
 # The card's peaks (NVIDIA's H100 SXM data sheet, 700 W): f32 outside the
 # tensor cores, dense TF32 in them, and HBM3.
 F32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
@@ -528,6 +576,21 @@ def jet_vs_plain(imnet, device, spatial, n):
     return rows
 
 
+def buffers_as_flax(module):
+    """The module's BatchNorm statistics as a flax ``batch_stats`` tree
+    (None without BatchNorm)."""
+    from space_time_pde_torch.bridge import unflatten_tree
+
+    leaves = {"running_mean": "mean", "running_var": "var"}
+    flat = {}
+    for name, b in module.named_buffers():
+        layer, leaf = name.rsplit(".", 1)
+        if leaf in leaves:
+            flat[f"{layer.replace('.', '/')}/{leaves[leaf]}"] = \
+                b.cpu().numpy()
+    return unflatten_tree(flat) or None
+
+
 def reference_step(step_ref, device):
     """The training step of a ``scripts/export_torch_train_ref.py`` file
     on ``device``: (step_fn, state, batch, ref arrays, spec), with the
@@ -549,7 +612,8 @@ def reference_step(step_ref, device):
     opt = make_optimizer(cfg)
     state = init_state(cfg.train.seed, unet, imnet, opt)
     params = seeded_flax_params(spec["shapes"], spec["weight_seed"])
-    load_flax_params(unet, params["unet"])
+    # BatchNorm starts from the statistics it was built with (flax's).
+    load_flax_params(unet, params["unet"], buffers_as_flax(unet))
     load_flax_params(imnet, params["imnet"])
     ext = [float(e) for e in ref["coord_extents"]]
     ph = cfg.physics
@@ -622,6 +686,23 @@ def train_step_vs_jax(device, step_ref):
         f"{jax_need:.3e}); rel L2 error / JAX's: median "
         f"{np.median(ratio):.2f}, max {max(ratio):.2f}; jet launches "
         f"{dict(fj.LAUNCHES)}")
+    stats = sorted(k[len("stats64/"):] for k in ref
+                   if k.startswith("stats64/"))
+    if stats:
+        # BatchNorm's new running statistics against float64.
+        buffers = {f"unet.{k}": b for k, b in unet.named_buffers()}
+        scale = {k: float(np.abs(ref[f"stats64/{k}"]).max()) for k in stats}
+        jax_s = max(atol_needed(ref[f"stats32/{k}"], ref[f"stats64/{k}"],
+                                scale[k], STATS_RTOL) for k in stats)
+        got_s = {k: atol_needed(buffers[k].double().cpu().numpy(),
+                                ref[f"stats64/{k}"], scale[k], STATS_RTOL)
+                 for k in stats}
+        worst = max(got_s, key=got_s.get)
+        say(f"BatchNorm running statistics: {len(stats)} vs float64 at "
+            f"rtol {STATS_RTOL:g}: worst atol {got_s[worst]:.3e} x max "
+            f"({worst}; limit {STEP_SLACK * jax_s:.3e} = {STEP_SLACK:g} x "
+            f"JAX f32's worst {jax_s:.3e})")
+        bad += [k for k, v in got_s.items() if v > STEP_SLACK * jax_s]
     if bad:
         raise SystemExit(f"training step disagrees with JAX: {bad}")
 
@@ -634,9 +715,12 @@ def load_driver(*parts):
     return mod
 
 
-def train_path(card, driver, flags, log_dir, batch_points, what):
-    """Phases 9 and 15: ``driver.main`` trains 2 epochs x 8 steps, then
-    resumes to epoch 3; returns the launch counts of the first run."""
+def train_path(card, driver, flags, log_dir, batch_points, what,
+               buffers=False):
+    """Phases 9, 15 and B: ``driver.main`` trains 2 epochs x 8 steps,
+    then resumes to epoch 3; returns the launch counts of the first run.
+    ``buffers``: between the two, a resume that trains no epoch must
+    restore the first run's BatchNorm statistics bit for bit."""
     from space_time_pde_torch.ops import fused_jet as fj
     from space_time_pde_torch.ops import fused_query as fq
 
@@ -645,6 +729,19 @@ def train_path(card, driver, flags, log_dir, batch_points, what):
     first = driver.main(flags + ["--epochs", "2"])
     torch.cuda.synchronize()
     launches = {**fj.LAUNCHES, **fq.LAUNCHES}
+    if buffers:
+        held = driver.main(flags + [
+            "--epochs", "2", "--resume", os.path.join(log_dir,
+                                                      "checkpoints")])
+        want = first["state"].buffers()
+        got = held["state"].buffers()
+        same = sorted(got) == sorted(want) and all(
+            torch.equal(got[k], want[k]) for k in want)
+        say(f"{what}: {len(want)} buffers restored at step {held['step']}"
+            f" bit for bit: {same}")
+        if not same or held["step"] != first["step"] or not want:
+            raise SystemExit(f"{what}: the resume did not restore the "
+                             "BatchNorm statistics")
     resumed = driver.main(flags + [
         "--epochs", "3", "--resume", os.path.join(log_dir, "checkpoints")])
     torch.cuda.synchronize()
@@ -676,25 +773,36 @@ def train_path(card, driver, flags, log_dir, batch_points, what):
     return launches
 
 
-def rb2d_train_path(card):
+def rb2d_flags(tmp, log_dir):
+    """The rb2d flagship's model and loss flags on a Taylor–Green field
+    in ``tmp``, 8 steps an epoch."""
+    return [
+        "--device", "cuda", "--data_folder", tmp, "--train_data",
+        "tg.npz", "--eval_data", "tg.npz", "--nt", "16", "--nz", "128",
+        "--nx", "128", "--downsamp_t", "4", "--downsamp_xz", "8",
+        "--lat_dims", "64", "--unet_nf", "32", "--imnet_nf", "64",
+        "--n_samp_pts_per_crop", "1024", "--batch_size_per_gpu", "8",
+        "--inner_steps", "8", "--pseudo_epoch_size", "64",
+        "--alpha_pde", "0.1", "--lr", "5e-3", "--lr_schedule", "cosine",
+        "--pde_loss_type", "huber", "--seed", "42",
+        "--log_dir", log_dir]
+
+
+def taylor_green_folder(tmp):
     from space_time_pde_torch.data import save_npz, taylor_green_fields
 
+    save_npz(os.path.join(tmp, "tg.npz"),
+             taylor_green_fields(nt=32, nz=128, nx=256))
+
+
+def rb2d_train_path(card, *extra, what="rb2d"):
+    """Phase 9 (and B with ``--norm batch``)."""
     with tempfile.TemporaryDirectory() as tmp:
-        save_npz(os.path.join(tmp, "tg.npz"),
-                 taylor_green_fields(nt=32, nz=128, nx=256))
+        taylor_green_folder(tmp)
         log_dir = os.path.join(tmp, "log")
-        flags = [
-            "--device", "cuda", "--data_folder", tmp, "--train_data",
-            "tg.npz", "--eval_data", "tg.npz", "--nt", "16", "--nz", "128",
-            "--nx", "128", "--downsamp_t", "4", "--downsamp_xz", "8",
-            "--lat_dims", "64", "--unet_nf", "32", "--imnet_nf", "64",
-            "--n_samp_pts_per_crop", "1024", "--batch_size_per_gpu", "8",
-            "--inner_steps", "8", "--pseudo_epoch_size", "64",
-            "--alpha_pde", "0.1", "--lr", "5e-3", "--lr_schedule", "cosine",
-            "--pde_loss_type", "huber", "--seed", "42",
-            "--log_dir", log_dir]
-        return train_path(card, load_driver("rb2d", "train_torch.py"), flags,
-                          log_dir, 8 * 1024, "rb2d")
+        return train_path(card, load_driver("rb2d", "train_torch.py"),
+                          rb2d_flags(tmp, log_dir) + list(extra), log_dir,
+                          8 * 1024, what, buffers="batch" in extra)
 
 
 def rb2d_serving(device, card):
@@ -948,6 +1056,211 @@ def turb3d_train_path(card):
                           flags, log_dir, 4 * 1024, "turb3d")
 
 
+def rb2d_real_windows(device, card):
+    """Phase A: the port's rb2d eval path on the 8 exported real RB2D
+    windows, point by point against JAX."""
+    from space_time_pde_torch.bridge import load_exported
+    from space_time_pde_torch.inference import make_dense_decoder
+    from space_time_pde_torch.ops import fused_query as fq
+    from space_time_pde_torch.utils.config import Config
+
+    evaluation_torch = load_driver("rb2d", "evaluation_torch.py")
+    with np.load(WINDOWS_REF) as z:
+        ref = {k: z[k] for k in z.files}
+    exported = load_exported(ASSET)
+    out_shape = tuple(int(s) for s in ref["out_shape"])
+    unet, imnet = evaluation_torch.build_models(
+        Config.from_dict(exported["config"]), ref["lres"].shape[1:4],
+        exported, device)
+    decoder = make_dense_decoder(unet, imnet, out_shape)
+    mean, std = ref["channel_mean"], ref["channel_std"]
+    ref32 = ref["values"].astype(np.float64)
+    ref64 = ref["values_f64"]
+    scales = [float(np.abs(r).max()) for r in ref64]
+    jax_need = max(atol_needed(a, b, s)
+                   for a, b, s in zip(ref32, ref64, scales))
+    limit = REF_SLACK * jax_need
+    print(f"real RB2D windows: {len(ref['t0'])} x {ref['index'].shape[1]} "
+          f"lattice points of {out_shape}; JAX f32 vs float64 needs atol "
+          f"{jax_need:.3e} x max|ref| at rtol {REF_RTOL:g} (worst window); "
+          f"limit {limit:.3e}", flush=True)
+    fq.reset_launches()
+    t0 = time.perf_counter()
+    got = []
+    for lres, idx in zip(ref["lres"], ref["index"]):
+        got.append(decoder(lres).reshape(-1, 4)[torch.from_numpy(
+            idx.astype(np.int64)).to(device)].double().cpu().numpy())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(fq.LAUNCHES)
+    worst = 0.0
+    rel = lambda v, truth: float(np.linalg.norm(v * std + mean - truth)
+                                 / np.linalg.norm(truth))
+    for w, g in enumerate(got):
+        need32 = atol_needed(g, ref32[w], scales[w])
+        need64 = atol_needed(g, ref64[w], scales[w])
+        worst = max(worst, need32, need64)
+        print(f"  {str(ref['split'][w]):4s} t0={int(ref['t0'][w]):3d}: "
+              f"needs atol {need32:.3e} (vs JAX f32) / {need64:.3e} (vs "
+              f"float64); pointwise rel-L2 vs truth: port "
+              f"{rel(g, ref['truth'][w]):.6f}, JAX f32 "
+              f"{rel(ref32[w], ref['truth'][w]):.6f}", flush=True)
+    say(f"real RB2D windows through the eval path: worst atol {worst:.3e}"
+        f" (limit {limit:.3e}); {len(got)} dense decodes in {secs:.2f} s "
+        f"on {card}; launches {launches}")
+    if launches["decode_blend_gather"] < 1:
+        raise SystemExit("decode_blend_gather was not launched by the real-"
+                         "window eval path")
+    if worst > limit or not all(np.isfinite(g).all() for g in got):
+        raise SystemExit("the port disagrees with JAX on real RB2D windows")
+    return launches
+
+
+def resume_from_jax(device, card):
+    """Phase C: the flagship's exported JAX state restored bit for bit,
+    one resumed step against JAX's, then the train CLI resumed from the
+    export."""
+    from space_time_pde_torch.bridge import (
+        OPT_COUNTERS, load_exported, optimizer_state_from_flax,
+        state_dict_from_flax)
+    from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.ops import fused_query as fq
+    from space_time_pde_torch.physics import get_pde_layer
+    from space_time_pde_torch.train import (
+        build_models, init_state, make_loss_fn, make_optimizer,
+        make_train_step)
+    from space_time_pde_torch.utils.checkpoint import restore_exported
+    from space_time_pde_torch.utils.config import Config
+
+    exported = load_exported(OPT_ASSET)
+    with np.load(RESUME_REF, allow_pickle=False) as z:
+        ref = {k: z[k] for k in z.files}
+    spec = json.loads(str(ref["spec"]))
+    cfg = Config.from_dict(exported["config"])
+    cfg.train.epochs = RESUME_EPOCHS
+    spe = cfg.train.pseudo_epoch_size // cfg.train.batch_size_per_gpu
+    unet, imnet = build_models(cfg, ref["lres"].shape[1:4], device)
+    opt = make_optimizer(cfg, spe)
+    state, _ = restore_exported(init_state(cfg.train.seed, unet, imnet, opt),
+                                OPT_ASSET)
+    # Bit for bit: every restored tensor and counter.
+    modules = {"unet": unet, "imnet": imnet}
+    want_opt = optimizer_state_from_flax(exported["opt_state"], modules)
+    mismatched = [k for k in OPT_COUNTERS
+                  if state.opt_state[k] != want_opt[k]]
+    n_tensors = 0
+    for name, module in modules.items():
+        sd = state_dict_from_flax(module, exported["params"][name],
+                                  exported["batch_stats"])
+        for k, t in module.state_dict().items():
+            n_tensors += 1
+            if not torch.equal(t.cpu(), sd[k]):
+                mismatched.append(f"{name}.{k}")
+    for m in ("mu", "nu"):
+        for k, v in state.opt_state[m].items():
+            n_tensors += 1
+            if not torch.equal(v.cpu(), want_opt[m][k]):
+                mismatched.append(f"{m} {k}")
+    counters = {k: state.opt_state[k] for k in OPT_COUNTERS}
+    say(f"resumed the exported JAX run at step {state.step}: {n_tensors} "
+        f"tensors and the counters {counters} equal the export bit for "
+        f"bit: {not mismatched}; lr at count "
+        f"{state.opt_state['count']} with --epochs {RESUME_EPOCHS}: "
+        f"{float(opt.learning_rate(state.opt_state['count'])):.6g} (JAX "
+        f"{spec['lr']:.6g})")
+    if mismatched or state.step != spec["step"]:
+        raise SystemExit(f"the restored JAX state differs: {mismatched[:5]}")
+
+    ext = [float(e) for e in ref["coord_extents"]]
+    pde = get_pde_layer(cfg.physics.pde_system, mean=ref["channel_mean"],
+                        std=ref["channel_std"], t_crop=ext[0],
+                        z_crop=ext[1], x_crop=ext[2],
+                        rayleigh=cfg.physics.rayleigh,
+                        prandtl=cfg.physics.prandtl)
+    batch = {k: torch.from_numpy(ref[k]).to(device)
+             for k in ("lres", "point_coord", "point_value")}
+    before = {"p": {k: p.detach().clone() for k, p in state.params().items()},
+              "mu": {k: v.clone() for k, v in state.opt_state["mu"].items()},
+              "nu": {k: v.clone() for k, v in state.opt_state["nu"].items()}}
+    state, metrics = make_train_step(make_loss_fn(cfg, unet, imnet, pde),
+                                     opt)(state, batch)
+    torch.cuda.synchronize()
+    after = {"p": {k: p.detach() for k, p in state.params().items()},
+             "mu": state.opt_state["mu"], "nu": state.opt_state["nu"]}
+    terms32, bad, margins = spec["terms32"], [], {}
+    for k, want in terms32.items():
+        got = float(metrics[k])
+        rel = abs(got - want) / max(abs(want), 1e-30)
+        margins[k] = rel / LOSS_RTOL
+        print(f"  {k:18s} port {got:.8g}  JAX f32 {want:.8g}  float64 "
+              f"{spec['terms64'][k]:.8g}  rel diff vs JAX {rel:.2e}",
+              flush=True)
+        if abs(got - want) > LOSS_RTOL * max(abs(want),
+                                             1e-6 * terms32["loss"]):
+            bad.append(k)
+    worst_norm = {}
+    for what, q in (("dp", "p"), ("dmu", "mu"), ("dnu", "nu")):
+        for k in after[q]:
+            want = float(ref[f"norm/{what}/{k}"])
+            got = float(torch.linalg.vector_norm(
+                (after[q][k] - before[q][k]).double()))
+            r = abs(got - want) / max(want, 1e-30)
+            if r > worst_norm.get(what, (0.0, ""))[0]:
+                worst_norm[what] = (r, k)
+            if r > DNORM_RTOL:
+                bad.append(f"{what} {k}")
+    dp_need = max(float(ref[k]) for k in ref if k.startswith("dp_need/"))
+    dp_limit = STEP_SLACK * dp_need
+    dp_worst = (0.0, "")
+    for k in (k[3:] for k in ref if k.startswith("dp/")):
+        want = ref[f"dp/{k}"].astype(np.float64)
+        got = (after["p"][k] - before["p"][k]).double().cpu().numpy()
+        need = atol_needed(got, want, float(np.abs(want).max()), DP_RTOL)
+        dp_worst = max(dp_worst, (need, k))
+        if need > dp_limit:
+            bad.append(f"dp {k}")
+    say("resumed step vs JAX: loss terms and grad norm within "
+        + ", ".join(f"{k} {v:.2f}" for k, v in margins.items())
+        + f" of LOSS_RTOL {LOSS_RTOL:g}; worst relative norm difference "
+        + ", ".join(f"{w} {r:.2e} ({k})" for w, (r, k) in worst_norm.items())
+        + f" (limit {DNORM_RTOL:g}); ImNet dp worst atol {dp_worst[0]:.3e}"
+        f" ({dp_worst[1]}) at rtol {DP_RTOL:g} (limit {dp_limit:.3e} = "
+        f"{STEP_SLACK:g} x JAX f32's own {dp_need:.3e})")
+    if bad:
+        raise SystemExit(f"the resumed step disagrees with JAX: {bad[:8]}")
+    del before, after, state
+    torch.cuda.empty_cache()
+
+    # The train CLI resumed from the export, one epoch. The RB2D-trained
+    # model is far off its data on Taylor–Green (a loss near 1.7e6, past
+    # the cliff detector's absolute threshold of 1e6), so the detector
+    # is off for this run.
+    train_torch = load_driver("rb2d", "train_torch.py")
+    with tempfile.TemporaryDirectory() as tmp:
+        taylor_green_folder(tmp)
+        fj.reset_launches()
+        fq.reset_launches()
+        res = train_torch.main(rb2d_flags(tmp, os.path.join(tmp, "log")) + [
+            "--resume", OPT_ASSET, "--epochs", str(RESUME_EPOCHS),
+            "--run_epochs", "1", "--cliff_recovery", "false"])
+        torch.cuda.synchronize()
+        launches = {**fj.LAUNCHES, **fq.LAUNCHES}
+    epochs = res["epochs"]
+    say(f"train CLI resumed from the export: started at step "
+        f"{spec['step']} (epoch {res['start_epoch']}), ended at step "
+        f"{res['step']}; losses "
+        + ", ".join(f"{e['loss']:.5f}" for e in epochs)
+        + f"; {epochs[-1]['sec_per_step']:.4f} s/step on {card}; launches "
+        f"{launches}")
+    if res["step"] != spec["step"] + 8 or len(epochs) != 1 or not all(
+            np.isfinite(e["loss"]) for e in epochs):
+        raise SystemExit("the train CLI did not resume the JAX run")
+    for name in ("jet_fwd", "jet_bwd"):
+        if launches[name] < 1:
+            raise SystemExit(f"{name} was not launched by the resumed run")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1021,11 +1334,30 @@ def main():
     train_step_vs_jax(device, TURB3D_STEP_REF)
     torch.cuda.empty_cache()
     turb3d_train = turb3d_train_path(card)
+    torch.cuda.empty_cache()
+
+    # Phase A: the rb2d eval path on real RB2D windows.
+    rb2d_eval_real = rb2d_real_windows(device, card)
+    torch.cuda.empty_cache()
+
+    # Phase B: a BatchNorm step against JAX, then BatchNorm training.
+    say(f"rb2d BatchNorm training step vs the JAX-CPU reference "
+        f"({os.path.relpath(BN_STEP_REF, ROOT)}):")
+    train_step_vs_jax(device, BN_STEP_REF)
+    torch.cuda.empty_cache()
+    rb2d_bn_train = rb2d_train_path(card, "--norm", "batch",
+                                    what="rb2d BatchNorm")
+    torch.cuda.empty_cache()
+
+    # Phase C: a JAX run resumed in the port.
+    rb2d_resume = resume_from_jax(device, card)
 
     by_path = {"rb2d_eval": rb2d_eval, "rb2d_train": rb2d_train,
                "turb3d_eval_val": turb3d_eval["val"],
                "turb3d_eval_test": turb3d_eval["test"],
-               "turb3d_train": turb3d_train}
+               "turb3d_train": turb3d_train,
+               "rb2d_eval_real": rb2d_eval_real,
+               "rb2d_bn_train": rb2d_bn_train, "rb2d_resume": rb2d_resume}
     off = {"rb2d_scattered": rb2d_off, "turb3d_scattered": turb3d_off}
     kernels = []
     for name in REPLACES:

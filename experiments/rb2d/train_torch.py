@@ -18,12 +18,26 @@ Example (on a machine with the card; the rb2d flagship's flags):
         --inner_steps 8 --alpha_pde 0.1 --lr 5e-3 --lr_schedule cosine \
         --pde_loss_type huber --epochs 900 --log_dir log/rb2d_torch
 
+``--resume`` takes a directory of the port's checkpoints or an ``.npz``
+exported from a JAX run with its optimizer state
+(``scripts/export_torch_params.py --with_opt_state``): the run continues
+from the JAX step with the same parameters, BatchNorm statistics, Adam
+moments and counters, but not the same batches (the JAX PRNG key does
+not carry over). Pass a longer ``--epochs`` than the JAX run's when its
+cosine schedule ended at the checkpoint. ``--run_epochs N`` stops after
+N epochs of this run (the schedule still spans ``--epochs``).
+
+``--profile_epoch N`` writes a ``torch.profiler`` trace of epoch N to
+``<log_dir>/profile/`` (Chrome trace JSON); ``--debug_nans`` checks the
+loss terms and the gradients of every step and raises
+``FloatingPointError`` naming the first non-finite one.
+
 Not carried over: ``--space_devices``, ``--sharded_encoder`` and
-``--multihost`` (the parallel slice), ``--profile_epoch`` (the JAX
-profiler) and ``--debug_nans``.
+``--multihost`` (the parallel slice).
 """
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -43,7 +57,7 @@ from space_time_pde_torch.physics.systems import (
 from space_time_pde_torch.train import (
     CliffDetector, build_models, init_state, make_eval_fn, make_loss_fn,
     make_multi_step, make_optimizer, make_train_step)
-from space_time_pde_torch.utils.checkpoint import CheckpointManager
+from space_time_pde_torch.utils.checkpoint import CheckpointManager, resume
 from space_time_pde_torch.utils.config import add_args, config_from_args
 from space_time_pde_torch.utils.logging import MetricsLogger
 
@@ -79,9 +93,30 @@ def _provenance(cfg, device, sampler) -> str:
             f"{'device' if sampler is not None else 'host'}")
 
 
+@contextlib.contextmanager
+def profiled(on: bool, device, out_dir: str, name: str):
+    """A ``torch.profiler`` trace of the block (host, and the card's
+    kernels on a CUDA device), written to ``out_dir/<name>.json``."""
+    if not on:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{name}.json")
+    prof.export_chrome_trace(path)
+    print(f"wrote a torch.profiler trace of {name} to {path}", flush=True)
+
+
 def main(argv=None):
     """Train; returns ``{"epochs": [per-epoch metrics], "start_epoch",
-    "step", "provenance"}``."""
+    "step", "provenance", "state"}`` (``state``: the final
+    ``TrainState``)."""
     parser = argparse.ArgumentParser(description=__doc__)
     add_args(parser)
     parser.add_argument("--inner_steps", type=int, default=1,
@@ -99,6 +134,15 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain "
                              "PyTorch twins (tests, tiny models)")
+    parser.add_argument("--run_epochs", type=int, default=0,
+                        help="stop after N epochs of this run (0 = run to "
+                             "--epochs)")
+    parser.add_argument("--profile_epoch", type=int, default=-1,
+                        help="epoch to write a torch.profiler trace of, "
+                             "under <log_dir>/profile")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="check every step's loss terms and gradients; "
+                             "raise naming the first non-finite one")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     if args.val_data:
@@ -149,8 +193,8 @@ def main(argv=None):
 
     def build_step(opt):
         if inner > 1:
-            return make_multi_step(loss_fn, opt, inner)
-        return make_train_step(loss_fn, opt)
+            return make_multi_step(loss_fn, opt, inner, args.debug_nans)
+        return make_train_step(loss_fn, opt, args.debug_nans)
 
     step_fn = build_step(opt)
     eval_fn = make_eval_fn(cfg, unet, imnet)
@@ -161,13 +205,9 @@ def main(argv=None):
     mngr = CheckpointManager(ckpt_dir, keep=cfg.train.keep_checkpoints)
     start_epoch = 0
     if cfg.train.resume:
-        rmngr = (mngr if os.path.abspath(cfg.train.resume) ==
-                 os.path.abspath(ckpt_dir)
-                 else CheckpointManager(cfg.train.resume))
-        state, extra = rmngr.restore(state)
-        start_epoch = int(extra.get("epoch", 0)) + 1
-        print(f"resumed from step {state.step} (epoch {start_epoch})",
-              flush=True)
+        state, start_epoch, line = resume(state, cfg.train.resume, mngr,
+                                          steps_per_epoch)
+        print(line, flush=True)
 
     logger = MetricsLogger(cfg.train.log_dir, use_tensorboard=False)
     rng = np.random.RandomState(cfg.train.seed)
@@ -203,11 +243,18 @@ def main(argv=None):
     cliff = CliffDetector() if cfg.train.cliff_recovery else None
     history = []
     try:
-        for epoch in range(start_epoch, cfg.train.epochs):
+        last = cfg.train.epochs
+        if args.run_epochs > 0:
+            last = min(last, start_epoch + args.run_epochs)
+        for epoch in range(start_epoch, last):
             t0 = time.time()
-            for _ in range(max(1, steps_per_epoch // inner)):
-                state, metrics = step_fn(state, upload(prefetcher.get()))
-            sync()
+            with profiled(epoch == args.profile_epoch, device,
+                          os.path.join(cfg.train.log_dir, "profile"),
+                          f"epoch_{epoch}"):
+                for _ in range(max(1, steps_per_epoch // inner)):
+                    state, metrics = step_fn(state,
+                                             upload(prefetcher.get()))
+                sync()
             metrics = {k: float(v) for k, v in metrics.items()}
             recover_reason = None
             epoch_healthy = all(np.isfinite(v) for v in metrics.values())
@@ -278,7 +325,7 @@ def main(argv=None):
         prefetcher.close()
         logger.close()
     return {"epochs": history, "start_epoch": start_epoch,
-            "step": state.step, "provenance": provenance}
+            "step": state.step, "provenance": provenance, "state": state}
 
 
 if __name__ == "__main__":

@@ -23,8 +23,14 @@ recipe, ``log/r5_turb3d_200x_big/command.sh``, on its 201 files):
         --inner_steps 8 --pseudo_epoch_size 2048 --alpha_pde 0.1 \
         --lr 5e-3 --lr_schedule cosine --pde_loss_type huber --epochs 150
 
+``--resume`` takes a directory of the port's checkpoints or an ``.npz``
+exported from a JAX run with its optimizer state
+(``scripts/export_torch_turb3d.py --with_opt_state``): parameters, Adam
+moments and counters carry over exactly, the batches do not (the JAX
+PRNG key does not carry over).
+
 Not carried over: ``--space_devices > 1`` and ``--sharded_encoder``
-(the parallel slice, ROADMAP queue 1 item 13; both raise), ``--use_bf16``
+(the parallel slice, ROADMAP queue 1 item 6; both raise), ``--use_bf16``
 (the port trains in f32; raises), the ``maybe_force_platform`` call and
 the 16-corner XLA:TPU compiler guard of the eval query (TPU
 workarounds).
@@ -49,7 +55,7 @@ from space_time_pde_torch.physics.systems import get_ns3d_pde_layer
 from space_time_pde_torch.train import (
     CliffDetector, build_models, init_state, make_eval_fn, make_loss_fn,
     make_multi_step, make_optimizer, make_train_step)
-from space_time_pde_torch.utils.checkpoint import CheckpointManager
+from space_time_pde_torch.utils.checkpoint import CheckpointManager, resume
 from space_time_pde_torch.utils.config import Config
 from space_time_pde_torch.utils.logging import MetricsLogger
 
@@ -223,13 +229,9 @@ def main(argv=None):
     mngr = CheckpointManager(ckpt_dir, keep=3)
     start_epoch = 0
     if args.resume:
-        rmngr = (mngr if os.path.abspath(args.resume) ==
-                 os.path.abspath(ckpt_dir)
-                 else CheckpointManager(args.resume))
-        state, extra = rmngr.restore(state)
-        start_epoch = int(extra.get("epoch", 0)) + 1
-        print(f"resumed from step {state.step} (epoch {start_epoch})",
-              flush=True)
+        state, start_epoch, line = resume(state, args.resume, mngr,
+                                          steps_per_epoch)
+        print(line, flush=True)
 
     logger = MetricsLogger(args.log_dir, use_tensorboard=False)
     rng = np.random.RandomState(args.seed)

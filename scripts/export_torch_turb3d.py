@@ -7,7 +7,10 @@ and writes:
 - ``<out>``: the exported ``.npz`` that the port reads with numpy alone
   (``space_time_pde_torch/bridge.py::load_exported``): params, channel
   stats, step, the config and, as ``meta``, the driver's
-  ``turb3d_args`` (crop, down-sampling, widths, viscosity);
+  ``turb3d_args`` (crop, down-sampling, widths, viscosity) and the
+  epoch the run stopped at; with ``--with_opt_state`` also the
+  optimizer state, so that ``experiments/turb3d/train_torch.py --resume
+  <out>`` continues the run (as ``export_torch_params.py`` describes);
 - ``<out>_ref.npz``: a JAX-CPU reference for the port's turb3d eval on
   the card. The val split's realization (``beltrami_s7``, made from the
   closed form as ``experiments/turb3d/generate_data.py --seed 7`` makes
@@ -35,7 +38,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
-from export_torch_params import restore  # noqa: E402  (forces JAX to CPU)
+from export_torch_params import (  # noqa: E402  (forces JAX to CPU)
+    optimizer_state, restore)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -128,8 +132,11 @@ def main(argv=None):
                         help="orbax checkpoint directory")
     parser.add_argument("--step", type=int, required=True)
     parser.add_argument("--out", required=True, help="output .npz")
-    parser.add_argument("--ref_points", type=int, default=4096)
+    parser.add_argument("--ref_points", type=int, default=4096,
+                        help="JAX reference points (0 = no reference)")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--with_opt_state", action="store_true",
+                        help="put the optimizer state into --out")
     args = parser.parse_args(argv)
 
     state, extra = restore(args.ckpt, args.step)
@@ -137,11 +144,18 @@ def main(argv=None):
     targs = extra["turb3d_args"]
     mean = np.asarray(extra["channel_mean"], np.float32)
     std = np.asarray(extra["channel_std"], np.float32)
+    opt = optimizer_state(state.opt_state)[0] if args.with_opt_state \
+        else None
     bridge.save_exported(args.out, params, None, extra["config"], mean, std,
-                         int(state.step), meta={"turb3d_args": targs})
+                         int(state.step), opt_state=opt,
+                         meta={"turb3d_args": targs,
+                               "epoch": int(extra.get("epoch", -1))})
     n = sum(int(np.size(v)) for v in jax.tree.leaves(params))
     print(f"wrote {args.out}: step {int(state.step)}, {n} parameters, "
-          f"turb3d_args {targs}")
+          f"turb3d_args {targs}"
+          + (", optimizer state" if opt is not None else ""))
+    if not args.ref_points:
+        return
     ref = reference(params, targs, mean, std, args.ref_points, args.seed)
     path = os.path.splitext(args.out)[0] + "_ref.npz"
     np.savez_compressed(path, **ref)

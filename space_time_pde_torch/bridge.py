@@ -19,15 +19,23 @@ Checkpoints cross from JAX to the port as one ``.npz`` written by
 ``scripts/export_torch_params.py``: leaves under ``params/...`` and
 ``batch_stats/...`` (``/``-joined flax paths), ``channel_mean``,
 ``channel_std``, ``step``, the training ``config`` as JSON and, for a
-driver with settings outside the config (turb3d's crop and widths), a
-``meta`` JSON object. This module reads and writes that file with numpy
-alone.
+driver with settings outside the config (turb3d's crop and widths, the
+epoch a run stopped at), a ``meta`` JSON object. An export that a run
+resumes from also holds the optimizer state: Adam's moments under
+``opt/mu/...`` and ``opt/nu/...`` (flax paths, the params' layout),
+``opt/count`` and the ``apply_if_finite`` counters ``opt/notfinite_count``,
+``opt/last_finite`` and ``opt/total_notfinite``. Such a file may leave the
+parameters to another export: ``params_file`` then names it, relative to
+its own directory. This module reads and writes that file with numpy
+alone; :func:`optimizer_state_from_flax` turns the optimizer state into
+``train/optim.py``'s, keyed by the port's parameter names.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -36,7 +44,9 @@ import torch.nn as nn
 
 __all__ = ["flatten_tree", "unflatten_tree", "state_dict_from_flax",
            "load_flax_params", "save_exported", "load_exported",
-           "seeded_flax_params"]
+           "optimizer_state_from_flax", "seeded_flax_params"]
+
+OPT_COUNTERS = ("count", "notfinite_count", "last_finite", "total_notfinite")
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -77,9 +87,11 @@ def _t(a) -> torch.Tensor:
 
 
 def state_dict_from_flax(module: nn.Module, params: Mapping,
-                         batch_stats: Optional[Mapping] = None
-                         ) -> Dict[str, torch.Tensor]:
-    """The ``state_dict`` of ``module`` filled from a flax param tree.
+                         batch_stats: Optional[Mapping] = None,
+                         buffers: bool = True) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``module`` filled from a flax param tree
+    (without BatchNorm's buffers when ``buffers`` is false: a tree in
+    the params' layout, such as a gradient or an Adam moment).
 
     Raises ``KeyError`` when a torch layer has no flax counterpart and
     ``ValueError`` when flax leaves are left over, so a naming drift
@@ -110,7 +122,7 @@ def state_dict_from_flax(module: nn.Module, params: Mapping,
         sd[pre + "weight"] = _t(w)
         if "bias" in p:
             sd[pre + "bias"] = _t(p["bias"])
-        if isinstance(mod, nn.BatchNorm3d):
+        if isinstance(mod, nn.BatchNorm3d) and buffers:
             s = _subtree(batch_stats, name)
             if s is None:
                 raise KeyError(f"batch_stats have no "
@@ -133,15 +145,32 @@ def load_flax_params(module: nn.Module, params: Mapping,
     return module
 
 
-def save_exported(path: str, params: Mapping,
+def save_exported(path: str, params: Optional[Mapping],
                   batch_stats: Optional[Mapping], config: Mapping,
                   channel_mean, channel_std, step: int,
-                  meta: Optional[Mapping] = None) -> None:
-    """Write the exported-checkpoint ``.npz`` (see module docstring)."""
-    arrays = {f"params/{k}": v for k, v in flatten_tree(params).items()}
-    if batch_stats:
+                  meta: Optional[Mapping] = None,
+                  opt_state: Optional[Mapping] = None,
+                  params_file: Optional[str] = None) -> None:
+    """Write the exported-checkpoint ``.npz`` (see module docstring).
+    ``opt_state``: ``{"mu": tree, "nu": tree, "count", "notfinite_count",
+    "last_finite", "total_notfinite"}``; with ``params_file`` in place of
+    ``params`` the file holds no parameters and names the export that
+    does."""
+    if (params is None) == (params_file is None):
+        raise ValueError("give the params or the params_file, not both")
+    arrays = ({f"params/{k}": v for k, v in flatten_tree(params).items()}
+              if params is not None
+              else {"params_file": np.asarray(params_file)})
+    if batch_stats and params is not None:
         arrays.update({f"batch_stats/{k}": v
                        for k, v in flatten_tree(batch_stats).items()})
+    if opt_state is not None:
+        for moment in ("mu", "nu"):
+            arrays.update({f"opt/{moment}/{k}": np.asarray(v, np.float32)
+                           for k, v in flatten_tree(
+                               opt_state[moment]).items()})
+        arrays.update({f"opt/{k}": np.asarray(opt_state[k])
+                       for k in OPT_COUNTERS})
     np.savez_compressed(
         path, **arrays,
         channel_mean=np.asarray(channel_mean, np.float32),
@@ -154,15 +183,18 @@ def save_exported(path: str, params: Mapping,
 def load_exported(path: str) -> Dict[str, Any]:
     """Read an exported ``.npz`` -> {"params", "batch_stats" (or None),
     "config" (dict), "channel_mean", "channel_std", "step", "meta"
-    (dict; empty in files written before it existed)}."""
+    (dict; empty in files written before it existed), "opt_state" (as
+    :func:`save_exported` takes it, or None)}. The parameters of a file
+    that names a ``params_file`` come from that file, whose step must
+    be the same."""
     with np.load(path, allow_pickle=False) as z:
         flat = {k: z[k] for k in z.files}
-    trees = {"params": {}, "batch_stats": {}}
+    trees = {"params": {}, "batch_stats": {}, "opt": {}}
     for k, v in flat.items():
         head, _, rest = k.partition("/")
         if head in trees and rest:
             trees[head][rest] = v
-    return {
+    out = {
         "params": unflatten_tree(trees["params"]),
         "batch_stats": unflatten_tree(trees["batch_stats"]) or None,
         "config": json.loads(str(flat["config"])),
@@ -170,7 +202,42 @@ def load_exported(path: str) -> Dict[str, Any]:
         "channel_std": flat["channel_std"],
         "step": int(flat["step"]),
         "meta": json.loads(str(flat["meta"])) if "meta" in flat else {},
+        "opt_state": None,
     }
+    if trees["opt"]:
+        opt = unflatten_tree(trees["opt"])
+        out["opt_state"] = dict(
+            mu=opt["mu"], nu=opt["nu"],
+            **{k: opt[k].item() for k in OPT_COUNTERS})
+    if "params_file" in flat:
+        src = os.path.join(os.path.dirname(os.path.abspath(path)),
+                           str(flat["params_file"]))
+        held = load_exported(src)
+        if held["step"] != out["step"]:
+            raise ValueError(f"{path} is step {out['step']} but its "
+                             f"params_file {src} is step {held['step']}")
+        out["params"], out["batch_stats"] = (held["params"],
+                                             held["batch_stats"])
+    return out
+
+
+def optimizer_state_from_flax(opt: Mapping, modules: Mapping[str, nn.Module],
+                              device=None) -> Dict[str, Any]:
+    """``train/optim.py``'s state from an exported optimizer state (see
+    :func:`load_exported`): Adam's moments keyed by the port's parameter
+    names (``"unet.<name>"``, ``"imnet.<name>"`` for ``modules = {"unet":
+    ..., "imnet": ...}``) with the params' transposes and flips, the
+    counters as Python numbers."""
+    out = {k: (bool if k == "last_finite" else int)(opt[k])
+           for k in OPT_COUNTERS}
+    for moment in ("mu", "nu"):
+        out[moment] = {}
+        for name, module in modules.items():
+            sd = state_dict_from_flax(module, opt[moment][name],
+                                      buffers=False)
+            for k, _ in module.named_parameters():
+                out[moment][f"{name}.{k}"] = sd[k].to(device)
+    return out
 
 
 def seeded_flax_params(shapes: Mapping[str, Sequence[int]],

@@ -25,6 +25,8 @@ scoped-VMEM knob of ``fit_dense_decoder`` (only "out of memory -> halve
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -32,6 +34,11 @@ from space_time_pde_torch.ops.fused_query import (
     _flat_cells, block_points, cell_major_features, decode_blend_gather,
     pack_imnet_params)
 from space_time_pde_torch.ops.grid_interp import _locate
+
+# The eval CLIs' --matmul_precision -> TF32 for the encoder. "default"
+# keeps the port's f32 encoder (the JAX-CPU reference's arithmetic);
+# "highest" is f32 as well.
+ENCODER_TF32 = {"default": False, "tensorfloat32": True, "highest": False}
 
 __all__ = ["make_dense_decoder", "fit_dense_decoder", "stitch_plan",
            "stitch_weights", "stitched_decode", "igres_mismatch_note",
@@ -154,7 +161,23 @@ def fit_dense_decoder(build, probe_lres, chunk, min_chunk=2048):
         torch.cuda.empty_cache()
 
 
-def make_dense_decoder(unet, imnet, out_shape, chunk=65536):
+@contextlib.contextmanager
+def tf32(enabled: bool):
+    """TF32 for cuBLAS and cuDNN inside the block, the previous flags
+    after it."""
+    was = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = was
+
+
+def make_dense_decoder(unet, imnet, out_shape, chunk=65536,
+                       tf32_encoder=False):
     """Build ``decode(lres) -> [*out_shape, out_features]`` on the
     modules' device.
 
@@ -166,6 +189,10 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536):
     UNet's latent grid. Per window the UNet encodes, the cell-major
     latent table is built once, and each chunk decodes through
     ``decode_blend_gather`` (the corner gather runs inside the kernel).
+    ``tf32_encoder``: the UNet's convolutions and matrix products in TF32
+    (the eval CLIs' ``--matmul_precision tensorfloat32``); TF32 is off
+    everywhere else, and the decode kernel runs its 3xTF32 products
+    whatever this says.
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -187,7 +214,9 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536):
     @torch.no_grad()
     def decode(lres):
         lres = torch.as_tensor(lres, dtype=torch.float32, device=device)
-        table = cell_major_features(unet(lres[None])[0]).contiguous()
+        with tf32(tf32_encoder):
+            latent = unet(lres[None])[0]
+        table = cell_major_features(latent).contiguous()
         out = torch.cat([decode_blend_gather(table, cf, fr, packed, **common)
                          for cf, fr in chunks])
         return out[:n].reshape(*out_shape, -1)
@@ -199,8 +228,8 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536):
         "kernel": ("cuda-fused" if device.type == "cuda"
                    else "plain-torch (cpu)"),
         "compute_dtype": "float32",
-        "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
-        "tf32_cudnn": torch.backends.cudnn.allow_tf32,
+        "tf32_matmul": bool(tf32_encoder),
+        "tf32_cudnn": bool(tf32_encoder),
         "out_shape": tuple(out_shape), "chunk": int(chunk),
         "block_pts": block_points(dim, device),
     }

@@ -15,13 +15,18 @@ What has to match the flax model exactly:
   pads explicitly;
 - GroupNorm eps is 1e-6 (flax's default, torch's is 1e-5), with the
   group count of :func:`_num_groups`;
-- BatchNorm runs on its running statistics (eval mode), eps 1e-5;
+- BatchNorm (eps 1e-5) in train mode computes flax's statistics, not
+  ``nn.BatchNorm3d``'s: over (B, T, Z, X), the variance in the fast form
+  ``max(0, E[x^2] - E[x]^2)``, and the running averages updated as
+  ``0.9 ra + 0.1 stat`` with that biased variance (torch's own update
+  uses the unbiased one); in eval mode it runs on its running
+  statistics (:class:`BatchNorm`);
 - the transposed-conv kernel is the flax kernel flipped in space
   (flax convolves, torch cross-correlates) — done by ``bridge.py``.
 
-Trains with GroupNorm (the default), which acts the same in training
-and eval. BatchNorm's train mode (batch statistics, running averages)
-is not ported yet; ``train/trainer.py`` refuses ``norm="batch"``.
+GroupNorm (the default) acts the same in both modes; with BatchNorm the
+module's ``train()`` / ``eval()`` mode picks batch or running
+statistics, as flax's ``train`` argument does.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ import torch.nn.functional as F
 
 from space_time_pde_torch.models.nonlinearities import get_activation
 
-__all__ = ["UNet3d", "ResBlock3D", "make_norm", "same_pad"]
+__all__ = ["UNet3d", "ResBlock3D", "BatchNorm", "make_norm", "same_pad"]
+
+BN_MOMENTUM = 0.9          # flax's: ra <- 0.9 ra + 0.1 stat
 
 
 def _num_groups(ch: int) -> int:
@@ -46,9 +53,37 @@ def _num_groups(ch: int) -> int:
     return 1
 
 
+class BatchNorm(nn.BatchNorm3d):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel
+    axis of ``[B, C, *S]``. Train mode normalises with the batch's own
+    statistics, computed as flax computes them, and moves the running
+    averages (buffers, as in ``nn.BatchNorm3d``, so state dicts and the
+    bridge are unchanged); eval mode is ``nn.BatchNorm3d``'s running-stat
+    path."""
+
+    def __init__(self, ch: int):
+        super().__init__(ch, eps=1e-5, momentum=1 - BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        axes = [0] + list(range(2, x.ndim))
+        mean = x.mean(axes)
+        var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            for ra, stat in ((self.running_mean, mean),
+                             (self.running_var, var)):
+                ra.copy_(BN_MOMENTUM * ra + (1 - BN_MOMENTUM) * stat)
+            self.num_batches_tracked += 1
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) \
+            + self.bias.reshape(shape)
+
+
 def make_norm(norm: str, ch: int) -> nn.Module:
     if norm == "batch":
-        return nn.BatchNorm3d(ch, eps=1e-5, momentum=0.1)
+        return BatchNorm(ch)
     if norm == "group":
         return nn.GroupNorm(_num_groups(ch), ch, eps=1e-6)
     raise ValueError(f"unknown norm {norm!r}; available: group, batch")

@@ -17,9 +17,13 @@ the towers run.
 
 PyTorch runs eagerly, so there is no jit: a step is ``backward`` and an
 in-place optimizer update, and ``make_multi_step`` is a loop (the JAX
-package's ``lax.scan`` was a dispatch workaround). Not in this slice:
-BatchNorm's train mode (``norm="batch"`` raises) and the bf16 compute
-policy (``use_bf16`` raises; the flagship trains in f32).
+package's ``lax.scan`` was a dispatch workaround). With
+``norm="batch"`` the loss runs the encoder in train mode (batch
+statistics; the running averages move in the forward, so a step that
+the optimizer skips keeps them, as JAX keeps ``batch_stats`` on a
+skipped step) and the eval function in eval mode (running statistics).
+Not ported: the bf16 compute policy (``use_bf16`` raises; the flagship
+trains in f32).
 """
 
 from __future__ import annotations
@@ -65,9 +69,16 @@ class TrainState:
                     for k, p in self.imnet.named_parameters()})
         return out
 
+    def buffers(self) -> Dict[str, torch.Tensor]:
+        """``{"unet.<name>" | "imnet.<name>": buffer}``: BatchNorm's
+        running statistics and batch counters (none with GroupNorm)."""
+        out = {f"unet.{k}": b for k, b in self.unet.named_buffers()}
+        out.update({f"imnet.{k}": b for k, b in self.imnet.named_buffers()})
+        return out
+
 
 def build_models(cfg, lres_shape: Tuple[int, ...],
-                 device="cpu") -> Tuple[nn.Module, ImNet]:
+                 device="cuda") -> Tuple[nn.Module, ImNet]:
     """The encoder and decoder for a low-res grid of ``lres_shape``:
     UNet3d + ImNet(dim=3) for a (t, z, x) grid (rb2d), UNet4d +
     ImNet(dim=4) for a (t, z, y, x) grid (turb3d, GroupNorm only, as in
@@ -162,10 +173,6 @@ def make_loss_fn(cfg, unet: nn.Module, imnet: ImNet, pde_layer):
     """loss_fn(batch) -> (loss, metrics dict of 0-d tensors); batch:
     lres [B, *grid, C], point_coord [B, N, D], point_value [B, N, V]
     (D = 3 for rb2d, 4 for turb3d). The parameters are the models'."""
-    if cfg.model.norm == "batch":
-        raise NotImplementedError(
-            "norm='batch' training: BatchNorm's train mode is not ported "
-            "yet (ROADMAP); the GroupNorm default trains")
     alpha = cfg.train.alpha_pde
     kind = cfg.train.reg_loss_type
     derivs = cfg.train.pde_derivs
@@ -181,6 +188,7 @@ def make_loss_fn(cfg, unet: nn.Module, imnet: ImNet, pde_layer):
 
     def loss_fn(batch):
         coords = batch["point_coord"]
+        unet.train()
         latent = unet(batch["lres"])
 
         def fwd(pts):
@@ -230,10 +238,22 @@ def _without_cudnn():
         torch.backends.cudnn.enabled = enabled
 
 
-def make_train_step(loss_fn, opt: Optimizer):
+def _first_non_finite(tensors: Dict[str, torch.Tensor]):
+    """The name of the first tensor holding a NaN or Inf, or None."""
+    for k, t in tensors.items():
+        if not bool(torch.isfinite(t).all()):
+            return k
+    return None
+
+
+def make_train_step(loss_fn, opt: Optimizer, debug_nans: bool = False):
     """step(state, batch) -> (state, metrics): one optimizer step,
     updating the models' parameters and ``state`` in place (the step's
-    gradients stay in the parameters' ``.grad``)."""
+    gradients stay in the parameters' ``.grad``). ``debug_nans``: check
+    the loss terms after the forward and the gradients after the
+    backward, and raise ``FloatingPointError`` naming the first
+    non-finite one, before the optimizer touches anything (a host sync
+    each; the JAX drivers' ``jax_debug_nans``)."""
 
     def step(state: TrainState, batch):
         params = state.params()
@@ -241,9 +261,17 @@ def make_train_step(loss_fn, opt: Optimizer):
             p.grad = None
         with _without_cudnn():
             loss, metrics = loss_fn(batch)
+            bad = debug_nans and _first_non_finite(metrics)
+            if bad:
+                raise FloatingPointError(
+                    f"non-finite loss term {bad!r} at step {state.step}")
             loss.backward()
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in params.items()}
+        bad = debug_nans and _first_non_finite(grads)
+        if bad:
+            raise FloatingPointError(
+                f"non-finite gradient of {bad!r} at step {state.step}")
         metrics["grad_norm"] = opt.step(params, grads, state.opt_state)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
@@ -251,11 +279,12 @@ def make_train_step(loss_fn, opt: Optimizer):
     return step
 
 
-def make_multi_step(loss_fn, opt: Optimizer, n_inner: int):
+def make_multi_step(loss_fn, opt: Optimizer, n_inner: int,
+                    debug_nans: bool = False):
     """step(state, stacked_batch): ``n_inner`` sequential steps over
     batches stacked on a leading axis; returns the last step's
     metrics."""
-    one = make_train_step(loss_fn, opt)
+    one = make_train_step(loss_fn, opt, debug_nans)
 
     def step(state: TrainState, stacked_batch):
         metrics = {}
@@ -270,10 +299,11 @@ def make_multi_step(loss_fn, opt: Optimizer, n_inner: int):
 def make_eval_fn(cfg, unet: nn.Module, imnet: ImNet):
     """Relative L2 of predictions vs point ground truth (overall and per
     channel), through the fused decode (the CUDA decode kernel on a
-    card) when ``fused_query`` is set."""
+    card) when ``fused_query`` is set; the encoder in eval mode."""
 
     @torch.no_grad()
     def eval_fn(batch):
+        unet.eval()
         latent = unet(batch["lres"])
         coords = batch["point_coord"]
         if cfg.model.fused_query:

@@ -2,12 +2,19 @@
 
 Counterpart of ``space_time_pde_tpu/utils/checkpoint.py`` (orbax there):
 one file per saved step, ``<directory>/ckpt_<step>.pt``, holding the
-whole training state -- both models' parameters, the optimizer state,
-the step and the generator's state -- plus the caller's extras (config,
+whole training state -- both models' parameters and buffers (BatchNorm's
+running statistics), the optimizer state, the step and the generator's
+state -- plus the caller's extras (config,
 epoch, channel stats, coordinate extents, best eval), with the newest
 ``keep`` files kept. A restore puts every tensor back in place, so a
 resumed run continues step-exact. Files load with ``weights_only=True``:
 plain tensors, numbers, strings, lists and dicts only.
+
+:func:`restore_exported` resumes from a JAX run instead: an ``.npz`` of
+``scripts/export_torch_params.py`` with the optimizer state
+(``bridge.py``). Parameters, BatchNorm statistics, Adam's moments and
+count and the ``apply_if_finite`` counters carry over exactly; the JAX
+PRNG key does not (the port draws its batches with its own generators).
 """
 
 from __future__ import annotations
@@ -19,9 +26,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from space_time_pde_torch.bridge import (
+    OPT_COUNTERS, load_exported, load_flax_params, optimizer_state_from_flax)
 from space_time_pde_torch.train.trainer import TrainState
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "restore_exported", "resume"]
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -63,6 +72,7 @@ class CheckpointManager:
             "step": int(state.step),
             "params": {k: p.detach().cpu()
                        for k, p in state.params().items()},
+            "buffers": {k: b.cpu() for k, b in state.buffers().items()},
             "opt_state": dict(opt, mu={k: v.cpu() for k, v in
                                        opt["mu"].items()},
                               nu={k: v.cpu() for k, v in
@@ -90,9 +100,17 @@ class CheckpointManager:
             raise ValueError(
                 "checkpoint parameters do not match the model: "
                 f"{sorted(set(params) ^ set(payload['params']))}")
+        buffers = state.buffers()
+        saved_buffers = payload.get("buffers", {})
+        if saved_buffers and set(buffers) != set(saved_buffers):
+            raise ValueError(
+                "checkpoint buffers do not match the model: "
+                f"{sorted(set(buffers) ^ set(saved_buffers))}")
         with torch.no_grad():
             for k, p in params.items():
                 p.copy_(payload["params"][k])
+            for k, b in saved_buffers.items():
+                buffers[k].copy_(b)
         saved = payload["opt_state"]
         opt = state.opt_state
         for moment in ("mu", "nu"):
@@ -104,3 +122,59 @@ class CheckpointManager:
         state.step = int(payload["step"])
         state.generator.set_state(payload["generator"])
         return state, payload["extra"]
+
+
+def restore_exported(state: TrainState, path: str
+                     ) -> Tuple[TrainState, Dict[str, Any]]:
+    """Load the exported JAX checkpoint ``path`` into ``state`` in place:
+    both models' parameters (and BatchNorm statistics), the optimizer
+    state and the step; returns (state, extras: ``epoch`` -- the JAX
+    run's last finished epoch, or -1 where the export does not say --
+    ``config``, ``channel_mean``, ``channel_std``). The generator keeps
+    its seed: the JAX run's batches are not reproduced."""
+    exported = load_exported(path)
+    if exported["opt_state"] is None:
+        raise ValueError(
+            f"{path} holds no optimizer state, so a run cannot resume from "
+            "it exactly; re-export it with scripts/export_torch_params.py "
+            "--with_opt_state")
+    device = next(state.unet.parameters()).device
+    params = exported["params"]
+    load_flax_params(state.unet, params["unet"], exported["batch_stats"])
+    load_flax_params(state.imnet, params["imnet"])
+    opt = optimizer_state_from_flax(
+        exported["opt_state"], {"unet": state.unet, "imnet": state.imnet},
+        device)
+    for moment in ("mu", "nu"):
+        for k, v in state.opt_state[moment].items():
+            v.copy_(opt[moment][k])
+    for k in OPT_COUNTERS:
+        state.opt_state[k] = opt[k]
+    state.step = exported["step"]
+    return state, {"epoch": int(exported["meta"].get("epoch", -1)),
+                   "config": exported["config"],
+                   "channel_mean": exported["channel_mean"],
+                   "channel_std": exported["channel_std"]}
+
+
+def resume(state: TrainState, path: str, mngr: CheckpointManager,
+           steps_per_epoch: int) -> Tuple[TrainState, int, str]:
+    """The train CLIs' ``--resume``: ``path`` is an exported JAX
+    checkpoint (``.npz``, :func:`restore_exported`) or a directory of
+    port checkpoints (``mngr`` when it is the run's own). Returns (state,
+    the epoch to continue at, the line to print)."""
+    if path.endswith(".npz"):
+        state, extra = restore_exported(state, path)
+        epoch = (extra["epoch"] + 1 if extra["epoch"] >= 0
+                 else state.step // steps_per_epoch)
+        return state, epoch, (
+            f"resumed from step {state.step} (epoch {epoch}) of the "
+            f"exported JAX run {path}: parameters, BatchNorm statistics "
+            f"and optimizer state exact (Adam count "
+            f"{state.opt_state['count']}); the batches are not (the JAX "
+            "PRNG key does not carry over; the port draws its own)")
+    rmngr = (mngr if os.path.abspath(path) == mngr.directory
+             else CheckpointManager(path))
+    state, extra = rmngr.restore(state)
+    epoch = int(extra.get("epoch", 0)) + 1
+    return state, epoch, f"resumed from step {state.step} (epoch {epoch})"

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from space_time_pde_torch import inference as tinf
 from space_time_pde_torch.bridge import load_flax_params, save_exported
@@ -164,3 +165,44 @@ def test_eval_cli_matches_jax(tmp_path):
     with np.load(tmp_path / "full.npz") as z:
         got = np.stack([z[c] for c in "pbuw"], -1)
     np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_eval_cli_render_animation_and_precision(tmp_path, capsys):
+    """--render_frames writes PNGs, --save_animation a GIF (from the
+    first window), and --matmul_precision is printed in the provenance
+    line; on the CPU TF32 changes nothing, so the decode stays JAX's."""
+    cfg = Config()
+    cfg.model.lat_dims, cfg.model.unet_nf, cfg.model.imnet_nf = 8, 4, 4
+    cfg.data.nt, cfg.data.nz, cfg.data.nx = 8, 16, 16
+    cfg.data.downsamp_t, cfg.data.downsamp_xz = 2, 4
+    cfg.data.data_folder, cfg.data.eval_data = str(tmp_path), "tg.npz"
+    save_npz(str(tmp_path / "tg.npz"),
+             taylor_green_fields(nt=8, nz=16, nx=32))
+    unet, imnet, params, _, _ = _models((4, 4, 8), seed=5)
+    save_exported(str(tmp_path / "w.npz"), params, None, cfg.to_dict(),
+                  np.zeros(4, np.float32), np.ones(4, np.float32), 3)
+    spec = importlib.util.spec_from_file_location(
+        "evaluation_torch",
+        os.path.join(ROOT, "experiments", "rb2d", "evaluation_torch.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    gif = tmp_path / "anim" / "eval.gif"
+    res = cli.main(["--params", str(tmp_path / "w.npz"), "--device", "cpu",
+                    "--query_chunk", "1000", "--render_frames", "1",
+                    "--save_animation", str(gif), "--matmul_precision",
+                    "tensorfloat32", "--save_path", str(tmp_path / "p.npz")])
+    out = capsys.readouterr().out
+    assert "matmul_precision=tensorfloat32 tf32_matmul=True" in out
+    assert os.listdir(tmp_path / "p_frames") == ["frame_0000.png"]
+    with open(tmp_path / "p_frames" / "frame_0000.png", "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    with open(gif, "rb") as f:
+        assert f.read(6) in (b"GIF87a", b"GIF89a")
+    # The flag touched only the encoder's window; TF32 is off again.
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    want = jinf.make_dense_decoder(unet, imnet, (8, 16, 32), chunk=1000,
+                                   fused=False)(params,
+                                                jnp.asarray(res["lres0"]))
+    np.testing.assert_allclose(res["window0"].numpy(), np.asarray(want),
+                               **TOL)

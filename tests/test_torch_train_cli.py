@@ -84,3 +84,30 @@ def test_host_pipeline_and_config_errors(tmp_path):
         train_torch.main(_flags(tmp_path, "--pde_system", "nope"))
     with pytest.raises(SystemExit, match="velonly"):
         train_torch.main(_flags(tmp_path, "--velonly", "true"))
+
+
+def test_profile_epoch_and_debug_nans(tmp_path, capsys):
+    """--profile_epoch writes a torch.profiler trace of that epoch;
+    --debug_nans stops at the first step with a non-finite loss term
+    (here an infinite point of the training field) and names it."""
+    save_npz(str(tmp_path / "tg.npz"),
+             taylor_green_fields(nt=10, nz=16, nx=16))
+    train_torch = _driver()
+    res = train_torch.main(_flags(tmp_path, "--epochs", "2",
+                                  "--profile_epoch", "1", "--debug_nans"))
+    assert res["step"] == 8
+    trace = tmp_path / "log" / "profile" / "epoch_1.json"
+    with open(trace) as f:
+        assert "traceEvents" in json.load(f)
+    assert "torch.profiler trace of epoch_1" in capsys.readouterr().out
+
+    fields = taylor_green_fields(nt=10, nz=16, nx=16)
+    fields["u"] = np.full_like(fields["u"], np.inf)
+    save_npz(str(tmp_path / "bad.npz"), fields)
+    flags = _flags(tmp_path, "--epochs", "1", "--debug_nans",
+                   "--device_data", "false", "--inner_steps", "1",
+                   "--log_dir", str(tmp_path / "log_bad"))
+    flags[flags.index("tg.npz")] = "bad.npz"
+    with pytest.raises(FloatingPointError, match="non-finite loss term "
+                       "'reg_loss' at step 0"):
+        train_torch.main(flags)

@@ -84,7 +84,7 @@ def test_loss_and_grads_match_jax(derivs, reg, pde):
 
     tcfg = TConfig.from_dict(cfg.to_dict())
     tcfg.train.pde_derivs = derivs
-    tunet, timnet = ttrain.build_models(tcfg, IGRES)
+    tunet, timnet = ttrain.build_models(tcfg, IGRES, "cpu")
     load_flax_params(tunet, params["unet"])
     load_flax_params(timnet, params["imnet"])
     loss_fn = ttrain.make_loss_fn(tcfg, tunet, timnet,
@@ -207,7 +207,7 @@ def test_init_statistics_match_flax():
           "imnet": jimnet.init(jax.random.PRNGKey(1),
                                jnp.zeros((1, 35)))["params"]}
     tcfg = TConfig.from_dict(cfg.to_dict())
-    tunet, timnet = ttrain.build_models(tcfg, igres)
+    tunet, timnet = ttrain.build_models(tcfg, igres, "cpu")
     ttrain.init_state(0, tunet, timnet, ttrain.make_optimizer(tcfg))
     checked = 0
     for name, module in (("unet", tunet), ("imnet", timnet)):
@@ -229,7 +229,7 @@ def test_init_statistics_match_flax():
 def _tiny_state(seed=0):
     """(state, optimizer, loss over the state's own modules)."""
     tcfg = TConfig.from_dict(_cfg().to_dict())
-    tunet, timnet = ttrain.build_models(tcfg, IGRES)
+    tunet, timnet = ttrain.build_models(tcfg, IGRES, "cpu")
     opt = ttrain.make_optimizer(tcfg)
     state = ttrain.init_state(seed, tunet, timnet, opt)
     return state, opt, _loss_over(state)
@@ -311,12 +311,15 @@ def test_unported_modes_raise():
     tcfg = TConfig.from_dict(_cfg().to_dict())
     tcfg.model.use_bf16 = True
     with pytest.raises(NotImplementedError, match="f32"):
-        ttrain.build_models(tcfg, IGRES)
+        ttrain.build_models(tcfg, IGRES, "cpu")
     tcfg = TConfig.from_dict(_cfg().to_dict())
     tcfg.model.norm = "batch"
-    unet, imnet = ttrain.build_models(tcfg, IGRES)
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        ttrain.make_loss_fn(tcfg, unet, imnet, None)
+    unet, imnet = ttrain.build_models(tcfg, IGRES, "cpu")
+    # BatchNorm trains on UNet3d (tests/test_torch_batchnorm.py); UNet4d
+    # stays GroupNorm only, as in the reference.
+    ttrain.make_loss_fn(tcfg, unet, imnet, None)
+    with pytest.raises(ValueError, match="GroupNorm only"):
+        ttrain.build_models(tcfg, (4, 4, 4, 4), "cpu")
     tcfg.model.norm, tcfg.train.pde_derivs = "group", "fd"
     with pytest.raises(ValueError, match="pde_derivs"):
         ttrain.make_loss_fn(tcfg, unet, imnet, None)

@@ -196,7 +196,7 @@ def test_turb3d_loss_and_grads_match_jax(derivs):
         has_aux=True)(params, {k: jnp.asarray(v) for k, v in batch.items()})
 
     tcfg = TConfig.from_dict(cfg.to_dict())
-    tunet, timnet = ttrain.build_models(tcfg, IGRES4)
+    tunet, timnet = ttrain.build_models(tcfg, IGRES4, "cpu")
     assert isinstance(tunet, TUNet4d) and timnet.dim == 4
     load_flax_params(tunet, params["unet"])
     load_flax_params(timnet, params["imnet"])

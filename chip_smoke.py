@@ -116,6 +116,27 @@ C. a JAX run resumed: the flagship's exported optimizer state
    Taylor–Green field (the cliff detector off: the model is far off its
    data there): it starts at step 230,400, finite losses;
 
+and the parallel paths (``space_time_pde_torch/parallel``), their ranks
+processes of this script (``--worker``) started as ``torchrun`` starts
+them; with more ranks than cards the ranks share the cards over gloo
+(halo planes through host memory, the compute on the card), so their
+times measure no scaling:
+
+D. the flagship step of phase 8's reference on 4 ranks, each held to
+   phase 8's rule with its constants, the gradients compared being the
+   all-reduced ones: data-parallel over 2 data ranks (each data group of
+   the 2 x 2 world), the data x space step on 2 x 2 with the replicated
+   encoder and with ``ShardedUNet3d`` (L1 + Huber: the port's sharded
+   loss honours the loss kinds), and phase B's BatchNorm step over 2 data
+   ranks with synced statistics (phase B's rule);
+E. phase 14's turb3d step on 2 x 2 with ``ShardedUNet4d``, jets at D = 4;
+F. the train CLIs: rb2d with ``--space_devices 2 --sharded_encoder`` on
+   4 ranks (an 8-step epoch and a resume), with the replicated encoder,
+   data-parallel on 2 ranks, and at world 1 on NCCL in this process;
+   turb3d with ``--space_devices 2 --sharded_encoder`` on 4 ranks; with
+   two cards or more also rb2d data-parallel over NCCL, a rank a card.
+   Each path's launches are summed over its ranks;
+
 and last, one JSON line of all four kernels (``path``: eval, train or
 off_path; ``math``: tf32x3, the products' arithmetic (all four run them
 in 3xTF32 on the tensor cores); launches per path and per D; times,
@@ -593,14 +614,13 @@ def buffers_as_flax(module):
 
 def reference_step(step_ref, device):
     """The training step of a ``scripts/export_torch_train_ref.py`` file
-    on ``device``: (step_fn, state, batch, ref arrays, spec), with the
-    seeded weights loaded into the state's models."""
+    on ``device``: (cfg, pde layer, optimizer, state, batch, ref arrays,
+    spec), with the seeded weights loaded into the state's models."""
     from space_time_pde_torch.bridge import (
         load_flax_params, seeded_flax_params)
     from space_time_pde_torch.physics import get_pde_layer
     from space_time_pde_torch.train import (
-        build_models, init_state, make_loss_fn, make_optimizer,
-        make_train_step)
+        build_models, init_state, make_optimizer)
     from space_time_pde_torch.utils.config import Config
 
     with np.load(step_ref, allow_pickle=False) as z:
@@ -627,16 +647,17 @@ def reference_step(step_ref, device):
                         std=ref["channel_std"], **kw)
     batch = {k: torch.from_numpy(ref[k]).to(device)
              for k in ("lres", "point_coord", "point_value")}
-    step_fn = make_train_step(make_loss_fn(cfg, unet, imnet, pde), opt)
-    return step_fn, state, batch, ref, spec
+    return cfg, pde, opt, state, batch, ref, spec
 
 
 def train_step_vs_jax(device, step_ref):
-    """Phases 8 and 14: one training step against the JAX reference."""
+    """Phases 8, 14 and B: one training step against the JAX reference."""
     from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.train import make_loss_fn, make_train_step
 
-    step_fn, state, batch, ref, spec = reference_step(step_ref, device)
-    unet, imnet = state.unet, state.imnet
+    cfg, pde, opt, state, batch, ref, spec = reference_step(step_ref, device)
+    step_fn = make_train_step(
+        make_loss_fn(cfg, state.unet, state.imnet, pde), opt)
     fj.reset_launches()
     # One optimizer step; its gradients stay in the parameters' .grad.
     state, metrics = step_fn(state, batch)
@@ -644,6 +665,19 @@ def train_step_vs_jax(device, step_ref):
     if fj.LAUNCHES["jet_fwd"] < 1 or fj.LAUNCHES["jet_bwd"] < 1:
         raise SystemExit(f"the training step did not run the jet kernels: "
                          f"{fj.LAUNCHES}")
+    bad = check_step(state, metrics, ref, spec, f"jet launches "
+                     f"{dict(fj.LAUNCHES)}")
+    if bad:
+        raise SystemExit(f"training step disagrees with JAX: {bad}")
+
+
+def check_step(state, metrics, ref, spec, note, verbose=True, grad64=None):
+    """Phase 8's rule on a step's loss terms, gradients (the parameters'
+    ``.grad``) and, with BatchNorm, new running statistics: the names
+    that fail it (printed when ``verbose``). ``grad64``: {leaf: float64
+    gradient} to hold the gradients to in place of the reference's."""
+    log = print if verbose else (lambda *a, **k: None)
+    unet, imnet = state.unet, state.imnet
     terms32, terms64 = spec["terms32"], spec["terms64"]
     bad = []
     for k, v in metrics.items():
@@ -651,9 +685,9 @@ def train_step_vs_jax(device, step_ref):
             continue
         got = float(v)
         rel = abs(got - terms32[k]) / max(abs(terms32[k]), 1e-30)
-        print(f"  {k:18s} port {got:.8g}  JAX f32 {terms32[k]:.8g}  "
-              f"float64 {terms64[k]:.8g}  rel diff vs JAX {rel:.2e}",
-              flush=True)
+        log(f"  {k:18s} port {got:.8g}  JAX f32 {terms32[k]:.8g}  "
+            f"float64 {terms64[k]:.8g}  rel diff vs JAX {rel:.2e}",
+            flush=True)
         # The temperature residual is ~1e-17 (b == 0 on Taylor-Green):
         # read it against the total loss.
         if abs(got - terms32[k]) > LOSS_RTOL * max(abs(terms32[k]),
@@ -667,7 +701,8 @@ def train_step_vs_jax(device, step_ref):
         for k, p in module.named_parameters():
             key = f"{name}.{k}"
             g = p.grad.double().cpu().numpy()
-            g64 = ref[f"grad64/{key}"].astype(np.float64)
+            g64 = (grad64[key] if grad64 is not None
+                   else ref[f"grad64/{key}"].astype(np.float64))
             needs[key] = atol_needed(g, g64, float(ref[f"scale/{key}"]),
                                      rtol)
             norms[key] = (np.linalg.norm(g - g64) / np.linalg.norm(g64),
@@ -675,17 +710,17 @@ def train_step_vs_jax(device, step_ref):
             if needs[key] > limit:
                 bad.append(key)
     for key in sorted(needs, key=needs.get)[-5:]:
-        print(f"  {key:34s} needs atol {needs[key]:.3e} x max|g64| (JAX "
-              f"f32 {float(ref[f'need/{key}']):.3e}); rel L2 vs float64 "
-              f"{norms[key][0]:.2e} (JAX f32 {norms[key][1]:.2e})",
-              flush=True)
+        log(f"  {key:34s} needs atol {needs[key]:.3e} x max|g64| (JAX "
+            f"f32 {float(ref[f'need/{key}']):.3e}); rel L2 vs float64 "
+            f"{norms[key][0]:.2e} (JAX f32 {norms[key][1]:.2e})",
+            flush=True)
     ratio = [a / b for a, b in norms.values() if b > 0]
-    say(f"train step vs JAX: {len(needs)} gradient leaves vs float64 at "
-        f"rtol {rtol:g}: worst atol {max(needs.values()):.3e} x max|g64| "
-        f"(limit {limit:.3e} = {STEP_SLACK:g} x JAX f32's worst "
-        f"{jax_need:.3e}); rel L2 error / JAX's: median "
-        f"{np.median(ratio):.2f}, max {max(ratio):.2f}; jet launches "
-        f"{dict(fj.LAUNCHES)}")
+    if verbose:
+        say(f"train step vs JAX: {len(needs)} gradient leaves vs float64 "
+            f"at rtol {rtol:g}: worst atol {max(needs.values()):.3e} x "
+            f"max|g64| (limit {limit:.3e} = {STEP_SLACK:g} x JAX f32's "
+            f"worst {jax_need:.3e}); rel L2 error / JAX's: median "
+            f"{np.median(ratio):.2f}, max {max(ratio):.2f}; {note}")
     stats = sorted(k[len("stats64/"):] for k in ref
                    if k.startswith("stats64/"))
     if stats:
@@ -698,13 +733,13 @@ def train_step_vs_jax(device, step_ref):
                                 ref[f"stats64/{k}"], scale[k], STATS_RTOL)
                  for k in stats}
         worst = max(got_s, key=got_s.get)
-        say(f"BatchNorm running statistics: {len(stats)} vs float64 at "
-            f"rtol {STATS_RTOL:g}: worst atol {got_s[worst]:.3e} x max "
-            f"({worst}; limit {STEP_SLACK * jax_s:.3e} = {STEP_SLACK:g} x "
-            f"JAX f32's worst {jax_s:.3e})")
+        if verbose:
+            say(f"BatchNorm running statistics: {len(stats)} vs float64 at "
+                f"rtol {STATS_RTOL:g}: worst atol {got_s[worst]:.3e} x max "
+                f"({worst}; limit {STEP_SLACK * jax_s:.3e} = "
+                f"{STEP_SLACK:g} x JAX f32's worst {jax_s:.3e})")
         bad += [k for k, v in got_s.items() if v > STEP_SLACK * jax_s]
-    if bad:
-        raise SystemExit(f"training step disagrees with JAX: {bad}")
+    return bad
 
 
 def load_driver(*parts):
@@ -1261,6 +1296,548 @@ def resume_from_jax(device, card):
     return launches
 
 
+# ------------------------------------------------------------------------
+# Phases D-F: the parallel paths. Their ranks are processes of this
+# script (``--worker``), started as torchrun starts ranks (RANK,
+# WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, a localhost rendezvous); with
+# more ranks than cards they share the cards over gloo.
+
+PARALLEL_TIMEOUT = 420          # seconds a world may take
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_world(world, tmp, phases, what):
+    """Run ``phases`` on ``world`` ranks of this script; returns each
+    rank's results. Echoes rank 0's output; a failed or late rank stops
+    every rank and exits non-zero."""
+    job = os.path.join(tmp, f"job_{what}")
+    os.makedirs(job, exist_ok=True)
+    with open(os.path.join(job, "phases.json"), "w") as f:
+        json.dump(phases, f)
+    port = free_port()
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 8)
+                                           // world)))
+        logs.append(os.path.join(job, f"rank{r}.log"))
+        with open(logs[-1], "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-u", os.path.abspath(__file__),
+                 "--worker", job], env=env, stdout=out,
+                stderr=subprocess.STDOUT, cwd=ROOT))
+    deadline = time.time() + PARALLEL_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.time() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    with open(logs[0]) as f:
+        print(f.read(), end="", flush=True)
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad[:2]:
+            with open(logs[r]) as f:
+                print(f"--- rank {r} ---\n{f.read()[-4000:]}", flush=True)
+        raise SystemExit(f"{what}: rank(s) {bad} of {world} failed or "
+                         f"outlived {PARALLEL_TIMEOUT} s")
+    out = []
+    for r in range(world):
+        with open(os.path.join(job, f"result{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def worker(job):
+    """One rank of :func:`spawn_world`: join, run the phases, write the
+    results (launch counts are this rank's)."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from space_time_pde_torch.parallel.dp import init_multihost, rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = "cuda" if torch.cuda.is_available() else "cpu"
+    rank, world = init_multihost(kind)
+    device = rank_device(kind)
+    with open(os.path.join(job, "phases.json")) as f:
+        phases = json.load(f)
+    results = {}
+    for ph in phases:
+        t0 = time.perf_counter()
+        run = {"step": sharded_step_vs_jax, "cli": cli_runs}[ph["kind"]]
+        results[ph["name"]] = run(device, rank, ph)
+        results[ph["name"]]["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(job, f"result{rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _launches():
+    from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.ops import fused_query as fq
+
+    return {**fj.LAUNCHES, **fq.LAUNCHES}
+
+
+def _reset_launches():
+    from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.ops import fused_query as fq
+
+    fj.reset_launches()
+    fq.reset_launches()
+
+
+def sharded_step_vs_jax(device, rank, ph):
+    """Phases D and E, one rank: a reference file's step laid out over
+    the world (``layout``: "dp" on the 2 x 2 mesh's data groups, or
+    "dp_sp"), its all-reduced gradients held to phase 8's rule."""
+    import torch.distributed as dist
+
+    from space_time_pde_torch.models.unet3d import UNet3d, set_norm_group
+    from space_time_pde_torch.parallel.dp import (
+        batch_block, make_dp_train_step, make_mesh)
+    from space_time_pde_torch.parallel.dp_sp import (
+        dp_sp_block, make_dp_sp_batch, make_dp_sp_loss_fn,
+        make_dp_sp_train_step)
+    from space_time_pde_torch.train import make_loss_fn
+
+    cfg, pde, opt, state, batch, ref, spec = reference_step(
+        os.path.join(ROOT, ph["ref"]), device)
+    unet, imnet = state.unet, state.imnet
+    world = dist.get_world_size()
+    mesh = make_mesh(world // ph["n_space"], ph["n_space"])
+    keys = ("lres", "point_coord", "point_value")
+    enc = unet
+    if ph["layout"] == "dp":
+        if cfg.model.norm == "batch":
+            set_norm_group(unet, mesh.data_group)
+        step = make_dp_train_step(make_loss_fn(cfg, unet, imnet, pde), opt,
+                                  mesh)
+        block = batch_block(batch, mesh.data_index, mesh.n_data)
+    else:
+        if ph["sharded"]:
+            from space_time_pde_torch.parallel.sharded_unet import (
+                ShardedUNet3d)
+            from space_time_pde_torch.parallel.sharded_unet4d import (
+                ShardedUNet4d)
+            cls = ShardedUNet3d if isinstance(unet, UNet3d) else ShardedUNet4d
+            enc = cls.from_plain(unet, mesh)
+        step = make_dp_sp_train_step(
+            make_dp_sp_loss_fn(cfg, enc, imnet, pde, mesh, ph["sharded"]),
+            opt, mesh)
+        host = make_dp_sp_batch({k: ref[k] for k in keys}, mesh.n_space,
+                                ref["lres"].shape[-2])
+        block = {k: torch.from_numpy(v).to(device) for k, v in
+                 dp_sp_block(host, mesh, ph["sharded"]).items()}
+    masks = []
+    record_branches(enc, masks, cfg.model.negative_slope)
+    # The weights the step starts from (it updates them in place).
+    start = {name: {k: v.detach().clone() for k, v in m.state_dict().items()}
+             for name, m in (("unet", unet), ("imnet", imnet))}
+    _reset_launches()
+    state, metrics = step(state, block)
+    torch.cuda.synchronize()
+    launches = _launches()
+    if rank == 0:
+        say(f"{ph['name']}: {ph['what']} (world {world}, data "
+            f"{mesh.n_data} x space {mesh.n_space}); the all-reduced "
+            f"gradients vs the JAX-CPU reference ({ph['ref']}):")
+    bad = check_step(state, metrics, ref, spec,
+                     f"rank 0's launches {launches}", verbose=rank == 0)
+    terms = [k for k in bad if "." not in k]
+    if bad and not terms:
+        bad = flip_clause(state, metrics, ref, spec, cfg, pde, batch, mesh,
+                          ph, masks, rank, start)
+    if bad or launches["jet_fwd"] < 1 or launches["jet_bwd"] < 1:
+        raise SystemExit(f"{ph['name']}: the step disagrees with JAX or "
+                         f"ran no jet kernel: {bad[:8]}; {launches}")
+    coll = collective_ms(state, enc, mesh, ph, cfg, block)
+    if rank == 0:
+        say(f"{ph['name']}: collectives a step: " + ", ".join(
+            f"{k} {n} x {ms:.3f} ms" for k, (n, ms) in coll.items())
+            + f" = {sum(n * ms for n, ms in coll.values()):.1f} ms (host "
+              "clock to a synchronize, mean of 5; gloo, a shared card)")
+    return {"launches": launches, "collectives": coll}
+
+
+def collective_ms(state, enc, mesh, ph, cfg, block, reps=5):
+    """{collective: (calls a step, ms a call)} of the step's layout: the
+    gradients' all-reduce (one flat buffer), the latent's halo exchange
+    (forward and backward), the halo convs' exchanges and the sharded
+    GroupNorms' / synced BatchNorms' all-reduces (forward and backward);
+    each timed on a tensor of its size."""
+    import torch.distributed as dist
+
+    from space_time_pde_torch.models.unet3d import BatchNorm
+    from space_time_pde_torch.parallel.collectives import exchange
+    from space_time_pde_torch.parallel.halo_conv import (
+        HaloConv3d, ShardedGroupNorm)
+
+    def sync():
+        if block["lres"].is_cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    flat = torch.cat([p.grad.reshape(-1) for p in state.params().values()])
+    group = mesh.world_group if ph["layout"] == "dp_sp" else mesh.data_group
+    out = {"gradient all-reduce": (1, timed(
+        lambda: dist.all_reduce(flat.clone(), group=group)))}
+    if ph["layout"] == "dp_sp":
+        lres = block["lres"]
+        plane = torch.zeros(*lres.shape[:-2], 1, cfg.model.lat_dims,
+                            device=lres.device)
+        ms = timed(lambda: exchange(plane, None, mesh.space_ranks,
+                                    mesh.space_index, mesh.space_group))
+        out["latent halo"] = (2, ms)
+        halo = [m for m in enc.modules() if isinstance(m, HaloConv3d)]
+        if halo:
+            x = torch.zeros(*lres.shape[:-2], 1, cfg.model.unet_nf,
+                            device=lres.device)
+            out["conv halos"] = (2 * len(halo), timed(
+                lambda: exchange(x, x, mesh.space_ranks, mesh.space_index,
+                                 mesh.space_group)))
+    norms = [m for m in enc.modules()
+             if isinstance(m, ShardedGroupNorm)
+             or (isinstance(m, BatchNorm) and m.group is not None)]
+    if norms:
+        stats = torch.zeros(2, 8, 8, device=flat.device)
+        g = mesh.space_group if isinstance(norms[0], ShardedGroupNorm) \
+            else norms[0].group
+        out["norm all-reduces"] = (2 * len(norms), timed(
+            lambda: dist.all_reduce(stats.clone(), group=g)))
+    return out
+
+
+def record_branches(encoder, store, slope):
+    """Record every LeakyReLU branch the encoder takes (``x > 0``, the
+    branch of its backward), in call order, on the CPU."""
+    import torch.nn.functional as F
+
+    for m in encoder.modules():
+        if callable(getattr(m, "act", None)):
+            m.act = lambda x: (store.append((x > 0).detach().cpu()),
+                               F.leaky_relu(x, slope))[1]
+
+
+def float64_step(cfg, weights, pde, batch, masks=None):
+    """The step's gradients recomputed in float64 on the card with the
+    plain modules (``weights``: their state dicts, ``{"unet", "imnet"}``)
+    and the plain analytic jet (``pde_derivs = jet_jnp``), on the whole
+    batch: ({leaf: gradient}, the encoder's pre-activations in call
+    order). ``masks``: the encoder's LeakyReLU branches to take (in call
+    order) in place of float64's own."""
+    import torch.nn.functional as F
+
+    from space_time_pde_torch.train import build_models, make_loss_fn
+    from space_time_pde_torch.utils.config import Config
+
+    c64 = Config.from_dict(cfg.to_dict())
+    c64.train.pde_derivs = "jet_jnp"
+    device = batch["lres"].device
+    unet, imnet = build_models(c64, tuple(batch["lres"].shape[1:-1]), device)
+    unet.load_state_dict(weights["unet"])
+    imnet.load_state_dict(weights["imnet"])
+    unet.double(), imnet.double()
+    slope = cfg.model.negative_slope
+    pres, it = [], iter(masks or ())
+
+    def act(x):
+        pres.append(x.detach().cpu())
+        if masks is None:
+            return F.leaky_relu(x, slope)
+        return torch.where(next(it).to(x.device), x, slope * x)
+
+    for m in unet.modules():
+        if callable(getattr(m, "act", None)):
+            m.act = act
+    loss, _ = make_loss_fn(c64, unet, imnet, pde)(
+        {k: v.double() for k, v in batch.items()})
+    loss.backward()
+    grads = {f"{name}.{k}": p.grad.cpu().numpy()
+             for name, mod in (("unet", unet), ("imnet", imnet))
+             for k, p in mod.named_parameters()}
+    return grads, pres
+
+
+def flip_clause(state, metrics, ref, spec, cfg, pde, batch, mesh, ph, masks,
+                rank, start):
+    """A step outside phase 8's rule passes if its encoder's LeakyReLU
+    branches differ from float64's only where the float64 pre-activation
+    lies within FLIP_REL of its layer's max |pre| (a branch taken within
+    rounding of 0, as the jet checks allow), and, with float64 recomputed
+    on the card on the run's own branches, every gradient leaf meets
+    phase 8's rule. The recomputation on float64's own branches must
+    reproduce the reference's float64 gradients first. Returns the
+    names that fail (the same on every rank)."""
+    import torch.distributed as dist
+
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, (mesh.data_index, mesh.space_index,
+                                      ph["sharded"], masks))
+    bad = ["flip clause"]
+    if rank == 0:
+        # The run's branches on the whole batch: data blocks along the
+        # batch, x shards (sharded encoder) along x, the last axis.
+        rows = {}
+        for d, sp, sharded, m in gathered:
+            if sharded or sp == 0:
+                rows.setdefault(d, {})[sp] = m
+        full = []
+        for i in range(len(masks)):
+            full.append(torch.cat([
+                torch.cat([rows[d][sp][i] for sp in sorted(rows[d])], -1)
+                for d in sorted(rows)], 0))
+        g_own, pres = float64_step(cfg, start, pde, batch)
+        self_err = max(float(np.abs(g_own[k] - ref[f"grad64/{k}"]).max())
+                       / float(ref[f"scale/{k}"]) for k in g_own)
+        flips, worst = 0, 0.0
+        for f, p in zip(full, pres):
+            diff = f != (p > 0)
+            flips += int(diff.sum())
+            if diff.any():
+                worst = max(worst, float(p[diff].abs().max())
+                            / float(p.abs().max()))
+        say(f"{ph['name']}: outside the rule; the encoder took {flips} "
+            f"LeakyReLU branch(es) other than float64's, the farthest at "
+            f"{worst:.2e} of its layer's max |pre| (FLIP_REL {FLIP_REL:g}); "
+            f"the card's float64 recomputation reproduces the reference "
+            f"to {self_err:.1e} of each leaf's scale")
+        if flips and worst <= FLIP_REL and self_err <= 1e-6:
+            g_run, _ = float64_step(cfg, start, pde, batch, full)
+            say(f"{ph['name']}: against float64 on the run's own branches:")
+            bad = check_step(state, metrics, ref, spec,
+                             "on the run's own branches", grad64=g_run)
+    out = [bad]
+    dist.broadcast_object_list(out, 0)
+    return out[0]
+
+
+def cli_runs(device, rank, ph):
+    """Phase F, one rank: ``main`` of a train CLI for each flag list of
+    ``ph["runs"]``; each run's launches and epochs."""
+    driver = load_driver(ph["driver"], "train_torch.py")
+    out = []
+    for flags in ph["runs"]:
+        _reset_launches()
+        res = driver.main(flags)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out.append({"launches": _launches(), "step": res["step"],
+                    "start_epoch": res["start_epoch"],
+                    "provenance": res["provenance"],
+                    "epochs": [{k: v for k, v in e.items()
+                                if isinstance(v, (int, float))}
+                               for e in res["epochs"]]})
+    return {"runs": out}
+
+
+def parallel_flags(base, log_dir, per_rank_batch, n_data, steps=8):
+    """A train CLI's flags with ``steps`` steps an epoch at ``n_data``
+    data ranks (the epoch's crops scale with the global batch)."""
+    flags = list(base)
+    i = flags.index("--pseudo_epoch_size")
+    flags[i + 1] = str(steps * per_rank_batch * n_data)
+    i = flags.index("--log_dir")
+    flags[i + 1] = log_dir
+    return flags
+
+
+def turb3d_flags(tmp, log_dir):
+    """The turb3d recipe's model and loss flags (phase 15)."""
+    return [
+        "--device", "cuda", "--data_folder", tmp, "--train_data",
+        "beltrami_s42.npz,beltrami_s100.npz,beltrami_s101.npz",
+        "--eval_data", "beltrami_s7.npz", "--nt", "8", "--nz", "32",
+        "--ny", "32", "--nx", "32", "--downsamp_t", "2",
+        "--downsamp_xyz", "4", "--lat_dims", "64", "--unet_nf", "32",
+        "--imnet_nf", "64", "--n_samp_pts_per_crop", "1024",
+        "--batch_size_per_gpu", "4", "--inner_steps", "8",
+        "--pseudo_epoch_size", "32", "--alpha_pde", "0.1",
+        "--lr", "5e-3", "--lr_schedule", "cosine",
+        "--pde_loss_type", "huber", "--seed", "42", "--log_dir", log_dir]
+
+
+def report_cli(card, what, ranks, points, run=0):
+    """Sum a phase-F CLI run over the ranks; print and check it."""
+    runs = [r[what]["runs"][run] for r in ranks]
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
+    epochs = runs[0]["epochs"]
+    sps = [e["sec_per_step"] for e in epochs]
+    losses = [e["loss"] for e in epochs]
+    if not epochs or not all(np.isfinite(
+            [e[k] for e in epochs for k in e if k.endswith("loss")])):
+        raise SystemExit(f"{what}: lost an epoch or went non-finite: "
+                         f"{epochs}")
+    if len({r["step"] for r in runs}) != 1:
+        raise SystemExit(f"{what}: the ranks ended at different steps")
+    prov = runs[0]["provenance"]
+    layout = prov[prov.index("world="):]
+    say(f"{what}: {len(ranks)} rank(s), {layout}; started at epoch "
+        f"{runs[0]['start_epoch']}, ended at step {runs[0]['step']}; "
+        f"losses {', '.join(f'{v:.5f}' for v in losses)};"
+        f" {', '.join(f'{s:.4f}' for s in sps)} s/step, "
+        f"{points / np.mean(sps):.0f} points/s ({points} a step, all "
+        f"ranks) on {card}; launches summed over the ranks {launches}")
+    for name in ("jet_fwd", "jet_bwd"):
+        if launches[name] < 1:
+            raise SystemExit(f"{name} was not launched by {what}")
+    return runs[0], launches
+
+
+def parallel_phases(card, tmp):
+    """Phases D-F; returns the launch counts of the new paths."""
+    from space_time_pde_torch.ops import fused_query as fq
+
+    data = os.path.join(tmp, "data")
+    os.makedirs(data)
+    taylor_green_folder(data)
+    beltrami_files(data, (42, 100, 101, 7))
+    rb2d_base = rb2d_flags(data, "")
+    world = 4
+    log = lambda name: os.path.join(tmp, f"log_{name}")
+    phases = [
+        dict(kind="step", name="D1", ref=os.path.relpath(STEP_REF, ROOT),
+             layout="dp", n_space=2, sharded=False,
+             what="the flagship step data-parallel over 2 data ranks (each "
+                  "data group of the 2 x 2 world)"),
+        dict(kind="step", name="D2", ref=os.path.relpath(STEP_REF, ROOT),
+             layout="dp_sp", n_space=2, sharded=False,
+             what="the flagship step on 2 x 2, replicated encoder"),
+        dict(kind="step", name="D3", ref=os.path.relpath(STEP_REF, ROOT),
+             layout="dp_sp", n_space=2, sharded=True,
+             what="the flagship step on 2 x 2, ShardedUNet3d (local x 8 -> "
+                  "4 -> 2)"),
+        dict(kind="step", name="D4", ref=os.path.relpath(BN_STEP_REF, ROOT),
+             layout="dp", n_space=2, sharded=False,
+             what="the BatchNorm step over 2 data ranks, statistics "
+                  "synced"),
+        dict(kind="step", name="E",
+             ref=os.path.relpath(TURB3D_STEP_REF, ROOT), layout="dp_sp",
+             n_space=2, sharded=True,
+             what="the turb3d step on 2 x 2, ShardedUNet4d (local x 4 -> "
+                  "2 -> 1), the jets at D = 4"),
+        dict(kind="cli", name="rb2d_dp_sp_sharded_train", driver="rb2d",
+             runs=[parallel_flags(rb2d_base, log("f1"), 8, 2)
+                   + ["--space_devices", "2", "--sharded_encoder",
+                      "--epochs", "1"],
+                   parallel_flags(rb2d_base, log("f1"), 8, 2)
+                   + ["--space_devices", "2", "--sharded_encoder",
+                      "--epochs", "2", "--resume",
+                      os.path.join(log("f1"), "checkpoints")]]),
+        dict(kind="cli", name="rb2d_dp_sp_train", driver="rb2d",
+             runs=[parallel_flags(rb2d_base, log("f1r"), 8, 2)
+                   + ["--space_devices", "2", "--epochs", "1"]]),
+        dict(kind="cli", name="turb3d_dp_sp_sharded_train", driver="turb3d",
+             runs=[parallel_flags(turb3d_flags(data, ""), log("f4"), 4, 2)
+                   + ["--space_devices", "2", "--sharded_encoder",
+                      "--epochs", "1"]]),
+    ]
+    say(f"phases D-F: {world} ranks on {torch.cuda.device_count()} card(s) "
+        f"({card}); ranks that share a card run over gloo, so their "
+        "times measure no scaling")
+    ranks = spawn_world(world, tmp, phases, "d_e_f")
+    steps = {ph["name"]: {k: sum(r[ph["name"]]["launches"][k] for r in ranks)
+                          for k in ranks[0][ph["name"]]["launches"]}
+             for ph in phases if ph["kind"] == "step"}
+    say("phases D-E launches summed over the ranks: " + "; ".join(
+        f"{k} {v}" for k, v in steps.items()) + "; seconds (rank 0): "
+        + ", ".join(f"{ph['name']} {ranks[0][ph['name']]['seconds']:.1f}"
+                    for ph in phases))
+    by_path = {}
+    first, by_path["rb2d_dp_sp_sharded_train"] = report_cli(
+        card, "rb2d_dp_sp_sharded_train", ranks, 16 * 1024)
+    resumed = ranks[0]["rb2d_dp_sp_sharded_train"]["runs"][1]
+    say(f"rb2d_dp_sp_sharded_train resumed at epoch "
+        f"{resumed['start_epoch']}, ended at step {resumed['step']}; "
+        f"losses {[round(e['loss'], 5) for e in resumed['epochs']]}")
+    if first["step"] != 8 or resumed["start_epoch"] != 1 or \
+            resumed["step"] != 16 or not np.isfinite(
+                [e["loss"] for e in resumed["epochs"]]).all():
+        raise SystemExit("the sharded CLI's resume is not step-exact")
+    _, by_path["rb2d_dp_sp_train"] = report_cli(
+        card, "rb2d_dp_sp_train", ranks, 16 * 1024)
+    _, by_path["turb3d_dp_sp_sharded_train"] = report_cli(
+        card, "turb3d_dp_sp_sharded_train", ranks, 8 * 1024)
+
+    # F: data parallelism on 2 ranks.
+    dp = [dict(kind="cli", name="rb2d_dp_train", driver="rb2d",
+               runs=[parallel_flags(rb2d_base, log("f2"), 8, 2)
+                     + ["--epochs", "1"]])]
+    _, by_path["rb2d_dp_train"] = report_cli(
+        card, "rb2d_dp_train", spawn_world(2, tmp, dp, "f2"), 16 * 1024)
+
+    # F: world 1 on NCCL, in this process.
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    os.environ.update(env)
+    import torch.distributed as dist
+    try:
+        _reset_launches()
+        res = load_driver("rb2d", "train_torch.py").main(
+            parallel_flags(rb2d_base, log("f3"), 8, 1) + ["--epochs", "1"])
+        torch.cuda.synchronize()
+        nccl = {"launches": _launches(), "step": res["step"],
+                "start_epoch": res["start_epoch"],
+                "provenance": res["provenance"],
+                "epochs": [{k: v for k, v in e.items()
+                            if isinstance(v, (int, float))}
+                           for e in res["epochs"]]}
+        if "backend=nccl" not in res["provenance"]:
+            raise SystemExit(f"world 1 did not run on NCCL: "
+                             f"{res['provenance']}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    _, by_path["rb2d_nccl_train"] = report_cli(
+        card, "rb2d_nccl_train", [{"rb2d_nccl_train": {"runs": [nccl]}}],
+        8 * 1024)
+    if torch.cuda.device_count() >= 2:
+        n = torch.cuda.device_count()
+        multi = [dict(kind="cli", name="rb2d_dp_nccl_cards", driver="rb2d",
+                      runs=[parallel_flags(rb2d_base, log("f5"), 8, n)
+                            + ["--epochs", "1"]])]
+        _, by_path["rb2d_dp_nccl_cards"] = report_cli(
+            card, "rb2d_dp_nccl_cards", spawn_world(n, tmp, multi, "f5"),
+            n * 8 * 1024)
+    for path, counts in by_path.items():
+        if path.startswith("rb2d") and counts["decode_blend_gather"] < 1:
+            raise SystemExit(f"decode_blend_gather was not launched by "
+                             f"{path}'s epoch eval")
+    fq.reset_launches()
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1351,13 +1928,19 @@ def main():
 
     # Phase C: a JAX run resumed in the port.
     rb2d_resume = resume_from_jax(device, card)
+    torch.cuda.empty_cache()
+
+    # Phases D-F: the parallel paths (ranks in processes of their own).
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel = parallel_phases(card, tmp)
 
     by_path = {"rb2d_eval": rb2d_eval, "rb2d_train": rb2d_train,
                "turb3d_eval_val": turb3d_eval["val"],
                "turb3d_eval_test": turb3d_eval["test"],
                "turb3d_train": turb3d_train,
                "rb2d_eval_real": rb2d_eval_real,
-               "rb2d_bn_train": rb2d_bn_train, "rb2d_resume": rb2d_resume}
+               "rb2d_bn_train": rb2d_bn_train, "rb2d_resume": rb2d_resume,
+               **parallel}
     off = {"rb2d_scattered": rb2d_off, "turb3d_scattered": turb3d_off}
     kernels = []
     for name in REPLACES:
@@ -1392,4 +1975,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2])
+    else:
+        main()

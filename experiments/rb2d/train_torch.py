@@ -32,8 +32,17 @@ N epochs of this run (the schedule still spans ``--epochs``).
 loss terms and the gradients of every step and raises
 ``FloatingPointError`` naming the first non-finite one.
 
-Not carried over: ``--space_devices``, ``--sharded_encoder`` and
-``--multihost`` (the parallel slice).
+Several ranks (``space_time_pde_torch/parallel/layout.py``): under
+``torchrun --nproc_per_node N`` the run is data-parallel over N ranks
+(``batch_size_per_gpu`` crops each, gradients averaged);
+``--space_devices S`` splits every crop's latent grid along x over S
+ranks (the data x space step, N / S data ranks), with ``--sharded_encoder``
+the encoder too (halo convs); ``--multihost`` joins a run of one process
+per host through ``STPDE_COORDINATOR`` / ``STPDE_NUM_PROCESSES`` /
+``STPDE_PROCESS_ID`` (data axis only). The backend is NCCL when every
+rank has a card of its own, gloo when ranks share a card:
+    torchrun --nproc_per_node 4 experiments/rb2d/train_torch.py \
+        <the flags above> --space_devices 2 --sharded_encoder
 """
 
 import argparse
@@ -52,11 +61,12 @@ from space_time_pde_torch.data.dataset import RB2DataLoader
 from space_time_pde_torch.data.device_pipeline import DeviceSampler
 from space_time_pde_torch.data.prefetch import BatchPrefetcher
 from space_time_pde_torch.data.splits import check_train_files
+from space_time_pde_torch.parallel.layout import Layout
 from space_time_pde_torch.physics.systems import (
     available_systems, get_pde_layer)
 from space_time_pde_torch.train import (
     CliffDetector, build_models, init_state, make_eval_fn, make_loss_fn,
-    make_multi_step, make_optimizer, make_train_step)
+    make_optimizer)
 from space_time_pde_torch.utils.checkpoint import CheckpointManager, resume
 from space_time_pde_torch.utils.config import add_args, config_from_args
 from space_time_pde_torch.utils.logging import MetricsLogger
@@ -72,7 +82,7 @@ def _loader(cfg, filename):
         lres_interp=d.lres_interp, velonly=d.velonly)
 
 
-def _provenance(cfg, device, sampler) -> str:
+def _provenance(cfg, device, sampler, layout) -> str:
     derivs = cfg.train.pde_derivs
     if cfg.train.alpha_pde <= 0:
         jet = "none (alpha_pde 0)"
@@ -90,7 +100,8 @@ def _provenance(cfg, device, sampler) -> str:
             f"tf32_matmul={torch.backends.cuda.matmul.allow_tf32} "
             f"tf32_cudnn={torch.backends.cudnn.allow_tf32} jet={jet} "
             f"eval_decode={decode} batch_assembly="
-            f"{'device' if sampler is not None else 'host'}")
+            f"{'device' if sampler is not None else 'host'} "
+            f"{layout.describe()}")
 
 
 @contextlib.contextmanager
@@ -143,6 +154,17 @@ def main(argv=None):
     parser.add_argument("--debug_nans", action="store_true",
                         help="check every step's loss terms and gradients; "
                              "raise naming the first non-finite one")
+    parser.add_argument("--space_devices", type=int, default=1,
+                        help="ranks of the 'space' axis (latent grid split "
+                             "along x, points binned, one-node halo); the "
+                             "other ranks form the 'data' axis")
+    parser.add_argument("--sharded_encoder", action="store_true",
+                        help="with --space_devices > 1: the halo-conv "
+                             "ShardedUNet3d (no rank holds a whole grid)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a run of one process per host "
+                             "(STPDE_COORDINATOR / STPDE_NUM_PROCESSES / "
+                             "STPDE_PROCESS_ID); data axis only")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     if args.val_data:
@@ -152,10 +174,13 @@ def main(argv=None):
         raise SystemExit(
             f"unknown --pde_system {cfg.physics.pde_system!r}; "
             f"available: {available_systems()}")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
         raise SystemExit("no CUDA device here; --device cpu runs the plain "
                          "PyTorch path")
+    layout = Layout(args.space_devices, args.sharded_encoder,
+                    args.multihost, args.device, cfg.train.num_devices)
+    device = layout.device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if cfg.data.velonly:
@@ -180,26 +205,30 @@ def main(argv=None):
         prandtl=cfg.physics.prandtl, viscosity=cfg.physics.viscosity,
     ) if cfg.train.alpha_pde > 0 else None
 
-    batch_per_step = cfg.train.batch_size_per_gpu
+    per_rank = cfg.train.batch_size_per_gpu
+    batch_per_step = layout.global_rows(per_rank)
     steps_per_epoch = max(1, cfg.train.pseudo_epoch_size // batch_per_step)
     inner = max(1, args.inner_steps)
     opt = make_optimizer(cfg, steps_per_epoch)
     state = init_state(cfg.train.seed, unet, imnet, opt)
+    layout.prepare(unet, cfg.model.norm)
     loss_fn = make_loss_fn(cfg, unet, imnet, pde_layer)
     sampler = None
-    if args.device_data and DeviceSampler.supported(ds):
+    if args.device_data and layout.n_space == 1 and \
+            DeviceSampler.supported(ds):
         sampler = DeviceSampler(ds, device)
         loss_fn = sampler.wrap_loss(loss_fn)
 
     def build_step(opt):
-        if inner > 1:
-            return make_multi_step(loss_fn, opt, inner, args.debug_nans)
-        return make_train_step(loss_fn, opt, args.debug_nans)
+        return layout.make_step(cfg, imnet, pde_layer, loss_fn, opt, inner,
+                                args.debug_nans)
 
     step_fn = build_step(opt)
+    # The eval runs the plain module (the same parameters either way).
     eval_fn = make_eval_fn(cfg, unet, imnet)
-    provenance = _provenance(cfg, device, sampler)
-    print(provenance, flush=True)
+    provenance = _provenance(cfg, device, sampler, layout)
+    if layout.is_main:
+        print(provenance, flush=True)
 
     ckpt_dir = os.path.join(cfg.train.log_dir, "checkpoints")
     mngr = CheckpointManager(ckpt_dir, keep=cfg.train.keep_checkpoints)
@@ -207,10 +236,16 @@ def main(argv=None):
     if cfg.train.resume:
         state, start_epoch, line = resume(state, cfg.train.resume, mngr,
                                           steps_per_epoch)
-        print(line, flush=True)
+        if layout.is_main:
+            print(line, flush=True)
+    state = layout.replicate(state)
 
-    logger = MetricsLogger(cfg.train.log_dir, use_tensorboard=False)
-    rng = np.random.RandomState(cfg.train.seed)
+    logger = (MetricsLogger(cfg.train.log_dir, use_tensorboard=False)
+              if layout.is_main else None)
+    # --multihost: each process its own rows (the JAX driver's seeds);
+    # otherwise every rank draws the global batch and keeps its block.
+    rng = np.random.RandomState(cfg.train.seed + (
+        1000 * layout.rank if layout.multihost else 0))
     eval_rng = np.random.RandomState(cfg.train.seed + 1)
     eval_batch_host = eval_ds.sample_batch(eval_rng, batch_per_step)
 
@@ -220,17 +255,14 @@ def main(argv=None):
 
     eval_batch = upload(eval_batch_host)
 
-    def one_batch():
+    def one_batch(rows):
         if sampler is not None:
-            o, p = sampler.draw(rng, batch_per_step)
+            o, p = sampler.draw(rng, rows)
             return {"origins": o, "point_coord": p}
-        return ds.sample_batch(rng, batch_per_step)
+        return ds.sample_batch(rng, rows)
 
     def make_raw():
-        if inner == 1:
-            return one_batch()
-        bs = [one_batch() for _ in range(inner)]
-        return {k: np.stack([b[k] for b in bs]) for k in bs[0]}
+        return layout.draw(one_batch, per_rank, inner, ds.lres_shape[2])
 
     prefetcher = BatchPrefetcher(make_raw, depth=4)
 
@@ -248,7 +280,8 @@ def main(argv=None):
             last = min(last, start_epoch + args.run_epochs)
         for epoch in range(start_epoch, last):
             t0 = time.time()
-            with profiled(epoch == args.profile_epoch, device,
+            with profiled(epoch == args.profile_epoch and layout.is_main,
+                          device,
                           os.path.join(cfg.train.log_dir, "profile"),
                           f"epoch_{epoch}"):
                 for _ in range(max(1, steps_per_epoch // inner)):
@@ -269,10 +302,11 @@ def main(argv=None):
                     if sampler is not None:
                         sampler.refresh()
                     eval_batch = upload(eval_batch_host)
-                    print(f"epoch {epoch}: non-finite {bad} — update(s) "
-                          "skipped (apply_if_finite), params healthy; "
-                          "device buffers re-uploaded, continuing",
-                          flush=True)
+                    if layout.is_main:
+                        print(f"epoch {epoch}: non-finite {bad} — "
+                              "update(s) skipped (apply_if_finite), params "
+                              "healthy; device buffers re-uploaded, "
+                              "continuing", flush=True)
                 else:
                     recover_reason = f"non-finite params ({bad})"
             if recover_reason is None and cliff is not None:
@@ -285,31 +319,35 @@ def main(argv=None):
                 lr_scale *= cfg.train.recovery_lr_factor
                 opt = make_optimizer(cfg, steps_per_epoch, lr_scale=lr_scale)
                 step_fn = build_step(opt)
+                layout.barrier()
                 state, _ = mngr.restore(state)
                 cliff.reset()
-                print(f"epoch {epoch}: CLIFF RECOVERY — {recover_reason}; "
-                      f"restored step {state.step}, continuing with lr "
-                      f"x{lr_scale:g}", flush=True)
+                if layout.is_main:
+                    print(f"epoch {epoch}: CLIFF RECOVERY — "
+                          f"{recover_reason}; restored step {state.step}, "
+                          f"continuing with lr x{lr_scale:g}", flush=True)
                 continue
             sec_per_step = (time.time() - t0) / steps_per_epoch
             metrics["sec_per_step"] = sec_per_step
             metrics["pts_per_sec"] = (batch_per_step *
                                       cfg.data.n_samp_pts_per_crop /
                                       sec_per_step)
-            logger.log(state.step, metrics, prefix="train/")
-            em = {k: float(v) for k, v in eval_fn(eval_batch).items()
-                  if v.ndim == 0}
-            logger.log(state.step, em, prefix="eval/")
-            print(f"epoch {epoch}: loss={metrics.get('loss', 0):.5f} "
-                  f"reg={metrics.get('reg_loss', 0):.5f} "
-                  f"pde={metrics.get('pde_loss', 0):.5f} "
-                  f"eval_rel_l2={em.get('rel_l2', 0):.5f} "
-                  f"({sec_per_step:.3f}s/step)", flush=True)
+            em = {}
+            if layout.is_main:
+                logger.log(state.step, metrics, prefix="train/")
+                em = {k: float(v) for k, v in eval_fn(eval_batch).items()
+                      if v.ndim == 0}
+                logger.log(state.step, em, prefix="eval/")
+                print(f"epoch {epoch}: loss={metrics.get('loss', 0):.5f} "
+                      f"reg={metrics.get('reg_loss', 0):.5f} "
+                      f"pde={metrics.get('pde_loss', 0):.5f} "
+                      f"eval_rel_l2={em.get('rel_l2', 0):.5f} "
+                      f"({sec_per_step:.3f}s/step)", flush=True)
             history.append(dict(metrics, epoch=epoch, step=state.step,
                                 **{f"eval/{k}": v for k, v in em.items()}))
             # Never checkpoint an unhealthy epoch: cliff recovery restores
             # the latest checkpoint.
-            if epoch_healthy and (
+            if layout.is_main and epoch_healthy and (
                     (epoch + 1) % cfg.train.ckpt_every_epochs == 0 or
                     em.get("rel_l2", 1e9) < best_eval):
                 best_eval = min(best_eval, em.get("rel_l2", 1e9))
@@ -321,9 +359,11 @@ def main(argv=None):
                     "coord_extents": np.asarray(ds.coord_extents),
                     "best_eval": float(best_eval),
                 })
+            layout.barrier()        # rank 0's checkpoint, seen by all
     finally:
         prefetcher.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return {"epochs": history, "start_epoch": start_epoch,
             "step": state.step, "provenance": provenance, "state": state}
 

@@ -29,11 +29,15 @@ exported from a JAX run with its optimizer state
 moments and counters carry over exactly, the batches do not (the JAX
 PRNG key does not carry over).
 
-Not carried over: ``--space_devices > 1`` and ``--sharded_encoder``
-(the parallel slice, ROADMAP queue 1 item 6; both raise), ``--use_bf16``
-(the port trains in f32; raises), the ``maybe_force_platform`` call and
-the 16-corner XLA:TPU compiler guard of the eval query (TPU
-workarounds).
+Several ranks, as the rb2d CLI (``space_time_pde_torch/parallel/
+layout.py``): under ``torchrun --nproc_per_node N`` the run is
+data-parallel over N ranks; ``--space_devices S`` splits the 4-D latent
+grid along x over S ranks (the data x space step), with
+``--sharded_encoder`` the encoder too (``ShardedUNet4d``, halo convs).
+
+Not carried over: ``--use_bf16`` (the port trains in f32; raises), the
+``maybe_force_platform`` call and the 16-corner XLA:TPU compiler guard
+of the eval query (TPU workarounds).
 """
 
 import argparse
@@ -51,10 +55,11 @@ from space_time_pde_torch.data.dataset4d import Field4DDataset
 from space_time_pde_torch.data.device_pipeline import DeviceSampler
 from space_time_pde_torch.data.prefetch import BatchPrefetcher
 from space_time_pde_torch.data.splits import check_train_files
+from space_time_pde_torch.parallel.layout import Layout
 from space_time_pde_torch.physics.systems import get_ns3d_pde_layer
 from space_time_pde_torch.train import (
     CliffDetector, build_models, init_state, make_eval_fn, make_loss_fn,
-    make_multi_step, make_optimizer, make_train_step)
+    make_optimizer)
 from space_time_pde_torch.utils.checkpoint import CheckpointManager, resume
 from space_time_pde_torch.utils.config import Config
 from space_time_pde_torch.utils.logging import MetricsLogger
@@ -108,9 +113,10 @@ def add_turb3d_args(parser: argparse.ArgumentParser) -> None:
     p("--pde_bf16", type=_bool, default=False, metavar="BOOL")
     p("--device_data", type=_bool, default=True, metavar="BOOL")
     p("--space_devices", type=int, default=1,
-      help="> 1 (the sharded 4-D latent grid) is not ported yet")
+      help="ranks of the 'space' axis (4-D latent grid split along x, "
+           "points binned, one-node halo); the others form 'data'")
     p("--sharded_encoder", action="store_true",
-      help="the halo-conv ShardedUNet4d; not ported yet")
+      help="with --space_devices > 1: the halo-conv ShardedUNet4d")
     p("--cliff_recovery", type=_bool, default=True, metavar="BOOL")
     p("--recovery_lr_factor", type=float, default=0.5)
     p("--device", type=str, default="cuda",
@@ -145,7 +151,7 @@ def make_config(args) -> Config:
     return cfg
 
 
-def _provenance(device, sampler, alpha_pde, pde_derivs) -> str:
+def _provenance(device, sampler, alpha_pde, pde_derivs, layout) -> str:
     if alpha_pde <= 0:
         jet = "none (alpha_pde 0)"
     elif pde_derivs == "jet":
@@ -161,7 +167,8 @@ def _provenance(device, sampler, alpha_pde, pde_derivs) -> str:
             f"tf32_matmul={torch.backends.cuda.matmul.allow_tf32} "
             f"tf32_cudnn={torch.backends.cudnn.allow_tf32} "
             f"cudnn_in_step=False jet={jet} eval_decode={decode} "
-            f"batch_assembly={'device' if sampler is not None else 'host'}")
+            f"batch_assembly={'device' if sampler is not None else 'host'} "
+            f"{layout.describe()}")
 
 
 def main(argv=None):
@@ -170,14 +177,13 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     add_turb3d_args(parser)
     args = parser.parse_args(argv)
-    if args.space_devices > 1 or args.sharded_encoder:
-        raise SystemExit(
-            "--space_devices > 1 / --sharded_encoder: the sharded 4-D "
-            "latent grid is not ported yet (ROADMAP queue 1 item 13)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
         raise SystemExit("no CUDA device here; --device cpu runs the plain "
                          "PyTorch path")
+    layout = Layout(args.space_devices, args.sharded_encoder, False,
+                    args.device)
+    device = layout.device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = make_config(args)
@@ -203,27 +209,30 @@ def main(argv=None):
         y_crop=ey, x_crop=ex, viscosity=args.viscosity,
     ) if args.alpha_pde > 0 else None
 
-    batch_per_step = args.batch_size_per_gpu
+    per_rank = args.batch_size_per_gpu
+    batch_per_step = layout.global_rows(per_rank)
     steps_per_epoch = max(1, args.pseudo_epoch_size // batch_per_step)
     inner = max(1, args.inner_steps)
     opt = make_optimizer(cfg, steps_per_epoch)
     state = init_state(args.seed, unet, imnet, opt)
+    layout.prepare(unet, cfg.model.norm)
     loss_fn = make_loss_fn(cfg, unet, imnet, pde_layer)
     sampler = None
-    if args.device_data and DeviceSampler.supported(ds):
+    if args.device_data and layout.n_space == 1 and \
+            DeviceSampler.supported(ds):
         sampler = DeviceSampler(ds, device)
         loss_fn = sampler.wrap_loss(loss_fn)
 
     def build_step(opt):
-        if inner > 1:
-            return make_multi_step(loss_fn, opt, inner)
-        return make_train_step(loss_fn, opt)
+        return layout.make_step(cfg, imnet, pde_layer, loss_fn, opt, inner)
 
     step_fn = build_step(opt)
+    # The eval runs the plain module (the same parameters either way).
     eval_fn = make_eval_fn(cfg, unet, imnet)
     provenance = _provenance(device, sampler, args.alpha_pde,
-                             args.pde_derivs)
-    print(provenance, flush=True)
+                             args.pde_derivs, layout)
+    if layout.is_main:
+        print(provenance, flush=True)
 
     ckpt_dir = os.path.join(args.log_dir, "checkpoints")
     mngr = CheckpointManager(ckpt_dir, keep=3)
@@ -231,9 +240,12 @@ def main(argv=None):
     if args.resume:
         state, start_epoch, line = resume(state, args.resume, mngr,
                                           steps_per_epoch)
-        print(line, flush=True)
+        if layout.is_main:
+            print(line, flush=True)
+    state = layout.replicate(state)
 
-    logger = MetricsLogger(args.log_dir, use_tensorboard=False)
+    logger = (MetricsLogger(args.log_dir, use_tensorboard=False)
+              if layout.is_main else None)
     rng = np.random.RandomState(args.seed)
     eval_rng = np.random.RandomState(args.seed + 1)
     eval_batch_host = eval_ds.sample_batch(eval_rng, batch_per_step)
@@ -244,17 +256,14 @@ def main(argv=None):
 
     eval_batch = upload(eval_batch_host)
 
-    def one_batch():
+    def one_batch(rows):
         if sampler is not None:
-            o, p = sampler.draw(rng, batch_per_step)
+            o, p = sampler.draw(rng, rows)
             return {"origins": o, "point_coord": p}
-        return ds.sample_batch(rng, batch_per_step)
+        return ds.sample_batch(rng, rows)
 
     def make_raw():
-        if inner == 1:
-            return one_batch()
-        bs = [one_batch() for _ in range(inner)]
-        return {k: np.stack([b[k] for b in bs]) for k in bs[0]}
+        return layout.draw(one_batch, per_rank, inner, ds.lres_shape[-1])
 
     prefetcher = BatchPrefetcher(make_raw, depth=4)
 
@@ -280,8 +289,10 @@ def main(argv=None):
                     if sampler is not None:
                         sampler.refresh()
                     eval_batch = upload(eval_batch_host)
-                    print(f"epoch {epoch}: non-finite {bad} — update(s) "
-                          "skipped, params healthy, continuing", flush=True)
+                    if layout.is_main:
+                        print(f"epoch {epoch}: non-finite {bad} — "
+                              "update(s) skipped, params healthy, "
+                              "continuing", flush=True)
                 else:
                     recover_reason = f"non-finite params ({bad})"
             if recover_reason is None and cliff is not None:
@@ -294,32 +305,36 @@ def main(argv=None):
                 lr_scale *= cfg.train.recovery_lr_factor
                 opt = make_optimizer(cfg, steps_per_epoch, lr_scale=lr_scale)
                 step_fn = build_step(opt)
+                layout.barrier()
                 state, _ = mngr.restore(state)
                 cliff.reset()
-                print(f"epoch {epoch}: CLIFF RECOVERY — {recover_reason}; "
-                      f"restored step {state.step}, continuing with lr "
-                      f"x{lr_scale:g}", flush=True)
+                if layout.is_main:
+                    print(f"epoch {epoch}: CLIFF RECOVERY — "
+                          f"{recover_reason}; restored step {state.step}, "
+                          f"continuing with lr x{lr_scale:g}", flush=True)
                 continue
             sec_per_step = (time.time() - t0) / steps_per_epoch
             metrics["sec_per_step"] = sec_per_step
             metrics["pts_per_sec"] = (batch_per_step *
                                       args.n_samp_pts_per_crop /
                                       sec_per_step)
-            logger.log(state.step, metrics, prefix="train/")
-            em = {k: float(v) for k, v in eval_fn(eval_batch).items()
-                  if v.ndim == 0}
-            logger.log(state.step, em, prefix="eval/")
-            print(f"epoch {epoch}: loss={metrics.get('loss', 0):.5f} "
-                  f"reg={metrics.get('reg_loss', 0):.5f} "
-                  f"pde={metrics.get('pde_loss', 0):.5f} "
-                  f"eval_rel_l2={em.get('rel_l2', 0):.5f} "
-                  f"({sec_per_step:.3f}s/step)", flush=True)
+            em = {}
+            if layout.is_main:
+                logger.log(state.step, metrics, prefix="train/")
+                em = {k: float(v) for k, v in eval_fn(eval_batch).items()
+                      if v.ndim == 0}
+                logger.log(state.step, em, prefix="eval/")
+                print(f"epoch {epoch}: loss={metrics.get('loss', 0):.5f} "
+                      f"reg={metrics.get('reg_loss', 0):.5f} "
+                      f"pde={metrics.get('pde_loss', 0):.5f} "
+                      f"eval_rel_l2={em.get('rel_l2', 0):.5f} "
+                      f"({sec_per_step:.3f}s/step)", flush=True)
             history.append(dict(metrics, epoch=epoch, step=state.step,
                                 **{f"eval/{k}": v for k, v in em.items()}))
             best_eval = min(best_eval, em.get("rel_l2", 1e9))
             # Never checkpoint an unhealthy epoch: cliff recovery restores
             # the latest checkpoint.
-            if epoch_healthy:
+            if layout.is_main and epoch_healthy:
                 mngr.save(state.step, state, extra={
                     "config": cfg.to_dict(),
                     "turb3d_args": {k: getattr(args, k)
@@ -330,9 +345,11 @@ def main(argv=None):
                     "coord_extents": np.asarray(ds.coord_extents),
                     "best_eval": float(best_eval),
                 })
+            layout.barrier()        # rank 0's checkpoint, seen by all
     finally:
         prefetcher.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return {"epochs": history, "start_epoch": start_epoch,
             "step": state.step, "provenance": provenance}
 

@@ -14,9 +14,11 @@ jax. Slice 1 covers the rb2d eval path, slice 2 its training step:
   csrc/       the CUDA C++ kernel sources (sm_90a)
   physics/    the sympy ``dif`` DSL lowered to torch; RB2 and other systems
   train/      models, init, loss, steps, optimizer, cliff detector
+  parallel/   data parallelism, the x-sharded latent grid and encoders
+              over torch.distributed process groups
   bridge.py   flax params (numpy) -> state_dicts; exported-npz I/O
   inference.py  dense-lattice decode, stitching
-  utils/      config, checkpoints, metrics log
+  utils/      config, checkpoints, metrics log, synchronised timers
 """
 
 __version__ = "0.1.0"

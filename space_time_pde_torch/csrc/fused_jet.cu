@@ -903,7 +903,14 @@ __global__ void jet_head_bwd_kernel(const float* __restrict__ x4,
 // Per-chunk partials of the layer's bias-side gradients, [chunks][K + D][w]:
 // rows k < K: sum_p P[p, k, primal]; rows K + a: sum_p frac_pa
 // sum_k P[p, k, primal] + sum_{p,k} P[p, k, tangent a]. P: chain planes. A
-// thread sums V adjacent columns (16-byte loads where w allows).
+// block is kBiasCols column threads (V adjacent columns each, 16-byte loads
+// where w allows) by kBiasLanes point lanes: lane y sums the chunk's points
+// y, y + kBiasLanes, ... in order, then the lanes' sums are added pairwise
+// in a fixed tree through shared memory (lanes y and y + 4, then y and
+// y + 2, then 0 and 1), so a chunk's partial is a short run and a tree, not
+// one run over all its points: bitwise the same in every run.
+constexpr int kBiasCols = 32, kBiasLanes = 8;
+
 template <int V>
 __device__ __forceinline__ void load_v(const float* p, float (&v)[V]) {
   if constexpr (V == 4) {
@@ -915,17 +922,21 @@ __device__ __forceinline__ void load_v(const float* p, float (&v)[V]) {
 }
 
 template <int D, int V>
-__global__ void bias_grad_kernel(const float* __restrict__ pbuf,
-                                 const float* __restrict__ frac, int n,
-                                 int w, int ppc, float* __restrict__ part) {
+__global__ void __launch_bounds__(kBiasCols * kBiasLanes)
+    bias_grad_kernel(const float* __restrict__ pbuf,
+                     const float* __restrict__ frac, int n, int w, int ppc,
+                     float* __restrict__ part) {
   using J = Jet<D>;
-  const int j = (blockIdx.x * blockDim.x + threadIdx.x) * V;
-  if (j >= w) return;
+  constexpr int R = J::kCorners + D;  // partial rows
+  __shared__ float tree[kBiasLanes / 2][R][V][kBiasCols];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int j = (blockIdx.x * kBiasCols + tx) * V;
+  const bool live = j < w;
   const long long plane = (long long)n * J::kCorners * w;
-  float cb[J::kCorners][V] = {}, xr[D][V] = {};
+  float acc[R][V] = {};
   const int p_begin = (int)blockIdx.y * ppc;
   const int p_end = min(n, p_begin + ppc);
-  for (int p = p_begin; p < p_end; ++p) {
+  for (int p = p_begin + ty; live && p < p_end; p += kBiasLanes) {
     float s[V] = {};
 #pragma unroll
     for (int k = 0; k < J::kCorners; ++k) {
@@ -933,29 +944,44 @@ __global__ void bias_grad_kernel(const float* __restrict__ pbuf,
       float v[V];
       load_v<V>(base, v);
 #pragma unroll
-      for (int c = 0; c < V; ++c) cb[k][c] += v[c], s[c] += v[c];
+      for (int c = 0; c < V; ++c) acc[k][c] += v[c], s[c] += v[c];
 #pragma unroll
       for (int d = 0; d < D; ++d) {
         load_v<V>(base + (d + 1) * plane, v);
 #pragma unroll
-        for (int c = 0; c < V; ++c) xr[d][c] += v[c];
+        for (int c = 0; c < V; ++c) acc[J::kCorners + d][c] += v[c];
       }
     }
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       const float f = frac[(long long)p * D + d];
 #pragma unroll
-      for (int c = 0; c < V; ++c) xr[d][c] += f * s[c];
+      for (int c = 0; c < V; ++c) acc[J::kCorners + d][c] += f * s[c];
     }
   }
-  float* dst = part + (long long)blockIdx.y * (J::kCorners + D) * w + j;
+#pragma unroll
+  for (int half = kBiasLanes / 2; half >= 1; half /= 2) {
+    if (ty >= half && ty < 2 * half) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < V; ++c) tree[ty - half][r][c][tx] = acc[r][c];
+    }
+    __syncthreads();
+    if (ty < half) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < V; ++c) acc[r][c] += tree[ty][r][c][tx];
+    }
+    __syncthreads();
+  }
+  if (ty != 0 || !live) return;
+  float* dst = part + (long long)blockIdx.y * R * w + j;
 #pragma unroll
   for (int c = 0; c < V; ++c) {
 #pragma unroll
-    for (int k = 0; k < J::kCorners; ++k) dst[(long long)k * w + c] = cb[k][c];
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      dst[(long long)(J::kCorners + d) * w + c] = xr[d][c];
+    for (int r = 0; r < R; ++r) dst[(long long)r * w + c] = acc[r][c];
   }
 }
 
@@ -1084,15 +1110,16 @@ long long tn_partial_floats(long long m, int ka, int nb) {
   return (long long)chunks * ka * nb;
 }
 
-// The bias-side sums: V columns a thread, 128 threads a block, enough
-// point chunks for about 8 blocks per SM.
-constexpr int kBiasThreads = 128;
+// The bias-side sums: V columns a thread, kBiasCols x kBiasLanes threads a
+// block, enough point chunks for about 8 blocks per SM, at least one point
+// a lane.
 int bias_vec(int w) { return w % 4 == 0 ? 4 : 1; }
 
 int bias_chunks(const Shape& sh, int w, int* ppc) {
-  const int xblocks = cdiv(cdiv(w, bias_vec(w)), kBiasThreads);
+  const int xblocks = cdiv(cdiv(w, bias_vec(w)), kBiasCols);
   int chunks = cdiv(2 * kTargetBlocks, xblocks);
-  if (chunks > sh.n) chunks = sh.n > 0 ? sh.n : 1;
+  const int most = cdiv(sh.n, kBiasLanes);
+  if (chunks > most) chunks = most > 0 ? most : 1;
   *ppc = sh.n > 0 ? cdiv(sh.n, chunks) : 1;
   return sh.n > 0 ? cdiv(sh.n, *ppc) : 1;
 }
@@ -1293,13 +1320,14 @@ int run_backward(const Shape& sh, const float* feats, const float* frac,
     const int bchunks = bias_chunks(sh, w, &ppc);
     if (sh.n > 0) {
       const int v = bias_vec(w);
-      dim3 grid(cdiv(cdiv(w, v), kBiasThreads), bchunks);
+      const dim3 grid(cdiv(cdiv(w, v), kBiasCols), bchunks);
+      const dim3 block(kBiasCols, kBiasLanes);
       if (v == 4)
-        bias_grad_kernel<D, 4><<<grid, kBiasThreads, 0, st>>>(
-            cur, frac, sh.n, w, ppc, part);
+        bias_grad_kernel<D, 4><<<grid, block, 0, st>>>(cur, frac, sh.n, w,
+                                                       ppc, part);
       else
-        bias_grad_kernel<D, 1><<<grid, kBiasThreads, 0, st>>>(
-            cur, frac, sh.n, w, ppc, part);
+        bias_grad_kernel<D, 1><<<grid, block, 0, st>>>(cur, frac, sh.n, w,
+                                                       ppc, part);
       STPDE_LAUNCH_CHECK();
     }
     const long long bstride = (long long)(J::kCorners + D) * w;

@@ -20,7 +20,11 @@ What has to match the flax model exactly:
   ``max(0, E[x^2] - E[x]^2)``, and the running averages updated as
   ``0.9 ra + 0.1 stat`` with that biased variance (torch's own update
   uses the unbiased one); in eval mode it runs on its running
-  statistics (:class:`BatchNorm`);
+  statistics (:class:`BatchNorm`). With a process group set
+  (:func:`set_norm_group`), train mode averages the per-channel mean and
+  mean of squares over the group's ranks before the variance, with
+  gradient, as flax's ``nn.BatchNorm(axis_name=...)`` pmeans them; the
+  running update and eval mode are unchanged;
 - the transposed-conv kernel is the flax kernel flipped in space
   (flax convolves, torch cross-correlates) — done by ``bridge.py``.
 
@@ -36,11 +40,14 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from space_time_pde_torch.models.nonlinearities import get_activation
+from space_time_pde_torch.parallel.collectives import all_reduce_sum
 
-__all__ = ["UNet3d", "ResBlock3D", "BatchNorm", "make_norm", "same_pad"]
+__all__ = ["UNet3d", "ResBlock3D", "BatchNorm", "make_norm", "same_pad",
+           "set_norm_group"]
 
 BN_MOMENTUM = 0.9          # flax's: ra <- 0.9 ra + 0.1 stat
 
@@ -63,13 +70,17 @@ class BatchNorm(nn.BatchNorm3d):
 
     def __init__(self, ch: int):
         super().__init__(ch, eps=1e-5, momentum=1 - BN_MOMENTUM)
+        self.group = None               # process group of synced stats
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         axes = [0] + list(range(2, x.ndim))
-        mean = x.mean(axes)
-        var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+        mean, mean_sq = x.mean(axes), (x * x).mean(axes)
+        if self.group is not None:
+            both = all_reduce_sum(torch.stack([mean, mean_sq]), self.group)
+            mean, mean_sq = both / dist.get_world_size(self.group)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             for ra, stat in ((self.running_mean, mean),
                              (self.running_var, var)):
@@ -79,6 +90,14 @@ class BatchNorm(nn.BatchNorm3d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.reshape(shape)) * mul.reshape(shape) \
             + self.bias.reshape(shape)
+
+
+def set_norm_group(module: nn.Module, group) -> None:
+    """Sync the batch statistics of every :class:`BatchNorm` in
+    ``module`` over ``group`` (None: each rank's own)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 def make_norm(norm: str, ch: int) -> nn.Module:
@@ -168,12 +187,19 @@ class UNet3d(nn.Module):
         if tuple(x.shape[1:4]) != self.igres:
             raise ValueError(f"UNet3d built for igres={self.igres}, "
                              f"got input grid {tuple(x.shape[1:4])}")
+        return self._body(x)
+
+    def _down(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        """The stride-2 down-conv of level i, "SAME"-padded."""
+        return getattr(self, f"down{i}")(same_pad(h, 3, 2))
+
+    def _body(self, x: torch.Tensor) -> torch.Tensor:
         h = self.act(self.conv_in(x.permute(0, 4, 1, 2, 3)))
         skips = []
         for i in range(self.levels):
             h = getattr(self, f"down_res{i}")(h)
             skips.append(h)
-            h = self.act(getattr(self, f"down{i}")(same_pad(h, 3, 2)))
+            h = self.act(self._down(i, h))
         h = self.bottleneck(h)
         for i in reversed(range(self.levels)):
             h = self.act(getattr(self, f"up{i}")(h))

@@ -72,7 +72,7 @@ class Conv4d(nn.Module):
         b, c, t = x.shape[:3]
         # Spatial conv, time folded into the batch: [B*T, C, Z, Y, X].
         h = x.transpose(1, 2).reshape(b * t, c, *x.shape[3:])
-        h = self.spatial(same_pad(h, self.ks, self.stride))
+        h = self._conv_space(h)
         f, z2, y2, x2 = h.shape[1:]
         # Temporal conv, space folded into the batch: the "SAME"-padded
         # time windows of every (b, z, y, x) as rows of one product.
@@ -87,6 +87,11 @@ class Conv4d(nn.Module):
         if self.temporal.bias is not None:
             h = h + self.temporal.bias
         return h.reshape(b, z2, y2, x2, t2, -1).permute(0, 5, 4, 1, 2, 3)
+
+
+    def _conv_space(self, h: torch.Tensor) -> torch.Tensor:
+        """The spatial factor on ``[B*T, C, Z, Y, X]``, "SAME"-padded."""
+        return self.spatial(same_pad(h, self.ks, self.stride))
 
 
 class ResBlock4D(nn.Module):
@@ -159,6 +164,9 @@ class UNet4d(nn.Module):
         if tuple(x.shape[1:5]) != self.igres:
             raise ValueError(f"UNet4d built for igres={self.igres}, got "
                              f"input grid {tuple(x.shape[1:5])}")
+        return self._body(x)
+
+    def _body(self, x: torch.Tensor) -> torch.Tensor:
         h = self.act(self.conv_in(x.permute(0, 5, 1, 2, 3, 4)))
         skips = []
         for i in range(self.levels):

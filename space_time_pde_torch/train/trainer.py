@@ -246,14 +246,18 @@ def _first_non_finite(tensors: Dict[str, torch.Tensor]):
     return None
 
 
-def make_train_step(loss_fn, opt: Optimizer, debug_nans: bool = False):
+def make_train_step(loss_fn, opt: Optimizer, debug_nans: bool = False,
+                    sync=None):
     """step(state, batch) -> (state, metrics): one optimizer step,
     updating the models' parameters and ``state`` in place (the step's
     gradients stay in the parameters' ``.grad``). ``debug_nans``: check
     the loss terms after the forward and the gradients after the
     backward, and raise ``FloatingPointError`` naming the first
     non-finite one, before the optimizer touches anything (a host sync
-    each; the JAX drivers' ``jax_debug_nans``)."""
+    each; the JAX drivers' ``jax_debug_nans``). ``sync(grads, metrics)``
+    replaces both dicts' values with their all-reduced ones after the
+    backward (``parallel/dp.py::make_grad_sync``); the optimizer sees
+    the reduced gradients."""
 
     def step(state: TrainState, batch):
         params = state.params()
@@ -268,6 +272,10 @@ def make_train_step(loss_fn, opt: Optimizer, debug_nans: bool = False):
             loss.backward()
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in params.items()}
+        if sync is not None:
+            sync(grads, metrics)
+            for k, p in params.items():
+                p.grad = grads[k]
         bad = debug_nans and _first_non_finite(grads)
         if bad:
             raise FloatingPointError(
@@ -280,11 +288,11 @@ def make_train_step(loss_fn, opt: Optimizer, debug_nans: bool = False):
 
 
 def make_multi_step(loss_fn, opt: Optimizer, n_inner: int,
-                    debug_nans: bool = False):
+                    debug_nans: bool = False, sync=None):
     """step(state, stacked_batch): ``n_inner`` sequential steps over
     batches stacked on a leading axis; returns the last step's
     metrics."""
-    one = make_train_step(loss_fn, opt, debug_nans)
+    one = make_train_step(loss_fn, opt, debug_nans, sync)
 
     def step(state: TrainState, stacked_batch):
         metrics = {}

@@ -384,3 +384,93 @@ def test_jet_weight_gradient_tf32x3_within_twice_f32_of_float64(jet_inputs):
           f"3xTF32 {need:.3e}, f32 {floor:.3e}")
     assert need <= 2.0 * floor
 
+
+
+# The jet backward's bias-side sums (csrc/fused_jet.cu, bias_grad_kernel
+# and reduce_kernel): corner_bias[k] = sum_p P[p, k], in f32.
+_TARGET_BLOCKS, _REDUCE_WARPS = 4 * 132, 8
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _reduce_chunks(parts):
+    """reduce_kernel: warp q sums chunks q, q + 8, ... in order; the
+    warps' sums are added in warp order."""
+    sums = []
+    for q in range(_REDUCE_WARPS):
+        s = np.zeros(parts.shape[1:], np.float32)
+        for z in range(q, len(parts), _REDUCE_WARPS):
+            s = s + parts[z]
+        sums.append(s)
+    out = sums[0]
+    for s in sums[1:]:
+        out = out + s
+    return out
+
+
+def _bias_sums_serial(p):
+    """The earlier order: 128 column threads a block, each chunk's points
+    one after another, then reduce_kernel."""
+    n, w = p.shape[0], p.shape[-1]
+    chunks = min(_cdiv(2 * _TARGET_BLOCKS, _cdiv(_cdiv(w, 4), 128)), n)
+    ppc = _cdiv(n, chunks)
+    parts = []
+    for z in range(_cdiv(n, ppc)):
+        s = np.zeros(p.shape[1:], np.float32)
+        for q in range(z * ppc, min(n, (z + 1) * ppc)):
+            s = s + p[q]
+        parts.append(s)
+    return _reduce_chunks(np.stack(parts))
+
+
+def _bias_sums_tree(p, lanes=8):
+    """The kernel's order: 32 column threads by 8 point lanes a block;
+    lane y sums the chunk's points y, y + 8, ... in order, the lanes are
+    added pairwise (y + 4, then y + 2, then 1), then reduce_kernel."""
+    n, w = p.shape[0], p.shape[-1]
+    chunks = min(_cdiv(2 * _TARGET_BLOCKS, _cdiv(_cdiv(w, 4), 32)),
+                 _cdiv(n, lanes))
+    ppc = _cdiv(n, chunks)
+    parts = []
+    for z in range(_cdiv(n, ppc)):
+        lo, hi = z * ppc, min(n, (z + 1) * ppc)
+        acc = [np.zeros(p.shape[1:], np.float32) for _ in range(lanes)]
+        for y in range(lanes):
+            for q in range(lo + y, hi, lanes):
+                acc[y] = acc[y] + p[q]
+        half = lanes // 2
+        while half:
+            for y in range(half):
+                acc[y] = acc[y] + acc[y + half]
+            half //= 2
+        parts.append(acc[0])
+    return _reduce_chunks(np.stack(parts))
+
+
+@pytest.mark.parametrize("n", [2048, 8192])
+def test_jet_bias_sums_tree_no_farther_from_float64(n):
+    """corner_bias's sums over n points of the flagship's layer-0 planes
+    (8 corners x 1,024 columns; a per-rank count of the data x space step
+    and the flagship step's 8,192): the kernel's per-block tree sits no
+    farther from float64 than the serial chunk order it replaced (and
+    both well inside one f32 run over all the points, numpy's sum along
+    the point axis)."""
+    rng = np.random.RandomState(n)
+    mask = np.where(rng.rand(n, 8, 1024) < 0.5, 1.0, 0.01)
+    p = (rng.randn(n, 8, 1024) * mask + 0.05).astype(np.float32)
+    want = p.astype(np.float64).sum(0)
+    tree = _bias_sums_tree(p)
+    serial = _bias_sums_serial(p)
+    one_run = p.sum(0)           # numpy adds the rows one after another
+
+    def need(got):
+        # Largest distance from float64, a fraction of max |ref| (rtol 0:
+        # the order's own rounding, not the card check's rule).
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    print(f"corner_bias sums over {n} points: distance from float64: "
+          f"tree {need(tree):.3e}, serial {need(serial):.3e}, one run "
+          f"{need(one_run):.3e}")
+    assert need(tree) <= need(serial) < need(one_run)

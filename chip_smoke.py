@@ -137,12 +137,39 @@ F. the train CLIs: rb2d with ``--space_devices 2 --sharded_encoder`` on
    two cards or more also rb2d data-parallel over NCCL, a rank a card.
    Each path's launches are summed over its ranks;
 
-and last, one JSON line of all four kernels (``path``: eval, train or
-off_path; ``math``: tf32x3, the products' arithmetic (all four run them
-in 3xTF32 on the tensor cores); launches per path and per D; times,
-plain times and bounds at D = 4, and at D = 3 under ``d3``:
-``bound_ms`` against the kernel's own arithmetic, ``bound_f32_ms``
-against f32 FFMA), then the status line.
+and the bf16 compute policy (``use_bf16``; each phase's launch counts
+set to 0 just before its path and read just after):
+
+G. the gather decode's bf16 instantiation (``decode_blend_gather`` with
+   ``compute_dtype=bfloat16``, ``stpde_decode_blend_gather_bf16``)
+   against its bf16 plain twin on phase 3's and 10's 65,536 points and
+   grids (D = 3 and 4, C = 64, nf = 64), the table rounded to bf16: per
+   point within BF16_DIRECT of max |twin|, and against the f32 function
+   in float64 at most BF16_KERNEL_SLACK times as far as the twin; CUDA-
+   event times against the bf16 bound;
+H. the 8 real RB2D windows of phase A through the eval CLI's models and
+   ``make_dense_decoder`` at ``--decode_dtype bf16`` (the f32 checkpoint's
+   UNet, the bf16 decode): per point within BF16_DIRECT of max |JAX bf16|
+   (``assets/r5_rb2d_4x_e900_230400_rb2d_windows_bf16.npz``, the TPU
+   gather kernel at bf16 in interpret mode), and at most BF16_SLACK times
+   JAX bf16's worst distance from float64; per-window rel-L2 of the port
+   bf16, JAX bf16 and JAX f32;
+I. phase 8's step under ``use_bf16`` against
+   ``assets/rb2d_bf16_train_step_ref.npz``: the loss terms within
+   BF16_LOSS_RTOL of JAX bf16's, every gradient leaf against phase 8's
+   float64 leaves within STEP_SLACK times JAX bf16's worst;
+J. both train CLIs with ``--use_bf16 true`` (phases 9's and 15's flags,
+   2 epochs x 8 steps: finite, s/step) and both eval CLIs with
+   ``--decode_dtype bf16`` (phase 5's 3 Taylor–Green windows and 4
+   turb3d val windows: points/s, rel-L2), decoding through the bf16
+   kernel alone;
+
+and last, one JSON line of the five kernels (the four f32 kernels and
+the bf16 instantiation; ``path``: eval, train or off_path; ``math``:
+tf32x3 for the f32 kernels (3xTF32 on the tensor cores), bf16 for the
+bf16 one; launches per path and per D; times, plain times and bounds at
+D = 4, and at D = 3 under ``d3``: ``bound_ms`` against the kernel's own
+arithmetic, ``bound_f32_ms`` against f32 FFMA), then the status line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -171,6 +198,9 @@ WINDOWS_REF = os.path.join(ASSETS, "r5_rb2d_4x_e900_230400_rb2d_windows.npz")
 BN_STEP_REF = os.path.join(ASSETS, "rb2d_bn_train_step_ref.npz")
 OPT_ASSET = os.path.join(ASSETS, "r5_rb2d_4x_e900_230400_opt.npz")
 RESUME_REF = os.path.join(ASSETS, "rb2d_resume_step_ref.npz")
+WINDOWS_BF16_REF = os.path.join(
+    ASSETS, "r5_rb2d_4x_e900_230400_rb2d_windows_bf16.npz")
+BF16_STEP_REF = os.path.join(ASSETS, "rb2d_bf16_train_step_ref.npz")
 RESUME_EPOCHS = 1800            # the resumed flagship run's --epochs
 N_CHECK = 65536                 # points per decode kernel-vs-plain call
 N_JET = 8192                    # the flagship step: 8 crops x 1,024 points
@@ -218,27 +248,46 @@ STATS_RTOL = 1e-4
 # parameter changes point by point at rtol DP_RTOL plus STEP_SLACK times
 # JAX f32's own atol against float64 Adam.
 DNORM_RTOL = DP_RTOL = 1e-3
+# The bf16 policy (phases G-J). Direct: per point within BF16_DIRECT of
+# max |ref| of the bf16 yardstick (four bf16 steps; two paths that both
+# sum bf16 products in f32 still round a value to the other side of a
+# step now and then). Distance from the float64 reference: at most
+# BF16_KERNEL_SLACK times the bf16 twin's own (phase G, the decode rule)
+# or BF16_SLACK times JAX bf16's (phase H). Phase I: the loss terms
+# within BF16_LOSS_RTOL of JAX bf16's, every gradient leaf within
+# STEP_SLACK times JAX bf16's worst distance from float64 (phase 8's
+# rule).
+BF16_DIRECT = 4 * 2.0 ** -8
+BF16_KERNEL_SLACK = 2.0
+BF16_SLACK = 1.5
+BF16_LOSS_RTOL = 1e-3
 # The card's peaks (NVIDIA's H100 SXM data sheet, 700 W): f32 outside the
 # tensor cores, dense TF32 in them, and HBM3.
 F32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
-# How each kernel does its products: all four in 3xTF32 on the tensor
-# cores (three TF32 products each).
+BF16_FLOPS = 989e12             # dense bf16 on the tensor cores
+# How each kernel does its products: the four f32 kernels in 3xTF32 on
+# the tensor cores (three TF32 products each), the gather decode's bf16
+# instantiation in bf16 (one product).
 MATH = {"decode_blend_gather": "tf32x3", "decode_blend": "tf32x3",
-        "jet_fwd": "tf32x3", "jet_bwd": "tf32x3"}
+        "jet_fwd": "tf32x3", "jet_bwd": "tf32x3",
+        "decode_blend_gather_bf16": "bf16"}
 REPLACES = {
     "decode_blend_gather": "space_time_pde_tpu/ops/fused_query.py:244",
+    "decode_blend_gather_bf16": "space_time_pde_tpu/ops/fused_query.py:244",
     "decode_blend": "space_time_pde_tpu/ops/fused_query.py:400",
     "jet_fwd": "space_time_pde_tpu/ops/fused_jet.py:175",
     "jet_bwd": "space_time_pde_tpu/ops/fused_jet.py:219",
 }
 SOURCES = {
     "decode_blend_gather": "space_time_pde_torch/csrc/fused_query.cu",
+    "decode_blend_gather_bf16": "space_time_pde_torch/csrc/fused_query.cu",
     "decode_blend": "space_time_pde_torch/csrc/fused_query.cu",
     "jet_fwd": "space_time_pde_torch/csrc/fused_jet.cu",
     "jet_bwd": "space_time_pde_torch/csrc/fused_jet.cu",
 }
 PATHS = {"decode_blend_gather": "eval", "decode_blend": "off_path",
-         "jet_fwd": "train", "jet_bwd": "train"}
+         "jet_fwd": "train", "jet_bwd": "train",
+         "decode_blend_gather_bf16": "eval"}
 T0 = time.perf_counter()
 
 
@@ -299,8 +348,9 @@ def ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?",
-                          m.group(1))
+            k = re.search(
+                r"\d+((?:[a-z]+_)+(?:[a-z]+\d+_)*kernel)(I(?:L[ib]\d+E)+E)?",
+                m.group(1))
             args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
             name = k.group(1) + (f"<{', '.join(args)}>" if args else "")
             spills = "spill not reported"
@@ -320,8 +370,9 @@ def bound(kind, *, n, c, dim, nf, out, n_cells=0, math="ffma"):
     """(bound_ms, bound_by) of one call: the larger of the operations it
     needs over the peak of ``math`` (f32 operations over F32_FLOPS for
     "ffma"; three TF32 operations for each over TF32_FLOPS for
-    "tf32x3") and of the bytes it must move (each input read once, each
-    output written once) over HBM_BYTES.
+    "tf32x3"; bf16 operations over BF16_FLOPS for "bf16", whose table and
+    weights are read as 2 bytes a value) and of the bytes it must move
+    (each input read once, each output written once) over HBM_BYTES.
     Per corner row the decode needs (C + D) 31nf multiply-adds for the
     skip terms and 170 nf^2 for the hidden layers; the jet runs the
     hidden layers on D + 1 chains, the skip terms on the primal only,
@@ -333,13 +384,14 @@ def bound(kind, *, n, c, dim, nf, out, n_cells=0, math="ffma"):
     k, s = 2 ** dim, 31 * nf
     hidden = 170 * nf * nf
     rows = n * k
-    weights = 4 * ((c + dim + k) * s + hidden + nf * out + out)
+    wb = 2 if math == "bf16" else 4
+    weights = wb * ((c + dim + k) * s + hidden + nf * out) + 4 * out
     chains = dim + 1
     blocks = 1 + dim + dim * (dim + 1) // 2
     head = 2 * n * blocks * (k * chains * nf + nf * out)
     if kind == "decode_blend_gather":
         flop = 2 * rows * ((c + dim) * s + hidden + nf) + 2 * n * nf * out
-        byts = 4 * n_cells * k * c + 4 * n + 4 * n * dim + weights \
+        byts = wb * n_cells * k * c + 4 * n + 4 * n * dim + weights \
             + 4 * n * out
     elif kind == "decode_blend":
         flop = 2 * rows * ((c + dim) * s + hidden + nf) + 2 * n * nf * out
@@ -353,7 +405,7 @@ def bound(kind, *, n, c, dim, nf, out, n_cells=0, math="ffma"):
         byts = 2 * 4 * rows * c + 4 * n * dim + 2 * weights + saved \
             + 4 * n * blocks * out
     t_op = (3 * flop / TF32_FLOPS if math == "tf32x3"
-            else flop / F32_FLOPS) * 1e3
+            else flop / (BF16_FLOPS if math == "bf16" else F32_FLOPS)) * 1e3
     t_mem = byts / HBM_BYTES * 1e3
     return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
 
@@ -376,24 +428,40 @@ def load_imnet(asset, dim, device):
     return imnet.to(device).eval()
 
 
-def kernel_vs_plain(imnet, device, spatial):
-    """Phases 3 and 10: both decode entry points against their plain
-    twins on N_CHECK points of a seeded latent grid of ``spatial``."""
+def decode_inputs(imnet, device, spatial):
+    """The decode checks' inputs: N_CHECK seeded points on a seeded latent
+    grid of ``spatial`` as (cell_flat, frac, f32 table, packed weights,
+    the wrappers' keywords), and the f32 function's float64 value
+    there (the plain twin in float64)."""
     from space_time_pde_torch.ops import fused_query as fq
     from space_time_pde_torch.ops.grid_interp import _locate
 
     rng = np.random.RandomState(0)
-    dim = len(spatial)
     grid = torch.from_numpy(
         rng.randn(*spatial, imnet.in_features).astype(np.float32)).to(device)
     pts = torch.from_numpy(check_points(rng, spatial, N_CHECK)).to(device)
     cell, frac = _locate(pts, spatial, 0.0, 1.0)
     cell_flat = fq._flat_cells(cell, spatial)
     table = fq.cell_major_features(grid).contiguous()
-    feats2 = table[cell_flat.long()].reshape(-1, grid.shape[-1]).contiguous()
     packed = fq.pack_imnet_params(imnet)
     kw = dict(nf=imnet.nf, activation=imnet.activation,
               negative_slope=imnet.negative_slope)
+    want64 = fq.decode_blend_gather_plain(
+        table.double(), cell_flat, frac.double(),
+        {k: v.double() for k, v in packed.items()}, **kw)
+    return cell_flat, frac, table, packed, kw, want64.cpu().numpy()
+
+
+def kernel_vs_plain(imnet, device, spatial):
+    """Phases 3 and 10: both decode entry points against their plain
+    twins on N_CHECK points of a seeded latent grid of ``spatial``."""
+    from space_time_pde_torch.ops import fused_query as fq
+
+    dim = len(spatial)
+    cell_flat, frac, table, packed, kw, want64 = decode_inputs(
+        imnet, device, spatial)
+    feats2 = table[cell_flat.long()].reshape(
+        -1, imnet.in_features).contiguous()
     calls = {
         "decode_blend_gather": (
             lambda: fq.decode_blend_gather(table, cell_flat, frac, packed,
@@ -406,11 +474,7 @@ def kernel_vs_plain(imnet, device, spatial):
             lambda: fq.decode_blend_plain(feats2, frac, packed,
                                           n_corners=2 ** dim, **kw)),
     }
-    # The float64 twin (both entries compute the same function).
-    want64 = fq.decode_blend_gather_plain(
-        table.double(), cell_flat, frac.double(),
-        {k: v.double() for k, v in packed.items()}, **kw)
-    want64 = want64.cpu().numpy()
+    # Both entries compute the same function: one float64 twin.
     scale = float(np.abs(want64).max())
     rows = {}
     for name, (kernel, plain) in calls.items():
@@ -612,10 +676,11 @@ def buffers_as_flax(module):
     return unflatten_tree(flat) or None
 
 
-def reference_step(step_ref, device):
+def reference_step(step_ref, device, use_bf16=False):
     """The training step of a ``scripts/export_torch_train_ref.py`` file
     on ``device``: (cfg, pde layer, optimizer, state, batch, ref arrays,
-    spec), with the seeded weights loaded into the state's models."""
+    spec), with the seeded weights loaded into the state's models;
+    ``use_bf16``: the models under the bf16 compute policy."""
     from space_time_pde_torch.bridge import (
         load_flax_params, seeded_flax_params)
     from space_time_pde_torch.physics import get_pde_layer
@@ -627,6 +692,7 @@ def reference_step(step_ref, device):
         ref = {k: z[k] for k in z.files}
     spec = json.loads(str(ref["spec"]))
     cfg = Config.from_dict(spec["config"])
+    cfg.model.use_bf16 = use_bf16
     lres_shape = ref["lres"].shape[1:-1]
     unet, imnet = build_models(cfg, lres_shape, device)
     opt = make_optimizer(cfg)
@@ -671,11 +737,20 @@ def train_step_vs_jax(device, step_ref):
         raise SystemExit(f"training step disagrees with JAX: {bad}")
 
 
-def check_step(state, metrics, ref, spec, note, verbose=True, grad64=None):
+def check_step(state, metrics, ref, spec, note, verbose=True, grad64=None,
+               loss_rtol=LOSS_RTOL, label="JAX f32", leaf_norms=False):
     """Phase 8's rule on a step's loss terms, gradients (the parameters'
     ``.grad``) and, with BatchNorm, new running statistics: the names
     that fail it (printed when ``verbose``). ``grad64``: {leaf: float64
-    gradient} to hold the gradients to in place of the reference's."""
+    gradient} to hold the gradients to in place of the reference's.
+    ``label`` names the reference's own step (``spec["terms32"]``,
+    ``ref["need/..."]``), held at ``loss_rtol`` (phase I: JAX bf16).
+    ``leaf_norms``: also fail a leaf whose rel-L2 distance from float64
+    is more than STEP_SLACK times the reference's (``ref["relnorm/..."]``)
+    for the same leaf (phase I, where the reference's worst leaf is
+    0.416 of its scale: a zeroed leaf reads rel-L2 1), except a leaf
+    that is 0 up to rounding, held in units of the model's largest
+    gradient (its rel-L2 is noise over noise)."""
     log = print if verbose else (lambda *a, **k: None)
     unet, imnet = state.unet, state.imnet
     terms32, terms64 = spec["terms32"], spec["terms64"]
@@ -685,18 +760,18 @@ def check_step(state, metrics, ref, spec, note, verbose=True, grad64=None):
             continue
         got = float(v)
         rel = abs(got - terms32[k]) / max(abs(terms32[k]), 1e-30)
-        log(f"  {k:18s} port {got:.8g}  JAX f32 {terms32[k]:.8g}  "
+        log(f"  {k:18s} port {got:.8g}  {label} {terms32[k]:.8g}  "
             f"float64 {terms64[k]:.8g}  rel diff vs JAX {rel:.2e}",
             flush=True)
         # The temperature residual is ~1e-17 (b == 0 on Taylor-Green):
         # read it against the total loss.
-        if abs(got - terms32[k]) > LOSS_RTOL * max(abs(terms32[k]),
+        if abs(got - terms32[k]) > loss_rtol * max(abs(terms32[k]),
                                                    1e-6 * terms32["loss"]):
             bad.append(k)
     rtol = spec["grad_rtol"]
     jax_need = max(float(ref[k]) for k in ref if k.startswith("need/"))
     limit = STEP_SLACK * jax_need
-    needs, norms = {}, {}
+    needs, norms, held = {}, {}, {}
     for name, module in (("unet", unet), ("imnet", imnet)):
         for k, p in module.named_parameters():
             key = f"{name}.{k}"
@@ -707,20 +782,27 @@ def check_step(state, metrics, ref, spec, note, verbose=True, grad64=None):
                                      rtol)
             norms[key] = (np.linalg.norm(g - g64) / np.linalg.norm(g64),
                           float(ref[f"relnorm/{key}"]))
-            if needs[key] > limit:
+            if np.abs(g64).max() > 0.5 * float(ref[f"scale/{key}"]):
+                held[key] = norms[key][0] / norms[key][1]
+            if needs[key] > limit or (
+                    leaf_norms and held.get(key, 0.0) > STEP_SLACK):
                 bad.append(key)
     for key in sorted(needs, key=needs.get)[-5:]:
-        log(f"  {key:34s} needs atol {needs[key]:.3e} x max|g64| (JAX "
-            f"f32 {float(ref[f'need/{key}']):.3e}); rel L2 vs float64 "
-            f"{norms[key][0]:.2e} (JAX f32 {norms[key][1]:.2e})",
+        log(f"  {key:34s} needs atol {needs[key]:.3e} x max|g64| ("
+            f"{label} {float(ref[f'need/{key}']):.3e}); rel L2 vs float64 "
+            f"{norms[key][0]:.2e} ({label} {norms[key][1]:.2e})",
             flush=True)
     ratio = [a / b for a, b in norms.values() if b > 0]
     if verbose:
         say(f"train step vs JAX: {len(needs)} gradient leaves vs float64 "
             f"at rtol {rtol:g}: worst atol {max(needs.values()):.3e} x "
-            f"max|g64| (limit {limit:.3e} = {STEP_SLACK:g} x JAX f32's "
+            f"max|g64| (limit {limit:.3e} = {STEP_SLACK:g} x {label}'s "
             f"worst {jax_need:.3e}); rel L2 error / JAX's: median "
-            f"{np.median(ratio):.2f}, max {max(ratio):.2f}; {note}")
+            f"{np.median(ratio):.2f}, max {max(ratio):.2f}"
+            + (f"; over the {len(held)} leaves held to it, max "
+               f"{max(held.values()):.2f} (limit {STEP_SLACK:g})"
+               if leaf_norms else "")
+            + f"; {note}")
     stats = sorted(k[len("stats64/"):] for k in ref
                    if k.startswith("stats64/"))
     if stats:
@@ -1149,6 +1231,237 @@ def rb2d_real_windows(device, card):
     if worst > limit or not all(np.isfinite(g).all() for g in got):
         raise SystemExit("the port disagrees with JAX on real RB2D windows")
     return launches
+
+
+def bf16_kernel_vs_plain(imnet, device, spatial):
+    """Phase G: the gather decode's bf16 instantiation against its bf16
+    twin on phase 3's (10's) N_CHECK points and latent grid, the table
+    rounded to bf16; the reference is the f32 function in float64."""
+    from space_time_pde_torch.ops import fused_query as fq
+
+    dim = len(spatial)
+    cell_flat, frac, table, packed, kw, want64 = decode_inputs(
+        imnet, device, spatial)
+    table16 = table.to(torch.bfloat16)
+    kw["compute_dtype"] = torch.bfloat16
+    kernel = lambda: fq.decode_blend_gather(table16, cell_flat, frac, packed,
+                                            **kw)
+    plain = lambda: fq.decode_blend_gather_plain(table16, cell_flat, frac,
+                                                 packed, **kw)
+    scale = float(np.abs(want64).max())
+    got, twin = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (got - twin).abs()
+    max_abs = float(err.max())
+    direct = max_abs / (BF16_DIRECT * float(twin.abs().max()))
+    need_k = atol_needed(got.cpu().numpy(), want64, scale, RTOL)
+    need_p = atol_needed(twin.cpu().numpy(), want64, scale, RTOL)
+    p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kernel, kernel, plain))
+    shape = dict(n=N_CHECK, c=imnet.in_features, dim=dim, nf=imnet.nf,
+                 out=imnet.out_features, n_cells=table.shape[0])
+    b_ms, b_by = bound("decode_blend_gather", math="bf16", **shape)
+    b32, _ = bound("decode_blend_gather", **shape)
+    say(f"decode_blend_gather_bf16: {N_CHECK} pts at D={dim} "
+        f"C={imnet.in_features} nf={imnet.nf}: vs its bf16 twin max abs err "
+        f"{max_abs:.3e} = {direct:.3f} of the limit ({BF16_DIRECT:g} x "
+        f"max|twin|); vs the float64 f32 function (max|ref| {scale:.4e}, "
+        f"rtol {RTOL:g}) the kernel needs atol {need_k:.3e}, the bf16 twin "
+        f"{need_p:.3e}, limit {BF16_KERNEL_SLACK * need_p:.3e}; kernel "
+        f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, bound "
+        f"{b_ms:.3f} ms ({b_by}, bf16 at {BF16_FLOPS / 1e12:g} TFLOP/s; "
+        f"{100 * b_ms / ((k1 + k2) / 2):.1f}% of it)")
+    if direct > 1.0 or need_k > BF16_KERNEL_SLACK * need_p or \
+            not torch.isfinite(got).all():
+        raise SystemExit(f"decode_blend_gather_bf16 disagrees with its twin "
+                         f"(direct {direct:.3f} of the limit; vs float64 "
+                         f"atol {need_k:.3e}, twin {need_p:.3e})")
+    return {"max_abs_err": max_abs, "ms": (k1 + k2) / 2,
+            "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_f32_ms": b32, "atol_vs_f64": need_k,
+            "plain_atol_vs_f64": need_p, "direct_share": direct}
+
+
+def rb2d_real_windows_bf16(device, card):
+    """Phase H: the 8 real RB2D windows of phase A decoded as the eval CLI
+    does with ``--decode_dtype bf16``, point by point against JAX-CPU
+    bf16 (``WINDOWS_BF16_REF``)."""
+    from space_time_pde_torch.bridge import load_exported
+    from space_time_pde_torch.inference import decode_dtype, \
+        make_dense_decoder
+    from space_time_pde_torch.ops import fused_query as fq
+    from space_time_pde_torch.utils.config import Config
+
+    evaluation_torch = load_driver("rb2d", "evaluation_torch.py")
+    with np.load(WINDOWS_REF) as z:
+        ref = {k: z[k] for k in z.files}
+    with np.load(WINDOWS_BF16_REF) as z:
+        ref16 = z["values_bf16"].astype(np.float64)
+    exported = load_exported(ASSET)
+    cfg = Config.from_dict(exported["config"])
+    out_shape = tuple(int(s) for s in ref["out_shape"])
+    unet, imnet = evaluation_torch.build_models(
+        cfg, ref["lres"].shape[1:4], exported, device)
+    decoder = make_dense_decoder(
+        unet, imnet, out_shape,
+        compute_dtype=decode_dtype("bf16", cfg.model.use_bf16))
+    mean, std = ref["channel_mean"], ref["channel_std"]
+    ref32, ref64 = ref["values"].astype(np.float64), ref["values_f64"]
+    scales = [float(np.abs(r).max()) for r in ref64]
+    jax_need = max(atol_needed(a, b, s, REF_RTOL)
+                   for a, b, s in zip(ref16, ref64, scales))
+    limit = BF16_SLACK * jax_need
+    fq.reset_launches()
+    t0 = time.perf_counter()
+    got = []
+    for lres, idx in zip(ref["lres"], ref["index"]):
+        got.append(decoder(lres).reshape(-1, 4)[torch.from_numpy(
+            idx.astype(np.int64)).to(device)].double().cpu().numpy())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(fq.LAUNCHES)
+    rel = lambda v, truth: float(np.linalg.norm(v * std + mean - truth)
+                                 / np.linalg.norm(truth))
+    worst_direct = worst = 0.0
+    for w, g in enumerate(got):
+        direct = float(np.abs(g - ref16[w]).max()) / (
+            BF16_DIRECT * float(np.abs(ref16[w]).max()))
+        need = atol_needed(g, ref64[w], scales[w], REF_RTOL)
+        worst_direct, worst = max(worst_direct, direct), max(worst, need)
+        truth = ref["truth"][w]
+        print(f"  {str(ref['split'][w]):4s} t0={int(ref['t0'][w]):3d}: vs "
+              f"JAX bf16 {direct:.3f} of the direct limit; vs float64 needs "
+              f"atol {need:.3e} (JAX bf16 "
+              f"{atol_needed(ref16[w], ref64[w], scales[w], REF_RTOL):.3e})"
+              f"; pointwise rel-L2 vs truth: port bf16 "
+              f"{rel(g, truth):.6f}, JAX bf16 {rel(ref16[w], truth):.6f}, "
+              f"JAX f32 {rel(ref32[w], truth):.6f}", flush=True)
+    say(f"real RB2D windows, --decode_dtype bf16: worst {worst_direct:.3f} "
+        f"of the direct limit ({BF16_DIRECT:g} x max|JAX bf16|), worst atol "
+        f"vs float64 {worst:.3e} (limit {limit:.3e} = {BF16_SLACK:g} x JAX "
+        f"bf16's worst {jax_need:.3e}); {len(got)} dense decodes in "
+        f"{secs:.2f} s on {card}; launches {launches}")
+    if launches["decode_blend_gather_bf16"] < 1:
+        raise SystemExit("decode_blend_gather_bf16 was not launched by the "
+                         "bf16 real-window eval path")
+    if worst_direct > 1.0 or worst > limit or not all(
+            np.isfinite(g).all() for g in got):
+        raise SystemExit("the port's bf16 eval disagrees with JAX bf16 on "
+                         "real RB2D windows")
+    return launches
+
+
+def bf16_step_vs_jax(device):
+    """Phase I: phase 8's flagship step under the bf16 policy, held by
+    phase 8's rule (``check_step``) to JAX-CPU bf16
+    (``BF16_STEP_REF``: its loss terms at BF16_LOSS_RTOL, its distances
+    from phase 8's float64 leaves), and every leaf's rel-L2 distance from
+    float64 within STEP_SLACK times JAX bf16's for that leaf."""
+    from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.ops import fused_query as fq
+    from space_time_pde_torch.train import make_loss_fn, make_train_step
+
+    cfg, pde, opt, state, batch, ref, _ = reference_step(
+        STEP_REF, device, use_bf16=True)
+    with np.load(BF16_STEP_REF, allow_pickle=False) as z:
+        ref16 = {k: z[k] for k in z.files}
+    spec16 = json.loads(str(ref16["spec"]))
+    step_fn = make_train_step(
+        make_loss_fn(cfg, state.unet, state.imnet, pde), opt)
+    fj.reset_launches()
+    fq.reset_launches()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    launches = {**fj.LAUNCHES, **fq.LAUNCHES}
+    if launches["jet_fwd"] < 1 or launches["jet_bwd"] < 1:
+        raise SystemExit(f"the bf16 step did not run the jet kernels: "
+                         f"{launches}")
+    # Phase 8's float64 leaves and scales, JAX bf16's terms and needs.
+    held = {k: v for k, v in ref.items()
+            if not k.startswith(("need/", "relnorm/"))}
+    held.update({k: v for k, v in ref16.items() if k != "spec"})
+    bad = check_step(
+        state, metrics, held, dict(spec16, terms32=spec16["terms_bf16"]),
+        f"convolutions without cuDNN, bf16; launches {launches}",
+        loss_rtol=BF16_LOSS_RTOL, label="JAX bf16", leaf_norms=True)
+    if bad:
+        raise SystemExit(f"the bf16 training step disagrees with JAX: {bad}")
+
+
+def bf16_clis(card):
+    """Phase J: both train CLIs with ``--use_bf16 true`` (2 epochs x 8
+    steps; finite, s/step of epoch 1) and both eval CLIs with
+    ``--decode_dtype bf16`` at full width (points/s); each path's launch
+    counts."""
+    from space_time_pde_torch.data import save_npz, taylor_green_fields
+    from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.ops import fused_query as fq
+
+    paths = {}
+
+    def train(name, driver, flags, points):
+        fj.reset_launches()
+        fq.reset_launches()
+        res = driver.main(flags + ["--use_bf16", "true", "--epochs", "2"])
+        torch.cuda.synchronize()
+        paths[name] = {**fj.LAUNCHES, **fq.LAUNCHES}
+        losses = [e[k] for e in res["epochs"] for k in e
+                  if k.endswith("loss")]
+        sps = res["epochs"][1]["sec_per_step"]
+        say(f"{name}: --use_bf16 true, {res['step']} steps, "
+            f"{sps:.4f} s/step in epoch 1 ({points / sps:.0f} points/s) on "
+            f"{card}; losses " + ", ".join(
+                f"{e['loss']:.5f}" for e in res["epochs"])
+            + f"; launches {paths[name]}")
+        if res["step"] != 16 or not np.isfinite(losses).all() or \
+                "policy=bf16" not in res["provenance"]:
+            raise SystemExit(f"{name}: the bf16 training run failed")
+        for k in ("jet_fwd", "jet_bwd", "decode_blend_gather_bf16"):
+            if paths[name][k] < 1:
+                raise SystemExit(f"{k} was not launched by {name}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        taylor_green_folder(tmp)
+        train("rb2d_bf16_train", load_driver("rb2d", "train_torch.py"),
+              rb2d_flags(tmp, os.path.join(tmp, "log")), 8 * 1024)
+    with tempfile.TemporaryDirectory() as tmp:
+        beltrami_files(tmp, (42, 100, 101, 7))
+        train("turb3d_bf16_train", load_driver("turb3d", "train_torch.py"),
+              turb3d_flags(tmp, os.path.join(tmp, "log")), 4 * 1024)
+
+    def evaluate(name, driver, flags):
+        fq.reset_launches()
+        res = driver.main(flags + ["--decode_dtype", "bf16", "--device",
+                                   "cuda"])
+        torch.cuda.synchronize()
+        paths[name] = dict(fq.LAUNCHES)
+        say(f"{name}: --decode_dtype bf16, "
+            f"{res['steady_pts_per_s'] / 1e6:.3f}M pts/s over windows 2+ "
+            f"on {card}; rel-L2 " + ", ".join(f"{r:.5f}" for r in
+                                              res["rel_l2"])
+            + f"; provenance dtype {res['provenance']['compute_dtype']}; "
+              f"launches {paths[name]}")
+        if paths[name]["decode_blend_gather_bf16"] < 1 or \
+                paths[name]["decode_blend_gather"] or \
+                not np.isfinite(res["rel_l2"]).all():
+            raise SystemExit(f"{name}: the bf16 eval did not decode through "
+                             "the bf16 kernel alone")
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_npz(os.path.join(tmp, "tg.npz"),
+                 taylor_green_fields(nt=32, nz=128, nx=512))
+        evaluate("rb2d_eval_bf16", load_driver("rb2d", "evaluation_torch.py"),
+                 ["--params", ASSET, "--data_folder", tmp, "--eval_data",
+                  "tg.npz", "--eval_windows", "3",
+                  "--save_path", os.path.join(tmp, "pred.npz")])
+    with tempfile.TemporaryDirectory() as tmp:
+        beltrami_files(tmp, (7,))
+        evaluate("turb3d_eval_bf16",
+                 load_driver("turb3d", "evaluation_torch.py"),
+                 ["--params", TURB3D_ASSET, "--data_folder", tmp, "--split",
+                  "val", "--eval_windows", "4",
+                  "--save_path", os.path.join(tmp, "pred.npz")])
+    return paths
 
 
 def resume_from_jax(device, card):
@@ -1870,7 +2183,8 @@ def main():
     print("fused_query.cu decode block: "
           f"{lib.stpde_block_rows()} corner rows, dynamic shared memory "
           f"{lib.stpde_decode_smem_bytes(64, 3, 64)} bytes at C = 64, "
-          "nf = 64", flush=True)
+          "nf = 64 (the bf16 instantiation "
+          f"{lib.stpde_decode_bf16_smem_bytes(64, 3, 64)})", flush=True)
     say(f"kernels loaded in {time.perf_counter() - t0:.1f}s ("
         + (f"nvcc {log['seconds']:.1f}s, all sources in parallel" if log
            else "already built") + ")")
@@ -1934,13 +2248,32 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         parallel = parallel_phases(card, tmp)
 
+    # Phase G: the bf16 decode kernel against its twin at D = 3 and 4.
+    name16 = "decode_blend_gather_bf16"
+    with torch.no_grad():
+        d3[name16] = bf16_kernel_vs_plain(imnet3, device, (4, 16, 64))
+        d4[name16] = bf16_kernel_vs_plain(imnet4, device, (4, 8, 8, 8))
+    torch.cuda.empty_cache()
+
+    # Phases H-J: the bf16 policy's eval on real windows, its training
+    # step against JAX, and the CLIs.
+    bf16_paths = {"rb2d_eval_real_bf16": rb2d_real_windows_bf16(device,
+                                                                card)}
+    torch.cuda.empty_cache()
+    say(f"rb2d flagship training step under use_bf16 vs the JAX-CPU bf16 "
+        f"reference ({os.path.relpath(BF16_STEP_REF, ROOT)}):")
+    bf16_step_vs_jax(device)
+    torch.cuda.empty_cache()
+    bf16_paths.update(bf16_clis(card))
+    torch.cuda.empty_cache()
+
     by_path = {"rb2d_eval": rb2d_eval, "rb2d_train": rb2d_train,
                "turb3d_eval_val": turb3d_eval["val"],
                "turb3d_eval_test": turb3d_eval["test"],
                "turb3d_train": turb3d_train,
                "rb2d_eval_real": rb2d_eval_real,
                "rb2d_bn_train": rb2d_bn_train, "rb2d_resume": rb2d_resume,
-               **parallel}
+               **parallel, **bf16_paths}
     off = {"rb2d_scattered": rb2d_off, "turb3d_scattered": turb3d_off}
     kernels = []
     for name in REPLACES:

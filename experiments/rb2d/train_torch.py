@@ -27,6 +27,12 @@ not carry over). Pass a longer ``--epochs`` than the JAX run's when its
 cosine schedule ended at the checkpoint. ``--run_epochs N`` stops after
 N epochs of this run (the schedule still spans ``--epochs``).
 
+``--use_bf16 true`` trains under the bf16 compute policy (the encoder
+and ImNet in bf16 with f32 parameters, the jet f32, the epoch eval on
+the decode kernel's bf16 instantiation; printed in the provenance
+line); ``--pde_bf16 true`` with it (the bf16 jets) raises
+``NotImplementedError`` (ROADMAP queue 2).
+
 ``--profile_epoch N`` writes a ``torch.profiler`` trace of epoch N to
 ``<log_dir>/profile/`` (Chrome trace JSON); ``--debug_nans`` checks the
 loss terms and the gradients of every step and raises
@@ -91,12 +97,15 @@ def _provenance(cfg, device, sampler, layout) -> str:
                if device.type == "cuda" else "jet_fwd_plain (CPU twin)")
     else:
         jet = f"{derivs} (plain PyTorch)"
-    decode = ("decode_blend_gather (csrc/fused_query.cu)"
+    bf16 = cfg.model.use_bf16
+    decode = ("decode_blend_gather" + ("_bf16" if bf16 else "")
+              + " (csrc/fused_query.cu)"
               if cfg.model.fused_query and device.type == "cuda"
               else "plain PyTorch")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     return (f"train provenance: device={device} ({name}) "
+            f"policy={'bf16 (jet f32)' if bf16 else 'f32'} "
             f"tf32_matmul={torch.backends.cuda.matmul.allow_tf32} "
             f"tf32_cudnn={torch.backends.cudnn.allow_tf32} jet={jet} "
             f"eval_decode={decode} batch_assembly="

@@ -35,9 +35,13 @@ data-parallel over N ranks; ``--space_devices S`` splits the 4-D latent
 grid along x over S ranks (the data x space step), with
 ``--sharded_encoder`` the encoder too (``ShardedUNet4d``, halo convs).
 
-Not carried over: ``--use_bf16`` (the port trains in f32; raises), the
-``maybe_force_platform`` call and the 16-corner XLA:TPU compiler guard
-of the eval query (TPU workarounds).
+``--use_bf16 true`` trains under the bf16 compute policy (the encoder
+and ImNet in bf16 with f32 parameters, the jet f32, the epoch eval on
+the decode kernel's bf16 instantiation); ``--pde_bf16 true`` with it
+(the bf16 jets) raises ``NotImplementedError`` (ROADMAP queue 2).
+
+Not carried over: the ``maybe_force_platform`` call and the 16-corner
+XLA:TPU compiler guard of the eval query (TPU workarounds).
 """
 
 import argparse
@@ -151,7 +155,8 @@ def make_config(args) -> Config:
     return cfg
 
 
-def _provenance(device, sampler, alpha_pde, pde_derivs, layout) -> str:
+def _provenance(device, sampler, alpha_pde, pde_derivs, layout,
+                bf16) -> str:
     if alpha_pde <= 0:
         jet = "none (alpha_pde 0)"
     elif pde_derivs == "jet":
@@ -159,11 +164,13 @@ def _provenance(device, sampler, alpha_pde, pde_derivs, layout) -> str:
                if device.type == "cuda" else "jet_fwd_plain (CPU twin)")
     else:
         jet = f"{pde_derivs} (plain PyTorch)"
-    decode = ("decode_blend_gather at D=4 (csrc/fused_query.cu)"
+    decode = ("decode_blend_gather" + ("_bf16" if bf16 else "")
+              + " at D=4 (csrc/fused_query.cu)"
               if device.type == "cuda" else "plain PyTorch")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     return (f"train provenance: device={device} ({name}) "
+            f"policy={'bf16 (jet f32)' if bf16 else 'f32'} "
             f"tf32_matmul={torch.backends.cuda.matmul.allow_tf32} "
             f"tf32_cudnn={torch.backends.cudnn.allow_tf32} "
             f"cudnn_in_step=False jet={jet} eval_decode={decode} "
@@ -230,7 +237,7 @@ def main(argv=None):
     # The eval runs the plain module (the same parameters either way).
     eval_fn = make_eval_fn(cfg, unet, imnet)
     provenance = _provenance(device, sampler, args.alpha_pde,
-                             args.pde_derivs, layout)
+                             args.pde_derivs, layout, args.use_bf16)
     if layout.is_main:
         print(provenance, flush=True)
 

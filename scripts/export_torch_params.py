@@ -35,6 +35,18 @@ indices of ``--ref_points`` lattice points drawn with ``--seed`` plus
 the window's number, the JAX-CPU f32 decode there, its float64
 recomputation and the high-res truth (physical units).
 
+``--windows_bf16_out PATH`` writes the bf16 decode of those windows
+(read from ``--windows_in``, the file ``--windows_out`` wrote, so the
+datasets are not needed): each window's low-res input encoded by the
+JAX ``UNet3d`` in the checkpoint's own policy, then decoded at
+``compute_dtype=bfloat16`` by the TPU gather kernel
+(``fused_query_local_implicit_grid``, ``gather="kernel"``, ``pad_to=0``)
+in Pallas interpret mode at the same lattice points; blocks of
+``BF16_BLOCK_PTS`` points keep every block inside the kernel's two
+128-cell windows, so its pre-gathered fallback (which rounds elsewhere)
+never runs. Beside the JAX f32 and float64 decode already in
+``--windows_in``.
+
 Runs on the CPU (JAX is forced there). Usage:
     python scripts/export_torch_params.py \
         --ckpt log/r5_rb2d_4x_e900/checkpoints --step 230400 \
@@ -47,6 +59,13 @@ Runs on the CPU (JAX is forced there). Usage:
         --no_write --ref_points 0 \
         --opt_out space_time_pde_torch/assets/r5_rb2d_4x_e900_230400_opt.npz \
         --windows_out space_time_pde_torch/assets/r5_rb2d_4x_e900_230400_rb2d_windows.npz
+    # the bf16 decode of those windows (no datasets needed; ~2 min):
+    python scripts/export_torch_params.py \
+        --ckpt log/r5_rb2d_4x_e900/checkpoints --step 230400 \
+        --out space_time_pde_torch/assets/r5_rb2d_4x_e900_230400.npz \
+        --no_write --ref_points 0 \
+        --windows_in space_time_pde_torch/assets/r5_rb2d_4x_e900_230400_rb2d_windows.npz \
+        --windows_bf16_out space_time_pde_torch/assets/r5_rb2d_4x_e900_230400_rb2d_windows_bf16.npz
 """
 
 import argparse
@@ -69,6 +88,8 @@ from space_time_pde_tpu.data import RB2DataLoader, save_npz, \
     taylor_green_fields
 from space_time_pde_tpu.data.splits import SplitSpec, window_starts
 from space_time_pde_tpu.models import query_local_implicit_grid
+from space_time_pde_tpu.ops.fused_query import (
+    fused_query_local_implicit_grid)
 from space_time_pde_tpu.train import build_models
 from space_time_pde_tpu.utils.checkpoint import CheckpointManager
 from space_time_pde_tpu.utils.config import Config
@@ -197,6 +218,44 @@ def windows_reference(cfg: Config, params, batch_stats, channel_mean,
     return out
 
 
+BF16_BLOCK_PTS = 64
+
+
+def _lattice(out_shape) -> np.ndarray:
+    axes = [np.linspace(0, 1, n, dtype=np.float32) for n in out_shape]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(
+        -1, len(out_shape))
+
+
+def windows_bf16_reference(cfg: Config, params, batch_stats,
+                           windows_in: str):
+    """The bf16 decode of the windows of ``windows_in`` (see the module
+    docstring)."""
+    with np.load(windows_in, allow_pickle=False) as z:
+        ref = {k: z[k] for k in z.files}
+    unet, imnet = build_models(cfg, ref["lres"].shape[1:4])
+    uvars = {"params": params["unet"]}
+    if batch_stats is not None:
+        uvars["batch_stats"] = batch_stats
+    encode = jax.jit(unet.apply)
+    pts = _lattice(tuple(ref["out_shape"]))
+    vals = []
+    for w, (lres, idx) in enumerate(zip(ref["lres"], ref["index"])):
+        latent = encode(uvars, jnp.asarray(lres)[None])
+        vals.append(np.asarray(fused_query_local_implicit_grid(
+            imnet, params["imnet"], latent, jnp.asarray(pts[idx])[None],
+            compute_dtype=jnp.bfloat16, gather="kernel", pad_to=0,
+            block_pts=BF16_BLOCK_PTS, interpret=True)[0], np.float32))
+        scale = np.abs(ref["values_f64"][w]).max()
+        print(f"  {ref['split'][w]} window t0={ref['t0'][w]}: JAX bf16 vs "
+              f"float64 max |err| {np.abs(vals[-1] - ref['values_f64'][w]).max() / scale:.3e}"
+              f" x max|ref| (f32 {np.abs(ref['values'][w] - ref['values_f64'][w]).max() / scale:.3e})",
+              flush=True)
+    return {"values_bf16": np.stack(vals), "t0": ref["t0"],
+            "split": ref["split"], "block_pts": np.asarray(BF16_BLOCK_PTS),
+            "windows_file": np.asarray(os.path.basename(windows_in))}
+
+
 def _plain(tree):
     """A restored pytree as nested dicts (NamedTuples by field name) and
     lists."""
@@ -275,6 +334,10 @@ def main(argv=None):
     parser.add_argument("--data_folder", default="data")
     parser.add_argument("--split_windows", type=int, default=4)
     parser.add_argument("--window_points", type=int, default=4096)
+    parser.add_argument("--windows_in", default="",
+                        help="the windows reference the bf16 decode reads")
+    parser.add_argument("--windows_bf16_out", default="",
+                        help="write the windows' JAX bf16 decode here")
     args = parser.parse_args(argv)
 
     state, extra = restore(args.ckpt, args.step)
@@ -320,6 +383,12 @@ def main(argv=None):
         print(f"wrote {args.windows_out}: {len(ref['t0'])} windows x "
               f"{args.window_points} points "
               f"({os.path.getsize(args.windows_out) / 1e6:.2f} MB)")
+    if args.windows_bf16_out:
+        ref = windows_bf16_reference(cfg, params, batch_stats,
+                                     args.windows_in or args.windows_out)
+        np.savez_compressed(args.windows_bf16_out, **ref)
+        print(f"wrote {args.windows_bf16_out}: {len(ref['t0'])} windows "
+              f"({os.path.getsize(args.windows_bf16_out) / 1e6:.2f} MB)")
 
 
 if __name__ == "__main__":

@@ -46,6 +46,16 @@ file holds:
   fraction of that) at which JAX's float32 leaf meets it,
   ``|g32 - g64| <= rtol |g64| + atol scale``.
 
+``rb2d_bf16``: the ``rb2d`` step under the bf16 compute policy
+(``use_bf16``; the jet f32, as the JAX trainer runs it without
+``--pde_bf16``), on the weights and batch of the ``rb2d`` file (read
+from it, with its float64 gradient leaves and their scales). The file
+holds JAX bf16's loss terms (jitted, as the JAX trainer runs a step)
+and per leaf the atol (a fraction of the ``rb2d`` file's scale) at which
+JAX bf16's gradient meets the float64 leaf (``need/``) and its relative
+L2 distance from it (``relnorm/``); the bf16 leaves themselves are not
+kept. Needs the ``rb2d`` file; a few minutes on the CPU.
+
 ``rb2d_resume`` resumes the committed flagship checkpoint
 (``--ckpt``, the step of ``assets/r5_rb2d_4x_e900_230400_opt.npz``) as
 the JAX ``CheckpointManager`` does, with a ``--resume_epochs`` cosine
@@ -63,7 +73,7 @@ step from the same moments at rtol ``DP_RTOL`` (``dp_need/``).
 Runs on the CPU (JAX is forced there), a few minutes and a few GB.
 Usage:
     python scripts/export_torch_train_ref.py \
-        [--recipe turb3d | rb2d_bn | rb2d_resume]
+        [--recipe turb3d | rb2d_bn | rb2d_bf16 | rb2d_resume]
 """
 
 import argparse
@@ -113,6 +123,7 @@ ZERO_GRAD = 1e-12              # a gradient leaf this far below the top is 0
 RECIPES = {"rb2d": "rb2d_train_step_ref.npz",
            "rb2d_bn": "rb2d_bn_train_step_ref.npz",
            "turb3d": "turb3d_train_step_ref.npz",
+           "rb2d_bf16": "rb2d_bf16_train_step_ref.npz",
            "rb2d_resume": "rb2d_resume_step_ref.npz"}
 
 
@@ -370,6 +381,51 @@ def step_reference(args):
           f"f64 {abs(terms32['loss'] - terms64['loss']) / abs(terms64['loss']):.3e}")
 
 
+def bf16_step_reference(args):
+    """The ``rb2d_bf16`` file: the ``rb2d`` file's step in JAX under
+    ``use_bf16``, held to that file's float64 gradients."""
+    with np.load(os.path.join(ASSETS, RECIPES["rb2d"]),
+                 allow_pickle=False) as z:
+        ref = {k: z[k] for k in z.files}
+    spec = json.loads(str(ref["spec"]))
+    cfg_dict = spec["config"]
+    cfg_dict["model"]["use_bf16"] = True
+    cfg = Config.from_dict(cfg_dict)
+    batch = {k: ref[k] for k in ("lres", "point_coord", "point_value")}
+    unet, imnet = build_models(cfg, batch["lres"].shape[1:4])
+    params = bridge.seeded_flax_params(spec["shapes"], spec["weight_seed"])
+    pde = get_pde_layer(
+        cfg.physics.pde_system, mean=ref["channel_mean"],
+        std=ref["channel_std"],
+        **pde_kwargs("rb2d", cfg, ref["coord_extents"]))
+    (_, metrics), grads = jax.jit(jax.value_and_grad(
+        make_loss_fn(cfg, unet, imnet, pde), has_aux=True))(
+            jax.tree.map(jnp.asarray, params),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+    terms = {k: float(v) for k, v in metrics.items()}
+    print(f"JAX bf16: {terms}\nJAX f32:  {spec['terms32']}", flush=True)
+    out = {"spec": np.asarray(json.dumps({
+        "config": cfg_dict, "step_ref": RECIPES["rb2d"],
+        "terms_bf16": terms, "terms32": spec["terms32"],
+        "terms64": spec["terms64"], "grad_rtol": GRAD_RTOL},
+        sort_keys=True))}
+    g_np = jax.tree.map(np.asarray, grads)
+    modules = dict(zip(("unet", "imnet"), ttrain.build_models(
+        TConfig.from_dict(cfg_dict), batch["lres"].shape[1:4], "cpu")))
+    worst = 0.0
+    for key, g16 in _port_leaves(g_np, modules).items():
+        g64 = ref[f"grad64/{key}"].astype(np.float64)
+        need, _ = atol_needed(g16, g64, scale=float(ref[f"scale/{key}"]))
+        out[f"need/{key}"] = np.float64(need)
+        out[f"relnorm/{key}"] = np.float64(
+            np.linalg.norm(g16 - g64) / np.linalg.norm(g64))
+        worst = max(worst, need)
+    np.savez_compressed(args.out, **out)
+    print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.2f} MB); "
+          f"worst JAX bf16 leaf needs atol {worst:.3e} x its scale at rtol "
+          f"{GRAD_RTOL:g} against float64")
+
+
 def restore_jax(ckpt_dir: str, step: int, template):
     """The JAX ``CheckpointManager``'s own resume of ``ckpt_dir/step``
     (with ``template``; from a temporary copy)."""
@@ -501,6 +557,8 @@ def main(argv=None):
     args.out = args.out or os.path.join(ASSETS, RECIPES[args.recipe])
     if args.recipe == "rb2d_resume":
         resume_reference(args)
+    elif args.recipe == "rb2d_bf16":
+        bf16_step_reference(args)
     else:
         step_reference(args)
 

@@ -30,6 +30,7 @@ import contextlib
 import numpy as np
 import torch
 
+from space_time_pde_torch.models.policy import policy_dtype
 from space_time_pde_torch.ops.fused_query import (
     _flat_cells, block_points, cell_major_features, decode_blend_gather,
     pack_imnet_params)
@@ -39,10 +40,12 @@ from space_time_pde_torch.ops.grid_interp import _locate
 # keeps the port's f32 encoder (the JAX-CPU reference's arithmetic);
 # "highest" is f32 as well.
 ENCODER_TF32 = {"default": False, "tensorfloat32": True, "highest": False}
+# The eval CLIs' --decode_dtype, the JAX CLIs' choices.
+DECODE_DTYPES = ("auto", "bf16", "f32")
 
-__all__ = ["make_dense_decoder", "fit_dense_decoder", "stitch_plan",
-           "stitch_weights", "stitched_decode", "igres_mismatch_note",
-           "lattice_points"]
+__all__ = ["make_dense_decoder", "decode_dtype", "fit_dense_decoder",
+           "stitch_plan", "stitch_weights", "stitched_decode",
+           "igres_mismatch_note", "lattice_points"]
 
 
 def igres_mismatch_note(eval_igres, train_igres, homogeneous_axes=()):
@@ -136,6 +139,15 @@ def lattice_points(out_shape) -> np.ndarray:
                     -1).reshape(-1, len(out_shape))
 
 
+def decode_dtype(flag: str, use_bf16: bool) -> torch.dtype:
+    """The eval CLIs' ``--decode_dtype``: ``auto`` follows the
+    checkpoint's ``use_bf16`` policy, ``bf16`` / ``f32`` force it."""
+    if flag not in DECODE_DTYPES:
+        raise ValueError(f"decode_dtype must be one of {DECODE_DTYPES}, "
+                         f"got {flag!r}")
+    return policy_dtype(use_bf16 if flag == "auto" else flag == "bf16")
+
+
 def fit_dense_decoder(build, probe_lres, chunk, min_chunk=2048):
     """Build a dense decoder, halving ``chunk`` while a decode runs out
     of device memory. ``build(chunk)`` returns a
@@ -177,7 +189,7 @@ def tf32(enabled: bool):
 
 
 def make_dense_decoder(unet, imnet, out_shape, chunk=65536,
-                       tf32_encoder=False):
+                       tf32_encoder=False, compute_dtype=torch.float32):
     """Build ``decode(lres) -> [*out_shape, out_features]`` on the
     modules' device.
 
@@ -192,7 +204,11 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536,
     ``tf32_encoder``: the UNet's convolutions and matrix products in TF32
     (the eval CLIs' ``--matmul_precision tensorfloat32``); TF32 is off
     everywhere else, and the decode kernel runs its 3xTF32 products
-    whatever this says.
+    whatever this says. ``compute_dtype``: the decode's (the eval CLIs'
+    ``--decode_dtype``): f32 (3xTF32 products), or bf16 (the latent table
+    rounded to bf16, as JAX's ``gcast``, and the kernel's bf16
+    instantiation on the bf16 tensor cores). The UNet runs in its own
+    policy (its ``dtype``), whatever this says.
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -216,8 +232,10 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536,
         lres = torch.as_tensor(lres, dtype=torch.float32, device=device)
         with tf32(tf32_encoder):
             latent = unet(lres[None])[0]
-        table = cell_major_features(latent).contiguous()
-        out = torch.cat([decode_blend_gather(table, cf, fr, packed, **common)
+        table = cell_major_features(latent.to(compute_dtype)).contiguous()
+        out = torch.cat([decode_blend_gather(table, cf, fr, packed,
+                                             compute_dtype=compute_dtype,
+                                             **common)
                          for cf, fr in chunks])
         return out[:n].reshape(*out_shape, -1)
 
@@ -227,7 +245,7 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536,
                    if device.type == "cuda" else "cpu"),
         "kernel": ("cuda-fused" if device.type == "cuda"
                    else "plain-torch (cpu)"),
-        "compute_dtype": "float32",
+        "compute_dtype": str(compute_dtype).replace("torch.", ""),
         "tf32_matmul": bool(tf32_encoder),
         "tf32_cudnn": bool(tf32_encoder),
         "out_shape": tuple(out_shape), "chunk": int(chunk),

@@ -31,6 +31,14 @@ What has to match the flax model exactly:
 GroupNorm (the default) acts the same in both modes; with BatchNorm the
 module's ``train()`` / ``eval()`` mode picks batch or running
 statistics, as flax's ``train`` argument does.
+
+``dtype`` is flax's compute policy (``models/policy.py``): at bf16 every
+conv and transposed conv casts its input, kernel and bias and returns
+bf16, the parameters stay f32, and the norms compute and return f32, as
+flax's do without a ``dtype`` of their own. So ``conv_in``'s and the
+``up{i}`` activations run on bf16, the ones after a norm on f32, the
+residual add and the skip concatenation promote to f32, and the output
+is cast to f32.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from space_time_pde_torch.models.nonlinearities import get_activation
+from space_time_pde_torch.models.policy import (
+    Conv3d, ConvTranspose3d, widen)
 from space_time_pde_torch.parallel.collectives import all_reduce_sum
 
 __all__ = ["UNet3d", "ResBlock3D", "BatchNorm", "make_norm", "same_pad",
@@ -125,22 +135,25 @@ class ResBlock3D(nn.Module):
 
     def __init__(self, in_channels: int, neck_channels: int,
                  out_channels: int, negative_slope: float = 0.01,
-                 activation: str = "leaky_relu", norm: str = "group"):
+                 activation: str = "leaky_relu", norm: str = "group",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = get_activation(activation, negative_slope)
-        self.conv1 = nn.Conv3d(in_channels, neck_channels, 1)
+        self.conv1 = Conv3d(in_channels, neck_channels, 1, dtype=dtype)
         self.norm1 = make_norm(norm, neck_channels)
-        self.conv2 = nn.Conv3d(neck_channels, neck_channels, 3, padding=1)
+        self.conv2 = Conv3d(neck_channels, neck_channels, 3, padding=1,
+                            dtype=dtype)
         self.norm2 = make_norm(norm, neck_channels)
-        self.conv3 = nn.Conv3d(neck_channels, out_channels, 1)
+        self.conv3 = Conv3d(neck_channels, out_channels, 1, dtype=dtype)
         self.norm3 = make_norm(norm, out_channels)
-        self.proj = (nn.Conv3d(in_channels, out_channels, 1, bias=False)
+        self.proj = (Conv3d(in_channels, out_channels, 1, bias=False,
+                            dtype=dtype)
                      if in_channels != out_channels else None)
 
     def forward(self, x):
-        h = self.act(self.norm1(self.conv1(x)))
-        h = self.act(self.norm2(self.conv2(h)))
-        h = self.norm3(self.conv3(h))
+        h = self.act(self.norm1(widen(self.conv1(x))))
+        h = self.act(self.norm2(widen(self.conv2(h))))
+        h = self.norm3(widen(self.conv3(h)))
         if self.proj is not None:
             x = self.proj(x)
         return self.act(h + x)
@@ -154,9 +167,11 @@ class UNet3d(nn.Module):
     def __init__(self, in_features: int = 4, out_features: int = 32,
                  igres: Sequence[int] = (4, 16, 16), nf: int = 16,
                  mf: int = 512, negative_slope: float = 0.01,
-                 activation: str = "leaky_relu", norm: str = "group"):
+                 activation: str = "leaky_relu", norm: str = "group",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.igres = tuple(igres)
+        self.dtype = dtype
         self.levels = int(math.floor(math.log2(min(self.igres))))
         for r in self.igres:
             if r % (2 ** self.levels) != 0:
@@ -164,23 +179,25 @@ class UNet3d(nn.Module):
                                  f"2^{self.levels}")
         self.act = get_activation(activation, negative_slope)
         blk = lambda cin, ch: ResBlock3D(cin, max(ch // 2, 1), ch,
-                                         negative_slope, activation, norm)
-        self.conv_in = nn.Conv3d(in_features, nf, 3, padding=1)
+                                         negative_slope, activation, norm,
+                                         dtype)
+        self.conv_in = Conv3d(in_features, nf, 3, padding=1, dtype=dtype)
         chs = []
         ch = nf
         for i in range(self.levels):
             self.add_module(f"down_res{i}", blk(ch, ch))
             chs.append(ch)
             nxt = min(ch * 2, mf)
-            self.add_module(f"down{i}", nn.Conv3d(ch, nxt, 3, stride=2))
+            self.add_module(f"down{i}", Conv3d(ch, nxt, 3, stride=2,
+                                               dtype=dtype))
             ch = nxt
         self.bottleneck = blk(ch, ch)
         for i in reversed(range(self.levels)):
-            self.add_module(f"up{i}", nn.ConvTranspose3d(ch, chs[i], 2,
-                                                         stride=2))
+            self.add_module(f"up{i}", ConvTranspose3d(
+                ch, chs[i], 2, stride=2, dtype=dtype))
             self.add_module(f"up_res{i}", blk(2 * chs[i], chs[i]))
             ch = chs[i]
-        self.conv_out = nn.Conv3d(ch, out_features, 1)
+        self.conv_out = Conv3d(ch, out_features, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, T, Z, X, in_features] -> [B, T, Z, X, out_features]."""
@@ -204,4 +221,4 @@ class UNet3d(nn.Module):
         for i in reversed(range(self.levels)):
             h = self.act(getattr(self, f"up{i}")(h))
             h = getattr(self, f"up_res{i}")(torch.cat([h, skips[i]], 1))
-        return self.conv_out(h).permute(0, 2, 3, 4, 1)
+        return widen(self.conv_out(h)).permute(0, 2, 3, 4, 1)

@@ -27,6 +27,12 @@ What has to match the flax model exactly:
 - GroupNorm eps 1e-6 with the group count of ``_num_groups``, over
   ``[B, C, T, Z, Y, X]``.
 
+``dtype`` is flax's compute policy, as in ``UNet3d``
+(``models/policy.py``): at bf16 the spatial conv rounds its product to
+bf16, the temporal product takes that and the bf16 kernel and rounds
+again before its bf16 bias is added, as flax's two ``nn.Conv`` layers
+do; norms and the output are f32.
+
 Module names follow the flax model (``conv_in``, ``down_res{i}``,
 ``down{i}``, ``bottleneck``, ``up{i}``, ``up_res{i}``, ``conv_out``, each
 ``Conv4d`` with ``spatial`` and ``temporal``), so ``bridge.py`` maps the
@@ -43,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from space_time_pde_torch.models.nonlinearities import get_activation
+from space_time_pde_torch.models.policy import Conv3d, product, widen
 from space_time_pde_torch.models.unet3d import _num_groups, same_pad
 
 __all__ = ["UNet4d", "Conv4d", "ResBlock4D"]
@@ -60,11 +67,13 @@ class Conv4d(nn.Module):
 
     def __init__(self, in_channels: int, features: int,
                  kernel_spatial: int = 3, kernel_time: int = 3,
-                 stride: int = 1, use_bias: bool = True):
+                 stride: int = 1, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ks, self.kt, self.stride = kernel_spatial, kernel_time, stride
-        self.spatial = nn.Conv3d(in_channels, features, kernel_spatial,
-                                 stride=stride, bias=False)
+        self.dtype = dtype
+        self.spatial = Conv3d(in_channels, features, kernel_spatial,
+                              stride=stride, bias=False, dtype=dtype)
         self.temporal = nn.Conv1d(features, features, kernel_time,
                                   stride=stride, bias=use_bias)
 
@@ -83,9 +92,10 @@ class Conv4d(nn.Module):
         cols = h.unfold(4, self.kt, self.stride)   # [B, Z, Y, X, T', F, k]
         t2 = cols.shape[4]
         w = self.temporal.weight                    # [F', F, k]
-        h = cols.reshape(-1, f * self.kt) @ w.reshape(w.shape[0], -1).t()
+        h = product(lambda a, b, _: a @ b, cols.reshape(-1, f * self.kt),
+                    w.reshape(w.shape[0], -1).t(), None, self.dtype)
         if self.temporal.bias is not None:
-            h = h + self.temporal.bias
+            h = h + self.temporal.bias.to(h.dtype)
         return h.reshape(b, z2, y2, x2, t2, -1).permute(0, 5, 4, 1, 2, 3)
 
 
@@ -101,22 +111,24 @@ class ResBlock4D(nn.Module):
 
     def __init__(self, in_channels: int, neck_channels: int,
                  out_channels: int, negative_slope: float = 0.01,
-                 activation: str = "leaky_relu"):
+                 activation: str = "leaky_relu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = get_activation(activation, negative_slope)
-        self.conv1 = Conv4d(in_channels, neck_channels, 1, 1)
+        self.conv1 = Conv4d(in_channels, neck_channels, 1, 1, dtype=dtype)
         self.norm1 = _group_norm(neck_channels)
-        self.conv2 = Conv4d(neck_channels, neck_channels, 3, 3)
+        self.conv2 = Conv4d(neck_channels, neck_channels, 3, 3, dtype=dtype)
         self.norm2 = _group_norm(neck_channels)
-        self.conv3 = Conv4d(neck_channels, out_channels, 1, 1)
+        self.conv3 = Conv4d(neck_channels, out_channels, 1, 1, dtype=dtype)
         self.norm3 = _group_norm(out_channels)
-        self.proj = (Conv4d(in_channels, out_channels, 1, 1, use_bias=False)
+        self.proj = (Conv4d(in_channels, out_channels, 1, 1, use_bias=False,
+                            dtype=dtype)
                      if in_channels != out_channels else None)
 
     def forward(self, x):
-        h = self.act(self.norm1(self.conv1(x)))
-        h = self.act(self.norm2(self.conv2(h)))
-        h = self.norm3(self.conv3(h))
+        h = self.act(self.norm1(widen(self.conv1(x))))
+        h = self.act(self.norm2(widen(self.conv2(h))))
+        h = self.norm3(widen(self.conv3(h)))
         if self.proj is not None:
             x = self.proj(x)
         return self.act(h + x)
@@ -132,9 +144,11 @@ class UNet4d(nn.Module):
     def __init__(self, in_features: int = 4, out_features: int = 32,
                  igres: Sequence[int] = (4, 8, 8, 8), nf: int = 16,
                  mf: int = 512, negative_slope: float = 0.01,
-                 activation: str = "leaky_relu"):
+                 activation: str = "leaky_relu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.igres = tuple(igres)
+        self.dtype = dtype
         self.levels = int(math.floor(math.log2(min(self.igres))))
         for r in self.igres:
             if r % (2 ** self.levels) != 0:
@@ -142,22 +156,24 @@ class UNet4d(nn.Module):
                                  f"2^{self.levels}")
         self.act = get_activation(activation, negative_slope)
         blk = lambda cin, ch: ResBlock4D(cin, max(ch // 2, 1), ch,
-                                         negative_slope, activation)
-        self.conv_in = Conv4d(in_features, nf, 3, 3)
+                                         negative_slope, activation, dtype)
+        self.conv_in = Conv4d(in_features, nf, 3, 3, dtype=dtype)
         chs = []
         ch = nf
         for i in range(self.levels):
             self.add_module(f"down_res{i}", blk(ch, ch))
             chs.append(ch)
             nxt = min(ch * 2, mf)
-            self.add_module(f"down{i}", Conv4d(ch, nxt, 3, 3, stride=2))
+            self.add_module(f"down{i}", Conv4d(ch, nxt, 3, 3, stride=2,
+                                               dtype=dtype))
             ch = nxt
         self.bottleneck = blk(ch, ch)
         for i in reversed(range(self.levels)):
-            self.add_module(f"up{i}", Conv4d(ch, chs[i], 3, 3))
+            self.add_module(f"up{i}", Conv4d(ch, chs[i], 3, 3,
+                                             dtype=dtype))
             self.add_module(f"up_res{i}", blk(2 * chs[i], chs[i]))
             ch = chs[i]
-        self.conv_out = Conv4d(ch, out_features, 1, 1)
+        self.conv_out = Conv4d(ch, out_features, 1, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, T, Z, Y, X, in_features] -> [B, T, Z, Y, X, out]."""
@@ -179,4 +195,4 @@ class UNet4d(nn.Module):
                 h = h.repeat_interleave(2, dim=ax)
             h = self.act(getattr(self, f"up{i}")(h))
             h = getattr(self, f"up_res{i}")(torch.cat([h, skips[i]], 1))
-        return self.conv_out(h).permute(0, 2, 3, 4, 5, 1)
+        return widen(self.conv_out(h)).permute(0, 2, 3, 4, 5, 1)

@@ -38,12 +38,16 @@ _ARGTYPES = {
         # out, n, n_cells, c, dim, nf, out_dim, act_code, negative_slope,
         # stream
         "stpde_decode_blend_gather": ([_P] * 13 + [_I] * 7 + [_F, _P], _I),
+        # the same arguments, table and weights bf16 (b5 f32)
+        "stpde_decode_blend_gather_bf16": ([_P] * 13 + [_I] * 7 + [_F, _P],
+                                           _I),
         # feats2, frac, 9 weights, out, n, c, dim, nf, out_dim, act_code,
         # negative_slope, stream
         "stpde_decode_blend": ([_P] * 12 + [_I] * 6 + [_F, _P], _I),
         "stpde_block_rows": ([], _I),
         # c, dim, nf
         "stpde_decode_smem_bytes": ([_I] * 3, _I),
+        "stpde_decode_bf16_smem_bytes": ([_I] * 3, _I),
         "stpde_error_string": ([_I], ctypes.c_char_p),
     },
     "fused_jet": {

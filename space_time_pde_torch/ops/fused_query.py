@@ -36,8 +36,17 @@ MXU gather, ``corner_tables`` and the sorted 2 x 128-cell windows
 fallback, the sort/unsort, ``points_sorted``), ``_augmented_xs`` /
 ``_augment_params`` / ``_FRAC_LANES`` and 128-lane padding
 (``pad_to``): an H100 thread loads a cell's row by its id, so any point
-order decodes on one path. The kernels are f32 only; a bf16 request
-raises ``NotImplementedError``.
+order decodes on one path.
+
+``compute_dtype=torch.bfloat16`` (the JAX kernels' default, the bf16
+policy's decode) is the gather entry's second instantiation: a bf16
+table, bf16 weights and Hopper's bf16 tensor cores
+(``stpde_decode_blend_gather_bf16``, counted under
+``decode_blend_gather_bf16``), rounding where ``_kernel_gather`` rounds
+(:func:`decode_blend_gather_plain`). The pre-gathered entry is f32 only:
+its TPU kernel rounds at other places (``corner_bias`` kept f32, the
+skip buffer stored bf16), and a bf16 request raises
+``NotImplementedError`` (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -74,9 +83,10 @@ _WEIGHTS = ("wx_feat", "wx_rel", "corner_bias", "wh1", "wh2", "wh3", "wh4",
 # latent rows to its 32-row weight tile (csrc/fused_query.cu).
 _WIDTH_ALIGN, _C_ALIGN = 64, 32
 
-# Kernel launches per entry point; only the CUDA branch of a wrapper
-# adds to them.
-LAUNCHES = {"decode_blend_gather": 0, "decode_blend": 0}
+# Kernel launches per entry point (the gather entry's bf16 instantiation
+# apart); only the CUDA branch of a wrapper adds to them.
+LAUNCHES = {"decode_blend_gather": 0, "decode_blend": 0,
+            "decode_blend_gather_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -131,7 +141,8 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def kernel_weights(packed, *, nf: int) -> Dict[str, torch.Tensor]:
+def kernel_weights(packed, *, nf: int,
+                   dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """:func:`pack_imnet_params`'s output in the decode kernel's layout,
     in the order of its C arguments.
 
@@ -148,6 +159,12 @@ def kernel_weights(packed, *, nf: int) -> Dict[str, torch.Tensor]:
       so one K loop over ``[h_{i-1} | latents]`` gives the hidden product
       and the skip term together;
     - ``w5``, ``b5`` as packed.
+
+    ``dtype=torch.bfloat16`` gives the bf16 instantiation's weights: all
+    but ``b5`` rounded to bf16 (``cb`` from the f32 ``corner_bias``, as
+    the TPU kernel's ``_augment_params`` rounds it), and ``wx0`` and
+    ``wb1..wb4`` transposed (``[W, K]``, K contiguous: the layout of the
+    bf16 tensor cores' B fragments).
     """
     c = packed["wx_feat"].shape[0]
     widths = [nf * m for m in _MULTS]
@@ -170,6 +187,12 @@ def kernel_weights(packed, *, nf: int) -> Dict[str, torch.Tensor]:
                                0, padded[i - 1] - widths[i - 1]))
         out[f"wb{i}"] = torch.cat([wh, cols(wxf, i)], 0)
     out["w5"], out["b5"] = packed["w5"], packed["b5"]
+    if dtype != torch.float32:
+        for k in out:
+            if k == "wx0" or k.startswith("wb"):
+                out[k] = out[k].t()
+            if k != "b5":
+                out[k] = out[k].to(dtype)
     return {k: v.contiguous() for k, v in out.items()}
 
 
@@ -233,20 +256,48 @@ def decode_blend_plain(feats2, frac, packed, *, nf: int, n_corners: int,
 
 def decode_blend_gather_plain(table, cell_flat, frac, packed, *, nf: int,
                               activation: str = "leaky_relu",
-                              negative_slope: float = 0.01) -> torch.Tensor:
-    """Plain PyTorch twin of :func:`decode_blend_gather`."""
+                              negative_slope: float = 0.01,
+                              compute_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`decode_blend_gather`.
+
+    At ``compute_dtype=torch.bfloat16`` it rounds where the TPU's
+    ``_kernel_gather`` does and multiplies in f32 (a product of two bf16
+    values is exact in f32): the table (already bf16), frac for the skip
+    product (the blend weights take the f32 frac), ``wx_feat``,
+    ``wx_rel``, ``corner_bias`` (from the unrounded ``wx_rel``), each
+    ``Wh_i`` and ``w5`` to bf16; the skip term and every layer's
+    pre-activation and activation in f32; h rounded to bf16 before each
+    ``Wh_i`` product; the blend in f32 and ``hblend`` rounded before the
+    head; ``b5`` f32."""
     n_corners = 2 ** frac.shape[-1]
     c = table.shape[-1] // n_corners
     feats2 = table[cell_flat.long()].reshape(-1, c)
-    return decode_blend_plain(feats2, frac, packed, nf=nf,
-                              n_corners=n_corners, activation=activation,
-                              negative_slope=negative_slope)
+    if compute_dtype == torch.float32:
+        return decode_blend_plain(feats2, frac, packed, nf=nf,
+                                  n_corners=n_corners, activation=activation,
+                                  negative_slope=negative_slope)
+    rnd = lambda t: t.to(compute_dtype).float()
+    n = frac.shape[0]
+    feats = rnd(feats2).reshape(n, n_corners, c)
+    act = get_activation(activation, negative_slope)
+    bounds = np.cumsum([0] + [nf * m for m in _MULTS])
+    xs = (feats @ rnd(packed["wx_feat"])
+          + (rnd(frac) @ rnd(packed["wx_rel"]))[:, None]
+          + rnd(packed["corner_bias"])[None])       # [N, K, S] f32
+    sl = [slice(int(bounds[i]), int(bounds[i + 1])) for i in range(5)]
+    h = act(xs[..., sl[0]])
+    for i in range(1, 5):
+        h = act(rnd(h) @ rnd(packed[f"wh{i}"]) + xs[..., sl[i]])
+    hblend = (h * _corner_weights(frac)[..., None]).sum(dim=1)
+    return rnd(hblend) @ rnd(packed["w5"]) + packed["b5"]
 
 
 def _check(tensors: Dict[str, torch.Tensor], packed, *, n: int, c: int,
-           dim: int, nf: int) -> torch.device:
+           dim: int, nf: int, compute_dtype=torch.float32) -> torch.device:
     """Device, dtype, shape and contiguity checks shared by both
-    wrappers; returns the common device."""
+    wrappers (the latent rows, ``table`` or ``feats2``, in
+    ``compute_dtype``, the packed weights f32); returns the common
+    device."""
     s = 31 * nf
     k = 2 ** dim
     shapes = {"wx_feat": (c, s), "wx_rel": (dim, s), "corner_bias": (k, s),
@@ -266,7 +317,8 @@ def _check(tensors: Dict[str, torch.Tensor], packed, *, n: int, c: int,
     for name, t in everything.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, frac on {device}")
-        want = torch.int32 if name == "cell_flat" else torch.float32
+        want = {"cell_flat": torch.int32, "table": compute_dtype,
+                "feats2": compute_dtype}.get(name, torch.float32)
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
@@ -294,11 +346,17 @@ def block_points(dim: int, device) -> int | None:
 @torch.no_grad()
 def decode_blend_gather(table, cell_flat, frac, packed, *, nf: int,
                         activation: str = "leaky_relu",
-                        negative_slope: float = 0.01) -> torch.Tensor:
+                        negative_slope: float = 0.01,
+                        compute_dtype=torch.float32) -> torch.Tensor:
     """Decode with the gather fused in: table ``[n_cells, 2^D * C]``
-    (:func:`cell_major_features`), cell_flat ``[N]`` int32, frac
-    ``[N, D]`` -> ``[N, out]`` f32. A cell id outside the table decodes
-    NaN on the card (the plain twin raises an IndexError)."""
+    (:func:`cell_major_features`) in ``compute_dtype`` (f32, or bf16 for
+    the bf16 instantiation), cell_flat ``[N]`` int32, frac ``[N, D]``
+    f32 -> ``[N, out]`` f32. A cell id outside the table decodes NaN on
+    the card (the plain twin raises an IndexError)."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"compute_dtype {compute_dtype}: the "
+                                  "decode kernel has f32 and bf16 "
+                                  "instantiations")
     n, dim = frac.shape
     k = 2 ** dim
     c = table.shape[-1] // k
@@ -309,32 +367,42 @@ def decode_blend_gather(table, cell_flat, frac, packed, *, nf: int,
         raise ValueError(f"cell_flat must be [{n}], got "
                          f"{tuple(cell_flat.shape)}")
     device = _check({"table": table, "cell_flat": cell_flat, "frac": frac},
-                    packed, n=n, c=c, dim=dim, nf=nf)
+                    packed, n=n, c=c, dim=dim, nf=nf,
+                    compute_dtype=compute_dtype)
     if device.type == "cpu":
         return decode_blend_gather_plain(
             table, cell_flat, frac, packed, nf=nf, activation=activation,
-            negative_slope=negative_slope)
+            negative_slope=negative_slope, compute_dtype=compute_dtype)
     lib = _build.load()
     out = torch.empty((n, packed["w5"].shape[-1]), dtype=torch.float32,
                       device=device)
-    kw = kernel_weights(packed, nf=nf)
-    code = lib.stpde_decode_blend_gather(
+    kw = kernel_weights(packed, nf=nf, dtype=compute_dtype)
+    bf16 = compute_dtype == torch.bfloat16
+    entry = "decode_blend_gather" + ("_bf16" if bf16 else "")
+    code = getattr(lib, "stpde_" + entry)(
         table.data_ptr(), cell_flat.data_ptr(), frac.data_ptr(),
         *[w.data_ptr() for w in kw.values()], out.data_ptr(),
         n, table.shape[0], c, dim, nf, out.shape[-1],
         ACTIVATION_CODES[activation], negative_slope,
         torch.cuda.current_stream(device).cuda_stream)
-    _build.check(code, "decode_blend_gather")
-    LAUNCHES["decode_blend_gather"] += 1
+    _build.check(code, entry)
+    LAUNCHES[entry] += 1
     return out
 
 
 @torch.no_grad()
 def decode_blend(feats2, frac, packed, *, nf: int, n_corners: int,
                  activation: str = "leaky_relu",
-                 negative_slope: float = 0.01) -> torch.Tensor:
+                 negative_slope: float = 0.01,
+                 compute_dtype=torch.float32) -> torch.Tensor:
     """Decode pre-gathered corner rows: feats2 ``[N * 2^D, C]``, frac
-    ``[N, D]`` -> ``[N, out]`` f32."""
+    ``[N, D]`` -> ``[N, out]`` f32. f32 only: a bf16 ``compute_dtype``
+    raises ``NotImplementedError`` (ROADMAP queue 2)."""
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(
+            f"compute_dtype {compute_dtype}: the bf16 pre-gathered decode "
+            "(decode_blend's _kernel instantiation, ROADMAP queue 2) is not "
+            "ported")
     n, dim = frac.shape
     if n_corners != 2 ** dim:
         raise ValueError(f"n_corners {n_corners} != 2**{dim}")
@@ -375,11 +443,10 @@ def fused_query_local_implicit_grid(imnet, latent_grid, pts, xmin=0.0,
     ``gather``: "kernel" loads each point's cell row inside the kernel
     (:func:`decode_blend_gather`); "pregather" gathers ``[N*2^D, C]``
     rows first and runs :func:`decode_blend`. Both take any point order.
+    ``compute_dtype``: f32, or bf16 (the latent table rounded to bf16, as
+    the TPU path's ``gcast``; "kernel" only, as JAX's "auto" takes the
+    gather kernel: "pregather" raises ``NotImplementedError``).
     """
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"compute_dtype {compute_dtype}: the port's decode kernels are "
-            "f32 only (bf16 is later work; the flagship decodes f32)")
     if gather not in ("kernel", "pregather"):
         raise ValueError(f"gather must be 'kernel' or 'pregather', got "
                          f"{gather!r}")
@@ -391,12 +458,14 @@ def fused_query_local_implicit_grid(imnet, latent_grid, pts, xmin=0.0,
         spatial = tuple(grid.shape[:-1])
         cell, frac = _locate(p.contiguous(), spatial, xmin, xmax)
         cell_flat = _flat_cells(cell, spatial)
-        table = cell_major_features(grid).float().contiguous()
+        table = cell_major_features(grid.to(compute_dtype)).contiguous()
         if gather == "kernel":
             outs.append(decode_blend_gather(table, cell_flat, frac, packed,
+                                            compute_dtype=compute_dtype,
                                             **common))
         else:
             feats2 = table[cell_flat.long()].reshape(-1, grid.shape[-1])
             outs.append(decode_blend(feats2, frac, packed,
-                                     n_corners=2 ** len(spatial), **common))
+                                     n_corners=2 ** len(spatial),
+                                     compute_dtype=compute_dtype, **common))
     return torch.stack(outs)

@@ -19,7 +19,9 @@ of the sharded encoders (``sharded_unet.py``, ``sharded_unet4d.py``):
   form, not ``nn.GroupNorm``'s two-pass one).
 
 With a space group of one rank (or none) each equals the unsharded op,
-which is how parity is tested.
+which is how parity is tested. ``HaloConv3d`` takes the compute policy's
+``dtype`` as the plain conv does (``models/policy.py``): the halo moves
+the input as it comes, the product rounds as the plain layer's.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from space_time_pde_torch.models.policy import Conv3d, product
 from space_time_pde_torch.parallel.collectives import (
     all_reduce_sum, exchange)
 
@@ -59,15 +62,16 @@ def _same(n: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
-class HaloConv3d(nn.Conv3d):
+class HaloConv3d(Conv3d):
     """3-D conv on an x-sharded block ``[B, C, T, Z, X_loc]`` (see the
     module docstring); ``mesh`` is the rank's
     :class:`~space_time_pde_torch.parallel.dp.Mesh` (its space group)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
-                 stride=1, bias: bool = True, mesh=None):
+                 stride=1, bias: bool = True, mesh=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, out_channels, kernel_size,
-                         stride=stride, bias=bias)
+                         stride=stride, bias=bias, dtype=dtype)
         self.mesh = mesh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -86,7 +90,8 @@ class HaloConv3d(nn.Conv3d):
             x = halo_exchange_x(x, self.mesh, left, right, axis=-1)
         pt, pz = _same(x.shape[2], kt, st), _same(x.shape[3], kz, sz)
         x = F.pad(x, (0, 0) + pz + pt)
-        return F.conv3d(x, self.weight, self.bias, self.stride)
+        return product(lambda x, w, b: F.conv3d(x, w, b, self.stride), x,
+                       self.weight, self.bias, self.dtype)
 
 
 class ShardedGroupNorm(nn.GroupNorm):

@@ -25,6 +25,7 @@ import copy
 import torch
 import torch.nn as nn
 
+from space_time_pde_torch.models.policy import Conv3d
 from space_time_pde_torch.models.unet3d import BatchNorm, UNet3d
 from space_time_pde_torch.parallel.halo_conv import (
     HaloConv3d, ShardedGroupNorm)
@@ -32,15 +33,16 @@ from space_time_pde_torch.parallel.halo_conv import (
 __all__ = ["ShardedUNet3d", "share_tensors", "shard_layers", "sharded_twin"]
 
 
-def _halo_conv(conv: nn.Conv3d, mesh) -> HaloConv3d:
+def _halo_conv(conv: Conv3d, mesh) -> HaloConv3d:
     return HaloConv3d(conv.in_channels, conv.out_channels, conv.kernel_size,
-                      conv.stride, conv.bias is not None, mesh)
+                      conv.stride, conv.bias is not None, mesh, conv.dtype)
 
 
 def shard_layers(module: nn.Module, mesh, conv4d=None) -> None:
-    """Swap, in place and in order, every 3x3x3 ``nn.Conv3d`` below
-    ``module`` for a :class:`HaloConv3d` and every ``nn.GroupNorm`` for a
-    :class:`ShardedGroupNorm` over ``mesh``; every ``BatchNorm`` syncs
+    """Swap, in place and in order, every 3x3x3 conv below ``module``
+    (the policy's ``Conv3d``) for a :class:`HaloConv3d` of its dtype and
+    every ``nn.GroupNorm`` for a :class:`ShardedGroupNorm` over ``mesh``;
+    every ``BatchNorm`` syncs
     its statistics over the whole world (each rank sees part of the
     positions and part of the batch). ``conv4d(child, mesh)``, where
     given, replaces each ``Conv4d`` with a spatial kernel above 1."""
@@ -50,7 +52,7 @@ def shard_layers(module: nn.Module, mesh, conv4d=None) -> None:
         if isinstance(child, Conv4d):
             if conv4d is not None and child.ks > 1:
                 setattr(module, name, conv4d(child, mesh))
-        elif type(child) is nn.Conv3d and child.kernel_size[-1] > 1:
+        elif type(child) is Conv3d and child.kernel_size[-1] > 1:
             setattr(module, name, _halo_conv(child, mesh))
         elif type(child) is nn.GroupNorm:
             setattr(module, name, ShardedGroupNorm(

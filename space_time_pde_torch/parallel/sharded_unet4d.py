@@ -32,17 +32,18 @@ class HaloConv4d(Conv4d):
 
     def __init__(self, in_channels: int, features: int,
                  kernel_spatial: int = 3, kernel_time: int = 3,
-                 stride: int = 1, use_bias: bool = True, mesh=None):
+                 stride: int = 1, use_bias: bool = True, mesh=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, features, kernel_spatial, kernel_time,
-                         stride, use_bias)
+                         stride, use_bias, dtype)
         self.spatial = HaloConv3d(in_channels, features, kernel_spatial,
-                                  stride, bias=False, mesh=mesh)
+                                  stride, bias=False, mesh=mesh, dtype=dtype)
 
     @classmethod
     def like(cls, conv: Conv4d, mesh) -> "HaloConv4d":
         return cls(conv.spatial.in_channels, conv.spatial.out_channels,
                    conv.ks, conv.kt, conv.stride,
-                   conv.temporal.bias is not None, mesh)
+                   conv.temporal.bias is not None, mesh, conv.dtype)
 
     def _conv_space(self, h: torch.Tensor) -> torch.Tensor:
         return self.spatial(h)                   # HaloConv3d pads itself

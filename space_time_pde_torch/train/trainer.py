@@ -22,8 +22,16 @@ package's ``lax.scan`` was a dispatch workaround). With
 statistics; the running averages move in the forward, so a step that
 the optimizer skips keeps them, as JAX keeps ``batch_stats`` on a
 skipped step) and the eval function in eval mode (running statistics).
-Not ported: the bf16 compute policy (``use_bf16`` raises; the flagship
-trains in f32).
+
+The bf16 compute policy (``use_bf16``, ``models/policy.py``): both
+families' encoders and the ImNet compute in bf16 with f32 parameters.
+The jet stays f32, as in the JAX trainer without ``--pde_bf16``: the
+encoders return an f32 latent (flax's ``out.astype(float32)``), and the
+ImNet runs at f32 inside the jet (the fused jet packs the f32 weights;
+the plain jet calls the ImNet at f32), while the regression-only query and the eval decode keep the
+policy (the eval's fused decode takes the bf16 kernel). The loss and
+metrics are f32. ``pde_bf16`` with ``use_bf16`` (the bf16 jets) raises
+``NotImplementedError``: those kernels are the next slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import torch.nn as nn
 from space_time_pde_torch.models import (
     ImNet, UNet3d, UNet4d, query_local_implicit_grid)
 from space_time_pde_torch.models.nonlinearities import PIECEWISE_LINEAR
+from space_time_pde_torch.models.policy import policy_dtype
 from space_time_pde_torch.ops.fused_jet import fused_query_jet
 from space_time_pde_torch.ops.fused_query import (
     fused_query_local_implicit_grid)
@@ -82,11 +91,10 @@ def build_models(cfg, lres_shape: Tuple[int, ...],
     """The encoder and decoder for a low-res grid of ``lres_shape``:
     UNet3d + ImNet(dim=3) for a (t, z, x) grid (rb2d), UNet4d +
     ImNet(dim=4) for a (t, z, y, x) grid (turb3d, GroupNorm only, as in
-    the JAX package's ``experiments/turb3d/train.py``)."""
+    the JAX package's ``experiments/turb3d/train.py``), both computing
+    in the policy's dtype (bf16 under ``use_bf16``; parameters f32)."""
     m = cfg.model
-    if m.use_bf16:
-        raise NotImplementedError(
-            "use_bf16: the port trains in f32 (its kernels are f32 only)")
+    dtype = policy_dtype(m.use_bf16)
     dim = len(lres_shape)
     if dim == 4:
         if m.norm != "group":
@@ -95,17 +103,18 @@ def build_models(cfg, lres_shape: Tuple[int, ...],
         unet = UNet4d(in_features=m.in_channels, out_features=m.lat_dims,
                       igres=tuple(lres_shape), nf=m.unet_nf, mf=m.unet_mf,
                       negative_slope=m.negative_slope,
-                      activation=m.activation)
+                      activation=m.activation, dtype=dtype)
     elif dim == 3:
         unet = UNet3d(in_features=m.in_channels, out_features=m.lat_dims,
                       igres=tuple(lres_shape), nf=m.unet_nf, mf=m.unet_mf,
                       negative_slope=m.negative_slope,
-                      activation=m.activation, norm=m.norm)
+                      activation=m.activation, norm=m.norm, dtype=dtype)
     else:
         raise ValueError(f"no encoder for a {dim}-D grid {lres_shape}")
     imnet = ImNet(dim=dim, in_features=m.lat_dims,
                   out_features=m.out_channels, nf=m.imnet_nf,
-                  activation=m.activation, negative_slope=m.negative_slope)
+                  activation=m.activation, negative_slope=m.negative_slope,
+                  dtype=dtype)
     return unet.to(device), imnet.to(device)
 
 
@@ -185,6 +194,14 @@ def make_loss_fn(cfg, unet: nn.Module, imnet: ImNet, pde_layer):
                and pde_layer.max_derivative_order() <= 2)
     use_fused_jet = use_jet and derivs == "jet" and cfg.model.fused_query
     pde_kind = cfg.train.pde_loss_type
+    if cfg.model.use_bf16 and cfg.train.pde_bf16:
+        raise NotImplementedError(
+            "pde_bf16 with use_bf16: the bf16 jet kernels (_jet_fwd_kernel / "
+            "_jet_bwd_kernel at compute_dtype bf16) are not ported yet "
+            "(ROADMAP queue 2); the policy's jet runs f32 without it")
+    # The jet's ImNet at f32 whatever the policy (JAX: imnet.clone(dtype=
+    # jet_dtype)); the fused jet packs the f32 weights itself.
+    jet_imnet = lambda v: imnet(v, dtype=torch.float32)
 
     def loss_fn(batch):
         coords = batch["point_coord"]
@@ -197,8 +214,8 @@ def make_loss_fn(cfg, unet: nn.Module, imnet: ImNet, pde_layer):
         if use_fused_jet:
             pred, jac, hess = fused_query_jet(imnet, latent, coords)
         elif use_jet:
-            pred, jac, hess = query_local_implicit_grid_jet(imnet, latent,
-                                                            coords)
+            pred, jac, hess = query_local_implicit_grid_jet(
+                jet_imnet, latent, coords)
         else:
             pred = fwd(coords)
         reg = _reg_loss(kind, pred, batch["point_value"])
@@ -229,7 +246,11 @@ def _without_cudnn():
     forward; PyTorch's own kernels in both directions 0.4x
     (``chip_smoke.py``'s training-step phase). UNet4d's spatial
     ``Conv3d`` takes the same path; its temporal conv is a plain matrix
-    product either way (``models/unet4d.py``)."""
+    product either way (``models/unet4d.py``). Under the bf16 policy the
+    step keeps this path: PyTorch's own CUDA convolutions take bf16
+    operands, and on the flagship step their gradients sit a median
+    0.99x JAX bf16's distance from float64 (``chip_smoke.py`` phase I,
+    H100)."""
     enabled = torch.backends.cudnn.enabled
     torch.backends.cudnn.enabled = False
     try:
@@ -307,7 +328,9 @@ def make_multi_step(loss_fn, opt: Optimizer, n_inner: int,
 def make_eval_fn(cfg, unet: nn.Module, imnet: ImNet):
     """Relative L2 of predictions vs point ground truth (overall and per
     channel), through the fused decode (the CUDA decode kernel on a
-    card) when ``fused_query`` is set; the encoder in eval mode."""
+    card, its bf16 instantiation under ``use_bf16``) when
+    ``fused_query`` is set; the encoder in eval mode."""
+    dtype = policy_dtype(cfg.model.use_bf16)
 
     @torch.no_grad()
     def eval_fn(batch):
@@ -315,7 +338,8 @@ def make_eval_fn(cfg, unet: nn.Module, imnet: ImNet):
         latent = unet(batch["lres"])
         coords = batch["point_coord"]
         if cfg.model.fused_query:
-            pred = fused_query_local_implicit_grid(imnet, latent, coords)
+            pred = fused_query_local_implicit_grid(imnet, latent, coords,
+                                                   compute_dtype=dtype)
         else:
             pred = query_local_implicit_grid(imnet, latent, coords)
         target = batch["point_value"]

@@ -92,19 +92,66 @@ def test_kernels_match_plain(device, nf, c, dim, n, activation):
     feats2 = table[cell_flat.long()].reshape(-1, c).contiguous()
     got2 = fq.decode_blend(feats2, frac, packed, n_corners=2 ** dim, **kw)
     torch.cuda.synchronize()
-    assert fq.LAUNCHES == {"decode_blend_gather": 1, "decode_blend": 1}
+    assert fq.LAUNCHES == {"decode_blend_gather": 1, "decode_blend": 1,
+                           "decode_blend_gather_bf16": 0}
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
     np.testing.assert_allclose(got2.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+# The bf16 instantiation against its bf16 twin: both round at the same
+# points, but a sum taken in another order can land a bf16 value on the
+# other side of a step, so the rule is four bf16 steps of max |twin|.
+BF16_DIRECT = 4 * 2.0 ** -8
+
+
+@pytest.mark.parametrize("nf,c,dim,n,activation", CASES)
+def test_bf16_kernel_matches_plain(device, nf, c, dim, n, activation):
+    packed, table, cell_flat, frac = _inputs(device, nf, c, dim, n,
+                                             activation)
+    table = table.to(torch.bfloat16)
+    kw = dict(nf=nf, activation=activation, negative_slope=0.01,
+              compute_dtype=torch.bfloat16)
+    want = fq.decode_blend_gather_plain(table, cell_flat, frac, packed, **kw)
+    fq.reset_launches()
+    got = fq.decode_blend_gather(table, cell_flat, frac, packed, **kw)
+    torch.cuda.synchronize()
+    assert fq.LAUNCHES == {"decode_blend_gather": 0, "decode_blend": 0,
+                           "decode_blend_gather_bf16": 1}
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err <= BF16_DIRECT * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+def test_bf16_kernel_within_twice_twin_of_float64(device, dim):
+    """At the flagship widths the bf16 kernel sits at most twice as far
+    from the float64 f32-function as its bf16 twin does."""
+    packed, table, cell_flat, frac = _inputs(device, 64, 64, dim, 4096,
+                                             "leaky_relu")
+    p64 = {k: v.double() for k, v in packed.items()}
+    want64 = fq.decode_blend_gather_plain(table.double(), cell_flat,
+                                          frac.double(), p64, nf=64)
+    tb = table.to(torch.bfloat16)
+    kw = dict(nf=64, compute_dtype=torch.bfloat16)
+    got = fq.decode_blend_gather(tb, cell_flat, frac, packed, **kw)
+    twin = fq.decode_blend_gather_plain(tb, cell_flat, frac, packed, **kw)
+    torch.cuda.synchronize()
+    need, floor = _atol_needed(got, want64), _atol_needed(twin, want64)
+    assert bool(torch.isfinite(got).all()) and need <= 2 * floor, \
+        (need, floor)
 
 
 def test_out_of_range_cell_decodes_nan(device):
     packed, table, cell_flat, frac = _inputs(device, 4, 8, 3, 16,
                                              "leaky_relu")
     cell_flat[3] = table.shape[0]
-    got = fq.decode_blend_gather(table, cell_flat, frac, packed, nf=4)
-    torch.cuda.synchronize()
-    bad = torch.isnan(got).any(dim=1).cpu().numpy()
-    assert bad[3] and bad.sum() == 1
+    for tab, dt in ((table, torch.float32),
+                    (table.to(torch.bfloat16), torch.bfloat16)):
+        got = fq.decode_blend_gather(tab, cell_flat, frac, packed, nf=4,
+                                     compute_dtype=dt)
+        torch.cuda.synchronize()
+        bad = torch.isnan(got).any(dim=1).cpu().numpy()
+        assert bad[3] and bad.sum() == 1, dt
 
 
 @pytest.mark.parametrize("dim", [3, 4])

@@ -78,7 +78,8 @@ def test_decode_blend_plain_matches_pallas(activation, n):
                            tfq.pack_imnet_params(tm), nf=4, n_corners=8,
                            activation=activation)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    assert tfq.LAUNCHES == {"decode_blend_gather": 0, "decode_blend": 0}
+    assert tfq.LAUNCHES == {"decode_blend_gather": 0, "decode_blend": 0,
+                           "decode_blend_gather_bf16": 0}
 
 
 QUERY_CASES = [
@@ -113,7 +114,8 @@ def test_fused_query_matches_pallas(gather, spatial, xmin, xmax,
         tm, torch.from_numpy(grid), torch.from_numpy(pts), xmin=xmin,
         xmax=xmax, gather=gather)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    assert tfq.LAUNCHES == {"decode_blend_gather": 0, "decode_blend": 0}
+    assert tfq.LAUNCHES == {"decode_blend_gather": 0, "decode_blend": 0,
+                           "decode_blend_gather_bf16": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -133,10 +135,20 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="n_corners"):
         tfq.decode_blend(torch.zeros(20, 4), frac, packed, nf=2,
                          n_corners=4)
-    with pytest.raises(NotImplementedError, match="f32"):
+    # bf16: the gather entry takes a bf16 table (an f32 one raises); the
+    # pre-gathered entry has no bf16 instantiation and says where it is
+    # queued.
+    with pytest.raises(TypeError, match="table"):
+        tfq.decode_blend_gather(table, cells, frac, packed, nf=2,
+                                compute_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfq.decode_blend(torch.zeros(40, 4, dtype=torch.bfloat16), frac,
+                         packed, nf=2, n_corners=8,
+                         compute_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfq.fused_query_local_implicit_grid(
             tm, torch.zeros(1, 2, 2, 2, 4), torch.zeros(1, 3, 3),
-            compute_dtype=torch.bfloat16)
+            gather="pregather", compute_dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("dim", [2, 3])

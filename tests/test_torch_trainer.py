@@ -308,10 +308,21 @@ def test_checkpoint_round_trip_is_step_exact(tmp_path):
 
 
 def test_unported_modes_raise():
+    # use_bf16: bf16 modules with f32 parameters; the bf16 jets
+    # (pde_bf16) are not ported.
     tcfg = TConfig.from_dict(_cfg().to_dict())
     tcfg.model.use_bf16 = True
-    with pytest.raises(NotImplementedError, match="f32"):
-        ttrain.build_models(tcfg, IGRES, "cpu")
+    for d in (IGRES, (4, 4, 4, 4)):
+        unet, imnet = ttrain.build_models(tcfg, d, "cpu")
+        assert unet.dtype == imnet.dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for m in (unet, imnet)
+                   for p in m.parameters())
+        assert all(getattr(m, "dtype", torch.bfloat16) == torch.bfloat16
+                   for m in unet.modules())
+    ttrain.make_loss_fn(tcfg, unet, imnet, None)
+    tcfg.train.pde_bf16 = True
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttrain.make_loss_fn(tcfg, unet, imnet, None)
     tcfg = TConfig.from_dict(_cfg().to_dict())
     tcfg.model.norm = "batch"
     unet, imnet = ttrain.build_models(tcfg, IGRES, "cpu")

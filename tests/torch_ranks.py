@@ -172,9 +172,10 @@ def target_halo(rank, world, arrays, spec):
 
 
 def target_sharded_unet(rank, world, arrays, spec):
-    """ShardedUNet3d / ShardedUNet4d on a 4-rank space group: forward,
-    backward (parameter gradients of a seeded cotangent, this rank's
-    share) and BatchNorm's train mode."""
+    """ShardedUNet3d / ShardedUNet4d on a space group of all the ranks:
+    forward, backward (parameter gradients of a seeded cotangent, this
+    rank's share) and BatchNorm's train mode, in the compute policy's
+    ``spec["dtype"]`` (default float32)."""
     import torch
 
     from space_time_pde_torch.bridge import load_flax_params
@@ -189,7 +190,8 @@ def target_sharded_unet(rank, world, arrays, spec):
             ("u3", UNet3d, ShardedUNet3d, spec["igres3"], "group"),
             ("bn", UNet3d, ShardedUNet3d, spec["igres3"], "batch"),
             ("u4", UNet4d, ShardedUNet4d, spec["igres4"], None)):
-        kw = dict(in_features=4, out_features=8, igres=tuple(igres), nf=8)
+        kw = dict(in_features=4, out_features=8, igres=tuple(igres), nf=8,
+                  dtype=getattr(torch, spec.get("dtype", "float32")))
         if norm:
             kw["norm"] = norm
         plain = plain_cls(**kw)

@@ -164,12 +164,45 @@ J. both train CLIs with ``--use_bf16 true`` (phases 9's and 15's flags,
    turb3d val windows: points/s, rel-L2), decoding through the bf16
    kernel alone;
 
-and last, one JSON line of the five kernels (the four f32 kernels and
-the bf16 instantiation; ``path``: eval, train or off_path; ``math``:
-tf32x3 for the f32 kernels (3xTF32 on the tensor cores), bf16 for the
-bf16 one; launches per path and per D; times, plain times and bounds at
-D = 4, and at D = 3 under ``d3``: ``bound_ms`` against the kernel's own
-arithmetic, ``bound_f32_ms`` against f32 FFMA), then the status line.
+and the bf16 jets (``--use_bf16 --pde_bf16``) and the bf16 pre-gathered
+decode (each phase's launch counts set to 0 just before its path and
+read just after):
+
+K. both bf16 jet kernels (``stpde_jet_fwd_bf16`` / ``_bwd_bf16``,
+   ``csrc/fused_jet_bf16.cu``) against their bf16 twins
+   (``jet_fwd_plain`` at bf16, ``jet_bwd_bf16_plain``) on phase 4's 8,192
+   points (D = 3) and phase 11's 4,096 (D = 4), rows rounded to bf16 and
+   weights packed at bf16: every forward block and backward gradient
+   within BF16_DIRECT of max |twin|, and from the f32 function in float64
+   at most BF16_KERNEL_SLACK times the twin's atol; a LeakyReLU branch
+   the kernel took otherwise than the twin passes where the twin's
+   pre-activation lies within BF16_FLIP_REL of its layer's max |pre| and
+   the kernel meets both rules on its own branches (read from its
+   workspace); CUDA-event times against the bf16 bound;
+L. the pre-gathered decode's bf16 instantiation (``decode_blend`` at
+   bf16, ``stpde_decode_blend_bf16``) against its bf16 twin by phase G's
+   rule at D = 3 and 4 on 65,536 points, and one scattered-point request
+   at bf16 through ``gather="pregather"`` on the same points (off the
+   main paths, counted apart);
+M. phase 8's step under ``use_bf16`` with ``pde_bf16`` against
+   ``assets/rb2d_bf16_pde_train_step_ref.npz`` (JAX's loss with its jet
+   the Pallas kernels at bf16, op by op) by phase I's rules, except that
+   a loss term outside BF16_LOSS_RTOL of JAX bf16's passes if it is no
+   farther from float64 than STEP_SLACK times JAX bf16's own distance
+   (the bf16 jet's rounding noise on the PDE terms is about
+   BF16_LOSS_RTOL: ``scripts/export_torch_train_ref.py --recipe
+   rb2d_bf16_pde`` prints how far the port's plain twins on the CPU sit
+   from JAX bf16 there); the bf16 jets launched and the f32 ones not;
+N. both train CLIs with ``--use_bf16 true --pde_bf16 true`` (phase J's
+   runs): finite losses, s/step, the path's jets ``jet_*_bf16`` alone;
+
+and last, one JSON line of the eight kernels (the four f32 kernels and
+the four bf16 instantiations; ``path``: eval, train or off_path;
+``math``: tf32x3 for the f32 kernels (3xTF32 on the tensor cores), bf16
+for the bf16 ones; launches per path and per D; times, plain times and
+bounds at D = 4, and at D = 3 under ``d3``: ``bound_ms`` against the
+kernel's own arithmetic, ``bound_f32_ms`` against f32 FFMA), then the
+status line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -201,6 +234,7 @@ RESUME_REF = os.path.join(ASSETS, "rb2d_resume_step_ref.npz")
 WINDOWS_BF16_REF = os.path.join(
     ASSETS, "r5_rb2d_4x_e900_230400_rb2d_windows_bf16.npz")
 BF16_STEP_REF = os.path.join(ASSETS, "rb2d_bf16_train_step_ref.npz")
+BF16_PDE_STEP_REF = os.path.join(ASSETS, "rb2d_bf16_pde_train_step_ref.npz")
 RESUME_EPOCHS = 1800            # the resumed flagship run's --epochs
 N_CHECK = 65536                 # points per decode kernel-vs-plain call
 N_JET = 8192                    # the flagship step: 8 crops x 1,024 points
@@ -261,33 +295,48 @@ BF16_DIRECT = 4 * 2.0 ** -8
 BF16_KERNEL_SLACK = 2.0
 BF16_SLACK = 1.5
 BF16_LOSS_RTOL = 1e-3
+# The bf16 jets (phase K) against their bf16 twins: a skip term summed in
+# another order can round to the other bf16 step (2^-8 of it) and move a
+# pre-activation near 0 to the other LeakyReLU branch. Such a flip is
+# accepted where the twin's pre-activation lies within BF16_FLIP_REL (four
+# bf16 steps) of its layer's max |pre|, and the kernel meets both rules on
+# its own branches (the twins and the float64 function run on them).
+BF16_FLIP_REL = 4 * 2.0 ** -8
 # The card's peaks (NVIDIA's H100 SXM data sheet, 700 W): f32 outside the
 # tensor cores, dense TF32 in them, and HBM3.
 F32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
 BF16_FLOPS = 989e12             # dense bf16 on the tensor cores
 # How each kernel does its products: the four f32 kernels in 3xTF32 on
-# the tensor cores (three TF32 products each), the gather decode's bf16
-# instantiation in bf16 (one product).
+# the tensor cores (three TF32 products each), the bf16 instantiations in
+# bf16 (one product).
 MATH = {"decode_blend_gather": "tf32x3", "decode_blend": "tf32x3",
         "jet_fwd": "tf32x3", "jet_bwd": "tf32x3",
-        "decode_blend_gather_bf16": "bf16"}
+        "decode_blend_gather_bf16": "bf16", "decode_blend_bf16": "bf16",
+        "jet_fwd_bf16": "bf16", "jet_bwd_bf16": "bf16"}
 REPLACES = {
     "decode_blend_gather": "space_time_pde_tpu/ops/fused_query.py:244",
     "decode_blend_gather_bf16": "space_time_pde_tpu/ops/fused_query.py:244",
     "decode_blend": "space_time_pde_tpu/ops/fused_query.py:400",
+    "decode_blend_bf16": "space_time_pde_tpu/ops/fused_query.py:400",
     "jet_fwd": "space_time_pde_tpu/ops/fused_jet.py:175",
     "jet_bwd": "space_time_pde_tpu/ops/fused_jet.py:219",
+    "jet_fwd_bf16": "space_time_pde_tpu/ops/fused_jet.py:175",
+    "jet_bwd_bf16": "space_time_pde_tpu/ops/fused_jet.py:219",
 }
 SOURCES = {
     "decode_blend_gather": "space_time_pde_torch/csrc/fused_query.cu",
     "decode_blend_gather_bf16": "space_time_pde_torch/csrc/fused_query.cu",
     "decode_blend": "space_time_pde_torch/csrc/fused_query.cu",
+    "decode_blend_bf16": "space_time_pde_torch/csrc/fused_query.cu",
     "jet_fwd": "space_time_pde_torch/csrc/fused_jet.cu",
     "jet_bwd": "space_time_pde_torch/csrc/fused_jet.cu",
+    "jet_fwd_bf16": "space_time_pde_torch/csrc/fused_jet_bf16.cu",
+    "jet_bwd_bf16": "space_time_pde_torch/csrc/fused_jet_bf16.cu",
 }
 PATHS = {"decode_blend_gather": "eval", "decode_blend": "off_path",
          "jet_fwd": "train", "jet_bwd": "train",
-         "decode_blend_gather_bf16": "eval"}
+         "decode_blend_gather_bf16": "eval", "decode_blend_bf16": "off_path",
+         "jet_fwd_bf16": "train", "jet_bwd_bf16": "train"}
 T0 = time.perf_counter()
 
 
@@ -349,9 +398,11 @@ def ptxas_summary(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(
-                r"\d+((?:[a-z]+_)+(?:[a-z]+\d+_)*kernel)(I(?:L[ib]\d+E)+E)?",
-                m.group(1))
-            args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
+                r"\d+((?:[a-z]+_)+(?:[a-z]+\d+_)*kernel)"
+                r"(I(?:L[ib]\d+E|f|13__nv_bfloat16)+E)?", m.group(1))
+            args = [a.group(1) or ("float" if a.group(0) == "f" else "bf16")
+                    for a in re.finditer(r"L[ib](\d+)E|f|13__nv_bfloat16",
+                                         k.group(2) or "")]
             name = k.group(1) + (f"<{', '.join(args)}>" if args else "")
             spills = "spill not reported"
             continue
@@ -370,8 +421,10 @@ def bound(kind, *, n, c, dim, nf, out, n_cells=0, math="ffma"):
     """(bound_ms, bound_by) of one call: the larger of the operations it
     needs over the peak of ``math`` (f32 operations over F32_FLOPS for
     "ffma"; three TF32 operations for each over TF32_FLOPS for
-    "tf32x3"; bf16 operations over BF16_FLOPS for "bf16", whose table and
-    weights are read as 2 bytes a value) and of the bytes it must move
+    "tf32x3"; bf16 operations over BF16_FLOPS for "bf16", whose latent
+    rows, weights and stored chains are 2 bytes a value, except the f32
+    ``corner_bias`` of the pre-gathered decode and the jets, the jets'
+    layer-4 chains and every kernel output) and of the bytes it must move
     (each input read once, each output written once) over HBM_BYTES.
     Per corner row the decode needs (C + D) 31nf multiply-adds for the
     skip terms and 170 nf^2 for the hidden layers; the jet runs the
@@ -385,7 +438,10 @@ def bound(kind, *, n, c, dim, nf, out, n_cells=0, math="ffma"):
     hidden = 170 * nf * nf
     rows = n * k
     wb = 2 if math == "bf16" else 4
-    weights = wb * ((c + dim + k) * s + hidden + nf * out) + 4 * out
+    cbb = wb if kind == "decode_blend_gather" else 4    # corner_bias
+    weights = wb * ((c + dim) * s + hidden + nf * out) + cbb * k * s \
+        + 4 * out
+    weights32 = 4 * ((c + dim + k) * s + hidden + nf * out + out)
     chains = dim + 1
     blocks = 1 + dim + dim * (dim + 1) // 2
     head = 2 * n * blocks * (k * chains * nf + nf * out)
@@ -395,15 +451,17 @@ def bound(kind, *, n, c, dim, nf, out, n_cells=0, math="ffma"):
             + 4 * n * out
     elif kind == "decode_blend":
         flop = 2 * rows * ((c + dim) * s + hidden + nf) + 2 * n * nf * out
-        byts = 4 * rows * c + 4 * n * dim + weights + 4 * n * out
+        byts = wb * rows * c + 4 * n * dim + weights + 4 * n * out
     elif kind == "jet_fwd":
         flop = 2 * rows * (chains * hidden + (c + dim) * s) + head
-        byts = 4 * rows * c + 4 * n * dim + weights + 4 * n * blocks * out
+        byts = wb * rows * c + 4 * n * dim + weights + 4 * n * blocks * out
     else:
         flop = 2 * rows * (2 * chains * hidden + 2 * c * s) + 2 * head
-        saved = rows * chains * s * 4 + rows * s
-        byts = 2 * 4 * rows * c + 4 * n * dim + 2 * weights + saved \
-            + 4 * n * blocks * out
+        # The chains of layers 0-3 in the compute type, layer 4's in f32,
+        # and the masks; d feats2 and the gradients written in f32.
+        saved = rows * chains * (wb * (s - nf) + 4 * nf) + rows * s
+        byts = (wb + 4) * rows * c + 4 * n * dim + weights + weights32 \
+            + saved + 4 * n * blocks * out
     t_op = (3 * flop / TF32_FLOPS if math == "tf32x3"
             else flop / (BF16_FLOPS if math == "bf16" else F32_FLOPS)) * 1e3
     t_mem = byts / HBM_BYTES * 1e3
@@ -431,8 +489,8 @@ def load_imnet(asset, dim, device):
 def decode_inputs(imnet, device, spatial):
     """The decode checks' inputs: N_CHECK seeded points on a seeded latent
     grid of ``spatial`` as (cell_flat, frac, f32 table, packed weights,
-    the wrappers' keywords), and the f32 function's float64 value
-    there (the plain twin in float64)."""
+    the wrappers' keywords), the f32 function's float64 value there (the
+    plain twin in float64), and the grid and the points themselves."""
     from space_time_pde_torch.ops import fused_query as fq
     from space_time_pde_torch.ops.grid_interp import _locate
 
@@ -449,7 +507,8 @@ def decode_inputs(imnet, device, spatial):
     want64 = fq.decode_blend_gather_plain(
         table.double(), cell_flat, frac.double(),
         {k: v.double() for k, v in packed.items()}, **kw)
-    return cell_flat, frac, table, packed, kw, want64.cpu().numpy()
+    return (cell_flat, frac, table, packed, kw, want64.cpu().numpy(), grid,
+            pts)
 
 
 def kernel_vs_plain(imnet, device, spatial):
@@ -458,7 +517,7 @@ def kernel_vs_plain(imnet, device, spatial):
     from space_time_pde_torch.ops import fused_query as fq
 
     dim = len(spatial)
-    cell_flat, frac, table, packed, kw, want64 = decode_inputs(
+    cell_flat, frac, table, packed, kw, want64, _, _ = decode_inputs(
         imnet, device, spatial)
     feats2 = table[cell_flat.long()].reshape(
         -1, imnet.in_features).contiguous()
@@ -543,19 +602,20 @@ def _held(what, got, plain32, plain64, masked, flips_ok):
     return float((got.double() - plain32.double()).abs().max())
 
 
-def _flips_near_zero(kmasks, pres64):
-    """Whether every branch where the kernel and float64 differ lies
-    within FLIP_REL of 0; prints the flip count."""
+def _flips_near_zero(kmasks, pres, rel=FLIP_REL, what="kernel vs float64"):
+    """Whether every branch where the kernel and the reference whose
+    pre-activations are ``pres`` differ lies within ``rel`` of 0 (of its
+    layer's max |pre|); prints the flip count."""
     flips, ok = 0, True
-    for m, pre in zip(kmasks, pres64):
+    for m, pre in zip(kmasks, pres):
         pre = pre.reshape(m.shape)
         flip = m != (pre >= 0)
         flips += int(flip.sum())
         if flip.any():
             ok &= float(pre[flip].abs().max()) <= \
-                FLIP_REL * float(pre.abs().max())
-    print(f"  kernel vs float64 branches: {flips} flips, all within "
-          f"{FLIP_REL:g} of their layer's max |pre|: {ok}", flush=True)
+                rel * float(pre.abs().max())
+    print(f"  {what} branches: {flips} flips, all within {rel:g} of their "
+          f"layer's max |pre|: {ok}", flush=True)
     return ok
 
 
@@ -676,11 +736,12 @@ def buffers_as_flax(module):
     return unflatten_tree(flat) or None
 
 
-def reference_step(step_ref, device, use_bf16=False):
+def reference_step(step_ref, device, use_bf16=False, pde_bf16=False):
     """The training step of a ``scripts/export_torch_train_ref.py`` file
     on ``device``: (cfg, pde layer, optimizer, state, batch, ref arrays,
     spec), with the seeded weights loaded into the state's models;
-    ``use_bf16``: the models under the bf16 compute policy."""
+    ``use_bf16``: the models under the bf16 compute policy, with
+    ``pde_bf16`` the jet too."""
     from space_time_pde_torch.bridge import (
         load_flax_params, seeded_flax_params)
     from space_time_pde_torch.physics import get_pde_layer
@@ -692,7 +753,7 @@ def reference_step(step_ref, device, use_bf16=False):
         ref = {k: z[k] for k in z.files}
     spec = json.loads(str(ref["spec"]))
     cfg = Config.from_dict(spec["config"])
-    cfg.model.use_bf16 = use_bf16
+    cfg.model.use_bf16, cfg.train.pde_bf16 = use_bf16, pde_bf16
     lres_shape = ref["lres"].shape[1:-1]
     unet, imnet = build_models(cfg, lres_shape, device)
     opt = make_optimizer(cfg)
@@ -738,7 +799,8 @@ def train_step_vs_jax(device, step_ref):
 
 
 def check_step(state, metrics, ref, spec, note, verbose=True, grad64=None,
-               loss_rtol=LOSS_RTOL, label="JAX f32", leaf_norms=False):
+               loss_rtol=LOSS_RTOL, label="JAX f32", leaf_norms=False,
+               term_slack=None):
     """Phase 8's rule on a step's loss terms, gradients (the parameters'
     ``.grad``) and, with BatchNorm, new running statistics: the names
     that fail it (printed when ``verbose``). ``grad64``: {leaf: float64
@@ -750,7 +812,11 @@ def check_step(state, metrics, ref, spec, note, verbose=True, grad64=None,
     for the same leaf (phase I, where the reference's worst leaf is
     0.416 of its scale: a zeroed leaf reads rel-L2 1), except a leaf
     that is 0 up to rounding, held in units of the model's largest
-    gradient (its rel-L2 is noise over noise)."""
+    gradient (its rel-L2 is noise over noise). ``term_slack``: a loss
+    term outside ``loss_rtol`` still passes if it is no farther from the
+    float64 term than ``term_slack`` times the reference's own distance
+    (phase M, whose bf16 jet puts the PDE terms' rounding noise at the
+    size of ``loss_rtol``)."""
     log = print if verbose else (lambda *a, **k: None)
     unet, imnet = state.unet, state.imnet
     terms32, terms64 = spec["terms32"], spec["terms64"]
@@ -760,13 +826,17 @@ def check_step(state, metrics, ref, spec, note, verbose=True, grad64=None,
             continue
         got = float(v)
         rel = abs(got - terms32[k]) / max(abs(terms32[k]), 1e-30)
+        own = abs(terms32[k] - terms64[k])
+        ratio = abs(got - terms64[k]) / own if own else float("inf")
         log(f"  {k:18s} port {got:.8g}  {label} {terms32[k]:.8g}  "
-            f"float64 {terms64[k]:.8g}  rel diff vs JAX {rel:.2e}",
-            flush=True)
+            f"float64 {terms64[k]:.8g}  rel diff vs JAX {rel:.2e}"
+            + (f"; distance from float64 {ratio:.2f}x {label}'s"
+               if term_slack else ""), flush=True)
         # The temperature residual is ~1e-17 (b == 0 on Taylor-Green):
         # read it against the total loss.
         if abs(got - terms32[k]) > loss_rtol * max(abs(terms32[k]),
-                                                   1e-6 * terms32["loss"]):
+                                                   1e-6 * terms32["loss"]) \
+                and not (term_slack and ratio <= term_slack):
             bad.append(k)
     rtol = spec["grad_rtol"]
     jax_need = max(float(ref[k]) for k in ref if k.startswith("need/"))
@@ -1233,36 +1303,25 @@ def rb2d_real_windows(device, card):
     return launches
 
 
-def bf16_kernel_vs_plain(imnet, device, spatial):
-    """Phase G: the gather decode's bf16 instantiation against its bf16
-    twin on phase 3's (10's) N_CHECK points and latent grid, the table
-    rounded to bf16; the reference is the f32 function in float64."""
-    from space_time_pde_torch.ops import fused_query as fq
-
-    dim = len(spatial)
-    cell_flat, frac, table, packed, kw, want64 = decode_inputs(
-        imnet, device, spatial)
-    table16 = table.to(torch.bfloat16)
-    kw["compute_dtype"] = torch.bfloat16
-    kernel = lambda: fq.decode_blend_gather(table16, cell_flat, frac, packed,
-                                            **kw)
-    plain = lambda: fq.decode_blend_gather_plain(table16, cell_flat, frac,
-                                                 packed, **kw)
+def bf16_decode_vs_twin(name, kernel, plain, want64, bound_kw):
+    """Phases G and L: a bf16 decode kernel (``kernel()``) against its
+    bf16 twin (``plain()``) on N_CHECK points, per point within
+    BF16_DIRECT of max |twin|, and against the f32 function in float64
+    (``want64``) at most BF16_KERNEL_SLACK times as far as the twin;
+    CUDA-event times against the bf16 bound (``bound_kw``: its kind and
+    shape). Returns (the kernel's row, its output)."""
     scale = float(np.abs(want64).max())
     got, twin = kernel(), plain()
     torch.cuda.synchronize()
-    err = (got - twin).abs()
-    max_abs = float(err.max())
+    max_abs = float((got - twin).abs().max())
     direct = max_abs / (BF16_DIRECT * float(twin.abs().max()))
     need_k = atol_needed(got.cpu().numpy(), want64, scale, RTOL)
     need_p = atol_needed(twin.cpu().numpy(), want64, scale, RTOL)
     p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kernel, kernel, plain))
-    shape = dict(n=N_CHECK, c=imnet.in_features, dim=dim, nf=imnet.nf,
-                 out=imnet.out_features, n_cells=table.shape[0])
-    b_ms, b_by = bound("decode_blend_gather", math="bf16", **shape)
-    b32, _ = bound("decode_blend_gather", **shape)
-    say(f"decode_blend_gather_bf16: {N_CHECK} pts at D={dim} "
-        f"C={imnet.in_features} nf={imnet.nf}: vs its bf16 twin max abs err "
+    b_ms, b_by = bound(math="bf16", **bound_kw)
+    b32, _ = bound(**bound_kw)
+    say(f"{name}: {N_CHECK} pts at D={bound_kw['dim']} C={bound_kw['c']} "
+        f"nf={bound_kw['nf']}: vs its bf16 twin max abs err "
         f"{max_abs:.3e} = {direct:.3f} of the limit ({BF16_DIRECT:g} x "
         f"max|twin|); vs the float64 f32 function (max|ref| {scale:.4e}, "
         f"rtol {RTOL:g}) the kernel needs atol {need_k:.3e}, the bf16 twin "
@@ -1272,13 +1331,34 @@ def bf16_kernel_vs_plain(imnet, device, spatial):
         f"{100 * b_ms / ((k1 + k2) / 2):.1f}% of it)")
     if direct > 1.0 or need_k > BF16_KERNEL_SLACK * need_p or \
             not torch.isfinite(got).all():
-        raise SystemExit(f"decode_blend_gather_bf16 disagrees with its twin "
-                         f"(direct {direct:.3f} of the limit; vs float64 "
-                         f"atol {need_k:.3e}, twin {need_p:.3e})")
-    return {"max_abs_err": max_abs, "ms": (k1 + k2) / 2,
-            "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms, "bound_by": b_by,
-            "bound_f32_ms": b32, "atol_vs_f64": need_k,
-            "plain_atol_vs_f64": need_p, "direct_share": direct}
+        raise SystemExit(f"{name} disagrees with its twin (direct "
+                         f"{direct:.3f} of the limit; vs float64 atol "
+                         f"{need_k:.3e}, twin {need_p:.3e})")
+    return ({"max_abs_err": max_abs, "ms": (k1 + k2) / 2,
+             "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms, "bound_by": b_by,
+             "bound_f32_ms": b32, "atol_vs_f64": need_k,
+             "plain_atol_vs_f64": need_p, "direct_share": direct}, got)
+
+
+def bf16_kernel_vs_plain(imnet, device, spatial):
+    """Phase G: the gather decode's bf16 instantiation against its bf16
+    twin on phase 3's (10's) N_CHECK points and latent grid, the table
+    rounded to bf16, by :func:`bf16_decode_vs_twin`."""
+    from space_time_pde_torch.ops import fused_query as fq
+
+    cell_flat, frac, table, packed, kw, want64, _, _ = decode_inputs(
+        imnet, device, spatial)
+    table16 = table.to(torch.bfloat16)
+    kw["compute_dtype"] = torch.bfloat16
+    return bf16_decode_vs_twin(
+        "decode_blend_gather_bf16",
+        lambda: fq.decode_blend_gather(table16, cell_flat, frac, packed,
+                                       **kw),
+        lambda: fq.decode_blend_gather_plain(table16, cell_flat, frac,
+                                             packed, **kw),
+        want64, dict(kind="decode_blend_gather", n=N_CHECK,
+                     c=imnet.in_features, dim=len(spatial), nf=imnet.nf,
+                     out=imnet.out_features, n_cells=table.shape[0]))[0]
 
 
 def rb2d_real_windows_bf16(device, card):
@@ -1350,19 +1430,22 @@ def rb2d_real_windows_bf16(device, card):
     return launches
 
 
-def bf16_step_vs_jax(device):
-    """Phase I: phase 8's flagship step under the bf16 policy, held by
-    phase 8's rule (``check_step``) to JAX-CPU bf16
-    (``BF16_STEP_REF``: its loss terms at BF16_LOSS_RTOL, its distances
-    from phase 8's float64 leaves), and every leaf's rel-L2 distance from
-    float64 within STEP_SLACK times JAX bf16's for that leaf."""
+def bf16_step_vs_jax(device, pde_bf16=False):
+    """Phase I (M): phase 8's flagship step under the bf16 policy (with
+    ``pde_bf16``, the bf16 jet kernels too), held by phase 8's rule
+    (``check_step``) to JAX-CPU bf16 (``BF16_STEP_REF``;
+    ``BF16_PDE_STEP_REF``: its loss terms at BF16_LOSS_RTOL, its
+    distances from phase 8's float64 leaves), and every leaf's rel-L2
+    distance from float64 within STEP_SLACK times JAX bf16's for that
+    leaf."""
     from space_time_pde_torch.ops import fused_jet as fj
     from space_time_pde_torch.ops import fused_query as fq
     from space_time_pde_torch.train import make_loss_fn, make_train_step
 
     cfg, pde, opt, state, batch, ref, _ = reference_step(
-        STEP_REF, device, use_bf16=True)
-    with np.load(BF16_STEP_REF, allow_pickle=False) as z:
+        STEP_REF, device, use_bf16=True, pde_bf16=pde_bf16)
+    with np.load(BF16_PDE_STEP_REF if pde_bf16 else BF16_STEP_REF,
+                 allow_pickle=False) as z:
         ref16 = {k: z[k] for k in z.files}
     spec16 = json.loads(str(ref16["spec"]))
     step_fn = make_train_step(
@@ -1372,19 +1455,78 @@ def bf16_step_vs_jax(device):
     state, metrics = step_fn(state, batch)
     torch.cuda.synchronize()
     launches = {**fj.LAUNCHES, **fq.LAUNCHES}
-    if launches["jet_fwd"] < 1 or launches["jet_bwd"] < 1:
-        raise SystemExit(f"the bf16 step did not run the jet kernels: "
-                         f"{launches}")
+    jets, other = ("jet_fwd", "jet_bwd"), ("jet_fwd_bf16", "jet_bwd_bf16")
+    if pde_bf16:
+        jets, other = other, jets
+    if min(launches[k] for k in jets) < 1 or max(launches[k]
+                                                 for k in other):
+        raise SystemExit(f"the bf16 step did not run the {jets} kernels "
+                         f"alone: {launches}")
     # Phase 8's float64 leaves and scales, JAX bf16's terms and needs.
     held = {k: v for k, v in ref.items()
             if not k.startswith(("need/", "relnorm/"))}
     held.update({k: v for k, v in ref16.items() if k != "spec"})
     bad = check_step(
         state, metrics, held, dict(spec16, terms32=spec16["terms_bf16"]),
-        f"convolutions without cuDNN, bf16; launches {launches}",
-        loss_rtol=BF16_LOSS_RTOL, label="JAX bf16", leaf_norms=True)
+        f"convolutions without cuDNN, bf16{', jet bf16' * pde_bf16}; "
+        f"launches {launches}",
+        loss_rtol=BF16_LOSS_RTOL, label="JAX bf16", leaf_norms=True,
+        term_slack=STEP_SLACK if pde_bf16 else None)
     if bad:
         raise SystemExit(f"the bf16 training step disagrees with JAX: {bad}")
+
+
+def bf16_train_clis(card, pde_bf16=False):
+    """Both train CLIs with ``--use_bf16 true`` (phase J; with
+    ``pde_bf16`` also ``--pde_bf16 true``, phase N), phases 9's and 15's
+    flags, 2 epochs x 8 steps: finite losses, s/step of epoch 1, and the
+    path's launches of each, which must take one jet instantiation alone
+    (f32 under ``--use_bf16`` alone, bf16 with ``--pde_bf16``) and the
+    bf16 gather decode (the epoch eval)."""
+    from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.ops import fused_query as fq
+
+    paths = {}
+    extra = ["--use_bf16", "true"] + ["--pde_bf16", "true"] * pde_bf16
+    jets, other = ("jet_fwd", "jet_bwd"), ("jet_fwd_bf16", "jet_bwd_bf16")
+    if pde_bf16:
+        jets, other = other, jets
+    policy = f"policy=bf16 (jet {'bf16' if pde_bf16 else 'f32'})"
+
+    def train(name, driver, flags, points):
+        fj.reset_launches()
+        fq.reset_launches()
+        res = driver.main(flags + extra + ["--epochs", "2"])
+        torch.cuda.synchronize()
+        paths[name] = {**fj.LAUNCHES, **fq.LAUNCHES}
+        losses = [e[k] for e in res["epochs"] for k in e
+                  if k.endswith("loss")]
+        sps = res["epochs"][1]["sec_per_step"]
+        say(f"{name}: {' '.join(extra)}, {res['step']} steps, "
+            f"{sps:.4f} s/step in epoch 1 ({points / sps:.0f} points/s) on "
+            f"{card}; losses " + ", ".join(
+                f"{e['loss']:.5f}" for e in res["epochs"])
+            + f"; launches {paths[name]}")
+        if res["step"] != 16 or not np.isfinite(losses).all() or \
+                policy not in res["provenance"]:
+            raise SystemExit(f"{name}: the bf16 training run failed")
+        for k in jets + ("decode_blend_gather_bf16",):
+            if paths[name][k] < 1:
+                raise SystemExit(f"{k} was not launched by {name}")
+        for k in other:
+            if paths[name][k]:
+                raise SystemExit(f"{name} launched {k}")
+
+    tag = "pde_bf16" if pde_bf16 else "bf16"
+    with tempfile.TemporaryDirectory() as tmp:
+        taylor_green_folder(tmp)
+        train(f"rb2d_{tag}_train", load_driver("rb2d", "train_torch.py"),
+              rb2d_flags(tmp, os.path.join(tmp, "log")), 8 * 1024)
+    with tempfile.TemporaryDirectory() as tmp:
+        beltrami_files(tmp, (42, 100, 101, 7))
+        train(f"turb3d_{tag}_train", load_driver("turb3d", "train_torch.py"),
+              turb3d_flags(tmp, os.path.join(tmp, "log")), 4 * 1024)
+    return paths
 
 
 def bf16_clis(card):
@@ -1393,40 +1535,9 @@ def bf16_clis(card):
     ``--decode_dtype bf16`` at full width (points/s); each path's launch
     counts."""
     from space_time_pde_torch.data import save_npz, taylor_green_fields
-    from space_time_pde_torch.ops import fused_jet as fj
     from space_time_pde_torch.ops import fused_query as fq
 
-    paths = {}
-
-    def train(name, driver, flags, points):
-        fj.reset_launches()
-        fq.reset_launches()
-        res = driver.main(flags + ["--use_bf16", "true", "--epochs", "2"])
-        torch.cuda.synchronize()
-        paths[name] = {**fj.LAUNCHES, **fq.LAUNCHES}
-        losses = [e[k] for e in res["epochs"] for k in e
-                  if k.endswith("loss")]
-        sps = res["epochs"][1]["sec_per_step"]
-        say(f"{name}: --use_bf16 true, {res['step']} steps, "
-            f"{sps:.4f} s/step in epoch 1 ({points / sps:.0f} points/s) on "
-            f"{card}; losses " + ", ".join(
-                f"{e['loss']:.5f}" for e in res["epochs"])
-            + f"; launches {paths[name]}")
-        if res["step"] != 16 or not np.isfinite(losses).all() or \
-                "policy=bf16" not in res["provenance"]:
-            raise SystemExit(f"{name}: the bf16 training run failed")
-        for k in ("jet_fwd", "jet_bwd", "decode_blend_gather_bf16"):
-            if paths[name][k] < 1:
-                raise SystemExit(f"{k} was not launched by {name}")
-
-    with tempfile.TemporaryDirectory() as tmp:
-        taylor_green_folder(tmp)
-        train("rb2d_bf16_train", load_driver("rb2d", "train_torch.py"),
-              rb2d_flags(tmp, os.path.join(tmp, "log")), 8 * 1024)
-    with tempfile.TemporaryDirectory() as tmp:
-        beltrami_files(tmp, (42, 100, 101, 7))
-        train("turb3d_bf16_train", load_driver("turb3d", "train_torch.py"),
-              turb3d_flags(tmp, os.path.join(tmp, "log")), 4 * 1024)
+    paths = bf16_train_clis(card)
 
     def evaluate(name, driver, flags):
         fq.reset_launches()
@@ -1462,6 +1573,173 @@ def bf16_clis(card):
                   "val", "--eval_windows", "4",
                   "--save_path", os.path.join(tmp, "pred.npz")])
     return paths
+
+
+def _bf16_held(what, got, twin, ref64, masked, flips_ok):
+    """Phase K's rules on one quantity: direct, within BF16_DIRECT of max
+    |twin| of the bf16 twin; distance, the atol it needs against the f32
+    function in float64 (rtol JET_RTOL) at most BF16_KERNEL_SLACK times
+    the twin's (floor JET_FLOOR). Where the kernel took a branch near 0
+    that the twin did not (``flips_ok``), both on the kernel's own
+    branches (``masked``: the twin and the float64 function run on them).
+    Prints the readings; raises when neither holds; returns the max abs
+    error against the twin."""
+    def readings(t, r64):
+        g, t, r64 = (a.detach().double().cpu().numpy()
+                     for a in (got, t, r64))
+        scale = float(np.abs(r64).max())
+        need_k = atol_needed(g, r64, scale, JET_RTOL)
+        need_t = atol_needed(t, r64, scale, JET_RTOL)
+        direct = float(np.abs(g - t).max()) / (
+            BF16_DIRECT * float(np.abs(t).max()))
+        limit = max(BF16_KERNEL_SLACK * need_t, JET_FLOOR)
+        return direct, need_k, need_t, limit, direct <= 1.0 and \
+            need_k <= limit
+
+    finite = bool(torch.isfinite(got).all())
+    direct, need_k, need_t, limit, ok = readings(twin, ref64)
+    ok &= finite
+    note = "ok" if ok else "FAIL"
+    if not ok and flips_ok and finite:
+        dm, km, tm, lm, ok = readings(*masked)
+        note = (f"branch flips near 0; on the kernel's branches direct "
+                f"{dm:.3f}, needs {km:.3e}, twin {tm:.3e}, limit {lm:.3e} "
+                + ("ok" if ok else "FAIL"))
+    print(f"  {what:12s} direct {direct:.3f} of the limit; vs float64 the "
+          f"kernel needs atol {need_k:.3e}, bf16 twin {need_t:.3e}; limit "
+          f"{limit:.3e} {note}", flush=True)
+    if not ok:
+        raise SystemExit(f"{what}: bf16 jet kernel disagrees with its twin")
+    return float((got.double() - twin.double()).abs().max())
+
+
+def bf16_jet_vs_plain(imnet, device, spatial, n):
+    """Phase K: both bf16 jet kernels against their bf16 twins on phase 4's
+    (11's) n points and latent grid, the rows rounded to bf16 and the
+    weights packed at bf16: the forward's blocks (against
+    ``jet_fwd_plain`` at bf16) and the backward's d feats2 and 9 gradients
+    for phase 4's cotangent (against ``jet_bwd_bf16_plain``), by
+    :func:`_bf16_held`; the reference is the f32 function (phase 4's
+    twin) in float64. CUDA-event times against the bf16 bound."""
+    from space_time_pde_torch.ops import _build
+    from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.ops import fused_query as fq
+
+    dim, bf = len(spatial), torch.bfloat16
+    feats2, frac, packed, ybar, kw = jet_inputs(imnet, device, spatial, n)
+    with torch.no_grad():
+        p16 = fq.pack_imnet_params(imnet, dtype=bf)
+    f16 = feats2.to(bf)
+    kw16 = dict(kw, compute_dtype=bf)
+    p64 = {k: v.double() for k, v in packed.items()}
+    f64, fr64 = feats2.double(), frac.double()
+
+    out, ws = fj.jet_fwd(f16, frac, p16, **kw16)
+    torch.cuda.synchronize()
+    km = fj.workspace_masks(ws, n, dim, imnet.nf, compute_dtype=bf)
+    twin, pres = fj.jet_fwd_plain(f16, frac, p16, return_pre=True, **kw16)
+    names = (["value"] + [f"jac_{a}" for a in range(dim)]
+             + [f"hess_{a}{b}" for a, b in fj.tri_pairs(dim)])
+    print(f"jet_fwd_bf16: {n} pts at D={dim} C={imnet.in_features} "
+          f"nf={imnet.nf} vs the bf16 twin (direct {BF16_DIRECT:g} of "
+          f"max|twin|) and the f32 function in float64 (rtol "
+          f"{JET_RTOL:g}, {BF16_KERNEL_SLACK:g}x the twin's atol):",
+          flush=True)
+    flips_ok = _flips_near_zero(km, pres, BF16_FLIP_REL,
+                                "bf16 kernel vs bf16 twin")
+    del pres
+    want64 = fj.jet_fwd_plain(f64, fr64, p64, **kw)
+    twin_m = fj.jet_fwd_plain(f16, frac, p16, masks=km, **kw16)
+    want64_m = fj.jet_fwd_plain(f64, fr64, p64, masks=km, **kw)
+    fwd_err = max(_bf16_held(nm, out[:, i], twin[:, i], want64[:, i],
+                             (twin_m[:, i], want64_m[:, i]), flips_ok)
+                  for i, nm in enumerate(names))
+    del want64, twin_m, want64_m
+
+    y64 = ybar.double()
+    dfeats, grads = fj.jet_bwd(f16, frac, p16, ws, ybar, **kw16)
+    torch.cuda.synchronize()
+    d16, g16 = fj.jet_bwd_bf16_plain(f16, frac, p16, ybar, **kw)
+    d64, g64 = fj.jet_bwd_plain(f64, fr64, p64, y64, **kw)
+    d16m, g16m = fj.jet_bwd_bf16_plain(f16, frac, p16, ybar, masks=km, **kw)
+    d64m, g64m = fj.jet_bwd_plain(f64, fr64, p64, y64, masks=km, **kw)
+    print("jet_bwd_bf16: d feats2 and the packed-parameter gradients (f32 "
+          "sums) for phase 4's cotangent:", flush=True)
+    bwd_err = _bf16_held("dfeats2", dfeats, d16, d64, (d16m, d64m),
+                         flips_ok)
+    for name in grads:
+        bwd_err = max(bwd_err, _bf16_held(
+            name, grads[name], g16[name], g64[name],
+            (g16m[name], g64m[name]), flips_ok))
+    del d64, g64, d16m, g16m, d64m, g64m, km
+
+    lib = _build.load("fused_jet_bf16")
+    shape = (n, feats2.shape[-1], dim, imnet.nf, packed["w5"].shape[-1])
+    say(f"bf16 jet workspace at D={dim}, {n} pts: forward "
+        f"{lib.stpde_jet_fwd_bf16_workspace(*shape)} bytes, backward "
+        f"scratch {lib.stpde_jet_bwd_bf16_workspace(*shape)} bytes")
+    fwd_k = lambda: fj.jet_fwd(f16, frac, p16, **kw16)
+    fwd_p = lambda: fj.jet_fwd_plain(f16, frac, p16, **kw16)
+    bwd_k = lambda: fj.jet_bwd(f16, frac, p16, ws, ybar, **kw16)
+    bwd_p = lambda: fj.jet_bwd_bf16_plain(f16, frac, p16, ybar, **kw)
+    rows = {}
+    for kind, kernel, plain, err in (("jet_fwd", fwd_k, fwd_p, fwd_err),
+                                     ("jet_bwd", bwd_k, bwd_p, bwd_err)):
+        p1, k1, k2, p2 = (cuda_ms(f, 3) for f in (plain, kernel, kernel,
+                                                   plain))
+        shape = dict(n=n, c=imnet.in_features, dim=dim, nf=imnet.nf,
+                     out=imnet.out_features)
+        b_ms, b_by = bound(kind, math="bf16", **shape)
+        b32, _ = bound(kind, **shape)
+        ms = (k1 + k2) / 2
+        rows[kind + "_bf16"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": b32}
+        say(f"{kind}_bf16 (D={dim}, {n} pts): max abs err vs bf16 twin "
+            f"{err:.3e}; kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/"
+            f"{p2:.3f} ms, bound {b_ms:.3f} ms ({b_by}, bf16 at "
+            f"{BF16_FLOPS / 1e12:g} TFLOP/s; {100 * b_ms / ms:.1f}% of it), "
+            f"f32 FFMA {b32:.3f} ms")
+    return rows
+
+
+def bf16_pregather_vs_plain(imnet, device, spatial):
+    """Phase L: the pre-gathered decode's bf16 instantiation
+    (``decode_blend`` at bf16, ``stpde_decode_blend_bf16``) against its
+    bf16 twin on phase 3's (10's) N_CHECK points and latent grid by phase
+    G's rule, then one scattered-point request through
+    ``fused_query_local_implicit_grid(gather="pregather")`` at bf16 on
+    the same grid and points (counted alone; it must launch that kernel
+    once and give its result bit for bit). Returns (row, launches)."""
+    from space_time_pde_torch.ops import fused_query as fq
+
+    dim, bf = len(spatial), torch.bfloat16
+    cell_flat, frac, table, packed, kw, want64, grid, pts = decode_inputs(
+        imnet, device, spatial)
+    feats2 = table.to(bf)[cell_flat.long()].reshape(
+        -1, imnet.in_features).contiguous()
+    kw = dict(kw, n_corners=2 ** dim, compute_dtype=bf)
+    row, got = bf16_decode_vs_twin(
+        "decode_blend_bf16",
+        lambda: fq.decode_blend(feats2, frac, packed, **kw),
+        lambda: fq.decode_blend_plain(feats2, frac, packed, **kw), want64,
+        dict(kind="decode_blend", n=N_CHECK, c=imnet.in_features, dim=dim,
+             nf=imnet.nf, out=imnet.out_features))
+    fq.reset_launches()
+    req = fq.fused_query_local_implicit_grid(
+        imnet, grid[None], pts[None], gather="pregather",
+        compute_dtype=bf)[0]
+    torch.cuda.synchronize()
+    launches = dict(fq.LAUNCHES)
+    same = torch.equal(req, got)
+    say(f"scattered-point request at bf16 ({N_CHECK} points, D={dim}, "
+        f"gather='pregather', off the main paths): launches {launches}; "
+        f"equal to the kernel's result bit for bit: {same}")
+    if launches["decode_blend_bf16"] != 1 or sum(launches.values()) != 1 \
+            or not same:
+        raise SystemExit("the bf16 scattered-point request did not run "
+                         "through decode_blend_bf16")
+    return row, launches
 
 
 def resume_from_jax(device, card):
@@ -2176,7 +2454,7 @@ def main():
     t0 = time.perf_counter()
     _build.load()
     log = _build.build_log()
-    for src in ("fused_query", "fused_jet"):
+    for src in ("fused_query", "fused_jet", "fused_jet_bf16"):
         for line in ptxas_summary(log.get(src, "")):
             print(f"{src}.cu {line}", flush=True)
     lib = _build.load()
@@ -2267,6 +2545,31 @@ def main():
     bf16_paths.update(bf16_clis(card))
     torch.cuda.empty_cache()
 
+    # Phases K-L: the bf16 jets and the bf16 pre-gathered decode against
+    # their twins at D = 3 and 4; L's scattered requests off the paths.
+    t_kn = time.perf_counter()
+    d3.update(bf16_jet_vs_plain(imnet3, device, (4, 16, 16), N_JET))
+    torch.cuda.empty_cache()
+    d4.update(bf16_jet_vs_plain(imnet4, device, (4, 8, 8, 8), N_JET4))
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        d3["decode_blend_bf16"], rb2d_off16 = bf16_pregather_vs_plain(
+            imnet3, device, (4, 16, 64))
+        d4["decode_blend_bf16"], turb3d_off16 = bf16_pregather_vs_plain(
+            imnet4, device, (4, 8, 8, 8))
+    torch.cuda.empty_cache()
+
+    # Phases M-N: the flagship step under --use_bf16 --pde_bf16 against
+    # JAX, and both train CLIs so.
+    say(f"rb2d flagship training step under use_bf16 + pde_bf16 vs the "
+        f"JAX-CPU bf16 reference "
+        f"({os.path.relpath(BF16_PDE_STEP_REF, ROOT)}):")
+    bf16_step_vs_jax(device, pde_bf16=True)
+    torch.cuda.empty_cache()
+    bf16_paths.update(bf16_train_clis(card, pde_bf16=True))
+    torch.cuda.empty_cache()
+    say(f"phases K-N took {time.perf_counter() - t_kn:.1f} s")
+
     by_path = {"rb2d_eval": rb2d_eval, "rb2d_train": rb2d_train,
                "turb3d_eval_val": turb3d_eval["val"],
                "turb3d_eval_test": turb3d_eval["test"],
@@ -2274,11 +2577,13 @@ def main():
                "rb2d_eval_real": rb2d_eval_real,
                "rb2d_bn_train": rb2d_bn_train, "rb2d_resume": rb2d_resume,
                **parallel, **bf16_paths}
-    off = {"rb2d_scattered": rb2d_off, "turb3d_scattered": turb3d_off}
+    off = {"rb2d_scattered": rb2d_off, "turb3d_scattered": turb3d_off,
+           "rb2d_scattered_bf16": rb2d_off16,
+           "turb3d_scattered_bf16": turb3d_off16}
     kernels = []
     for name in REPLACES:
         # The eval paths count only the decode kernels, the train paths
-        # all four.
+        # the jets and the epoch eval's decode.
         paths = {p: c[name] for p, c in {**by_path, **off}.items()
                  if c.get(name)}
         main_path = sum(c.get(name, 0) for c in by_path.values())

@@ -29,9 +29,11 @@ N epochs of this run (the schedule still spans ``--epochs``).
 
 ``--use_bf16 true`` trains under the bf16 compute policy (the encoder
 and ImNet in bf16 with f32 parameters, the jet f32, the epoch eval on
-the decode kernel's bf16 instantiation; printed in the provenance
-line); ``--pde_bf16 true`` with it (the bf16 jets) raises
-``NotImplementedError`` (ROADMAP queue 2).
+the decode kernel's bf16 instantiation); ``--pde_bf16 true`` with it
+runs the jet in bf16 too (the bf16 jet kernels), as the JAX trainer
+does, except under ``--space_devices``, whose sharded jet is f32 in
+both packages. The provenance line names the policy and the jet's
+dtype.
 
 ``--profile_epoch N`` writes a ``torch.profiler`` trace of epoch N to
 ``<log_dir>/profile/`` (Chrome trace JSON); ``--debug_nans`` checks the
@@ -71,8 +73,8 @@ from space_time_pde_torch.parallel.layout import Layout
 from space_time_pde_torch.physics.systems import (
     available_systems, get_pde_layer)
 from space_time_pde_torch.train import (
-    CliffDetector, build_models, init_state, make_eval_fn, make_loss_fn,
-    make_optimizer)
+    CliffDetector, build_models, init_state, jet_compute_dtype, make_eval_fn,
+    make_loss_fn, make_optimizer)
 from space_time_pde_torch.utils.checkpoint import CheckpointManager, resume
 from space_time_pde_torch.utils.config import add_args, config_from_args
 from space_time_pde_torch.utils.logging import MetricsLogger
@@ -90,10 +92,13 @@ def _loader(cfg, filename):
 
 def _provenance(cfg, device, sampler, layout) -> str:
     derivs = cfg.train.pde_derivs
+    jet16 = (jet_compute_dtype(cfg) == torch.bfloat16
+             and layout.n_space == 1)
     if cfg.train.alpha_pde <= 0:
         jet = "none (alpha_pde 0)"
     elif derivs == "jet" and cfg.model.fused_query:
-        jet = ("jet_fwd + jet_bwd (csrc/fused_jet.cu)"
+        jet = (("jet_fwd_bf16 + jet_bwd_bf16 (csrc/fused_jet_bf16.cu)"
+                if jet16 else "jet_fwd + jet_bwd (csrc/fused_jet.cu)")
                if device.type == "cuda" else "jet_fwd_plain (CPU twin)")
     else:
         jet = f"{derivs} (plain PyTorch)"
@@ -104,8 +109,9 @@ def _provenance(cfg, device, sampler, layout) -> str:
               else "plain PyTorch")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+    policy = f"bf16 (jet {'bf16' if jet16 else 'f32'})" if bf16 else "f32"
     return (f"train provenance: device={device} ({name}) "
-            f"policy={'bf16 (jet f32)' if bf16 else 'f32'} "
+            f"policy={policy} "
             f"tf32_matmul={torch.backends.cuda.matmul.allow_tf32} "
             f"tf32_cudnn={torch.backends.cudnn.allow_tf32} jet={jet} "
             f"eval_decode={decode} batch_assembly="

@@ -38,7 +38,9 @@ grid along x over S ranks (the data x space step), with
 ``--use_bf16 true`` trains under the bf16 compute policy (the encoder
 and ImNet in bf16 with f32 parameters, the jet f32, the epoch eval on
 the decode kernel's bf16 instantiation); ``--pde_bf16 true`` with it
-(the bf16 jets) raises ``NotImplementedError`` (ROADMAP queue 2).
+runs the jet in bf16 too (the bf16 jet kernels at D = 4), except under
+``--space_devices`` (the sharded jet is f32, as in JAX). The provenance
+line names the policy and the jet's dtype.
 
 Not carried over: the ``maybe_force_platform`` call and the 16-corner
 XLA:TPU compiler guard of the eval query (TPU workarounds).
@@ -62,8 +64,8 @@ from space_time_pde_torch.data.splits import check_train_files
 from space_time_pde_torch.parallel.layout import Layout
 from space_time_pde_torch.physics.systems import get_ns3d_pde_layer
 from space_time_pde_torch.train import (
-    CliffDetector, build_models, init_state, make_eval_fn, make_loss_fn,
-    make_optimizer)
+    CliffDetector, build_models, init_state, jet_compute_dtype, make_eval_fn,
+    make_loss_fn, make_optimizer)
 from space_time_pde_torch.utils.checkpoint import CheckpointManager, resume
 from space_time_pde_torch.utils.config import Config
 from space_time_pde_torch.utils.logging import MetricsLogger
@@ -155,12 +157,16 @@ def make_config(args) -> Config:
     return cfg
 
 
-def _provenance(device, sampler, alpha_pde, pde_derivs, layout,
-                bf16) -> str:
+def _provenance(cfg, device, sampler, layout) -> str:
+    alpha_pde, pde_derivs = cfg.train.alpha_pde, cfg.train.pde_derivs
+    bf16 = cfg.model.use_bf16
+    jet16 = (jet_compute_dtype(cfg) == torch.bfloat16
+             and layout.n_space == 1)
     if alpha_pde <= 0:
         jet = "none (alpha_pde 0)"
     elif pde_derivs == "jet":
-        jet = ("jet_fwd + jet_bwd at D=4 (csrc/fused_jet.cu)"
+        jet = ((f"jet_fwd{'_bf16' * jet16} + jet_bwd{'_bf16' * jet16} at "
+                f"D=4 (csrc/fused_jet{'_bf16' * jet16}.cu)")
                if device.type == "cuda" else "jet_fwd_plain (CPU twin)")
     else:
         jet = f"{pde_derivs} (plain PyTorch)"
@@ -169,8 +175,9 @@ def _provenance(device, sampler, alpha_pde, pde_derivs, layout,
               if device.type == "cuda" else "plain PyTorch")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+    policy = f"bf16 (jet {'bf16' if jet16 else 'f32'})" if bf16 else "f32"
     return (f"train provenance: device={device} ({name}) "
-            f"policy={'bf16 (jet f32)' if bf16 else 'f32'} "
+            f"policy={policy} "
             f"tf32_matmul={torch.backends.cuda.matmul.allow_tf32} "
             f"tf32_cudnn={torch.backends.cudnn.allow_tf32} "
             f"cudnn_in_step=False jet={jet} eval_decode={decode} "
@@ -236,8 +243,7 @@ def main(argv=None):
     step_fn = build_step(opt)
     # The eval runs the plain module (the same parameters either way).
     eval_fn = make_eval_fn(cfg, unet, imnet)
-    provenance = _provenance(device, sampler, args.alpha_pde,
-                             args.pde_derivs, layout, args.use_bf16)
+    provenance = _provenance(cfg, device, sampler, layout)
     if layout.is_main:
         print(provenance, flush=True)
 

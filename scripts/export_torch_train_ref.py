@@ -56,6 +56,17 @@ JAX bf16's gradient meets the float64 leaf (``need/``) and its relative
 L2 distance from it (``relnorm/``); the bf16 leaves themselves are not
 kept. Needs the ``rb2d`` file; a few minutes on the CPU.
 
+``rb2d_bf16_pde``: the ``rb2d`` step under ``use_bf16`` with
+``pde_bf16`` (the jet in bf16 too), kept as ``rb2d_bf16`` keeps its
+step. JAX's trainer takes the jnp jet on the CPU; here its loss is built
+with the fused-jet branch it takes on a TPU (``trainer.py:213-271``), the
+Pallas jet kernels at bf16 in interpret mode (``block_pts`` 256, as the
+trainer picks at D = 3), and the step runs op by op
+(``jax.disable_jit()``): under ``jit`` XLA keeps some bf16 results in f32
+(``--xla_allow_excess_precision=false`` does not stop it), and op by op
+every value rounds where the modules and kernels say. Needs the ``rb2d``
+file.
+
 ``rb2d_resume`` resumes the committed flagship checkpoint
 (``--ckpt``, the step of ``assets/r5_rb2d_4x_e900_230400_opt.npz``) as
 the JAX ``CheckpointManager`` does, with a ``--resume_epochs`` cosine
@@ -73,15 +84,20 @@ step from the same moments at rtol ``DP_RTOL`` (``dp_need/``).
 Runs on the CPU (JAX is forced there), a few minutes and a few GB.
 Usage:
     python scripts/export_torch_train_ref.py \
-        [--recipe turb3d | rb2d_bn | rb2d_bf16 | rb2d_resume]
+        [--recipe turb3d | rb2d_bn | rb2d_bf16 | rb2d_bf16_pde | rb2d_resume]
 """
 
 import argparse
+import contextlib
+import functools
 import json
 import os
 import shutil
 import sys
 import tempfile
+import time
+import types
+from unittest import mock
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -101,6 +117,7 @@ from space_time_pde_tpu.data.dataset4d import Field4DDataset
 from space_time_pde_tpu.data.generator import (
     abc_flow_fields, beltrami_realization_params)
 from space_time_pde_tpu.models import ImNet, UNet4d
+from space_time_pde_tpu.ops import fused_jet as jax_fused_jet
 from space_time_pde_tpu.physics.systems import get_pde_layer
 from space_time_pde_tpu.train import build_models, init_state, make_loss_fn
 from space_time_pde_tpu.train.trainer import make_optimizer
@@ -124,6 +141,7 @@ RECIPES = {"rb2d": "rb2d_train_step_ref.npz",
            "rb2d_bn": "rb2d_bn_train_step_ref.npz",
            "turb3d": "turb3d_train_step_ref.npz",
            "rb2d_bf16": "rb2d_bf16_train_step_ref.npz",
+           "rb2d_bf16_pde": "rb2d_bf16_pde_train_step_ref.npz",
            "rb2d_resume": "rb2d_resume_step_ref.npz"}
 
 
@@ -381,15 +399,51 @@ def step_reference(args):
           f"f64 {abs(terms32['loss'] - terms64['loss']) / abs(terms64['loss']):.3e}")
 
 
+@contextlib.contextmanager
+def pallas_jet_loss(cfg, unet, imnet, pde):
+    """JAX's ``make_loss_fn`` built with its fused-jet branch (the branch
+    it takes on a TPU; on a CPU it takes the jnp jet), called with the
+    Pallas jet kernels in interpret mode."""
+    tpu = [types.SimpleNamespace(platform="tpu")]
+    fused = functools.partial(jax_fused_jet.fused_query_jet, interpret=True)
+    with mock.patch.object(jax_fused_jet, "fused_query_jet", fused):
+        with mock.patch.object(jax, "devices", lambda *a, **k: tpu):
+            loss = make_loss_fn(cfg, unet, imnet, pde)
+        yield loss
+
+
+def port_terms(cfg_dict, params, ref, batch):
+    """The port's loss terms of the ``rb2d`` file's step under
+    ``cfg_dict`` on the CPU (its plain twins), for the record."""
+    tcfg = TConfig.from_dict(cfg_dict)
+    tunet, timnet = ttrain.build_models(tcfg, batch["lres"].shape[1:4],
+                                        "cpu")
+    bridge.load_flax_params(tunet, params["unet"])
+    bridge.load_flax_params(timnet, params["imnet"])
+    tpde = tphysics.get_pde_layer(
+        tcfg.physics.pde_system, mean=ref["channel_mean"],
+        std=ref["channel_std"],
+        **pde_kwargs("rb2d", tcfg, ref["coord_extents"]))
+    with torch.no_grad():
+        _, metrics = ttrain.make_loss_fn(tcfg, tunet, timnet, tpde)(
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+    return {k: float(v) for k, v in metrics.items()}
+
+
 def bf16_step_reference(args):
-    """The ``rb2d_bf16`` file: the ``rb2d`` file's step in JAX under
-    ``use_bf16``, held to that file's float64 gradients."""
+    """The ``rb2d_bf16`` and ``rb2d_bf16_pde`` files: the ``rb2d`` file's
+    step in JAX under ``use_bf16`` (and ``pde_bf16``), held to that
+    file's float64 gradients; prints the port's loss terms on the CPU
+    beside JAX's (the distance two bf16 implementations keep)."""
+    t0 = time.perf_counter()
+    pde_bf16 = args.recipe == "rb2d_bf16_pde"
     with np.load(os.path.join(ASSETS, RECIPES["rb2d"]),
                  allow_pickle=False) as z:
         ref = {k: z[k] for k in z.files}
     spec = json.loads(str(ref["spec"]))
     cfg_dict = spec["config"]
     cfg_dict["model"]["use_bf16"] = True
+    cfg_dict["train"]["pde_bf16"] = pde_bf16
     cfg = Config.from_dict(cfg_dict)
     batch = {k: ref[k] for k in ("lres", "point_coord", "point_value")}
     unet, imnet = build_models(cfg, batch["lres"].shape[1:4])
@@ -398,12 +452,22 @@ def bf16_step_reference(args):
         cfg.physics.pde_system, mean=ref["channel_mean"],
         std=ref["channel_std"],
         **pde_kwargs("rb2d", cfg, ref["coord_extents"]))
-    (_, metrics), grads = jax.jit(jax.value_and_grad(
-        make_loss_fn(cfg, unet, imnet, pde), has_aux=True))(
-            jax.tree.map(jnp.asarray, params),
-            {k: jnp.asarray(v) for k, v in batch.items()})
+    args_j = (jax.tree.map(jnp.asarray, params),
+              {k: jnp.asarray(v) for k, v in batch.items()})
+    if pde_bf16:
+        with pallas_jet_loss(cfg, unet, imnet, pde) as loss:
+            with jax.disable_jit():
+                (_, metrics), grads = jax.value_and_grad(
+                    loss, has_aux=True)(*args_j)
+    else:
+        (_, metrics), grads = jax.jit(jax.value_and_grad(
+            make_loss_fn(cfg, unet, imnet, pde), has_aux=True))(*args_j)
     terms = {k: float(v) for k, v in metrics.items()}
     print(f"JAX bf16: {terms}\nJAX f32:  {spec['terms32']}", flush=True)
+    port = port_terms(cfg_dict, params, ref, batch)
+    print("port bf16 on the CPU (its plain twins), rel diff from JAX bf16: "
+          + ", ".join(f"{k} {abs(port[k] - v) / abs(v):.2e}"
+                      for k, v in terms.items()), flush=True)
     out = {"spec": np.asarray(json.dumps({
         "config": cfg_dict, "step_ref": RECIPES["rb2d"],
         "terms_bf16": terms, "terms32": spec["terms32"],
@@ -421,9 +485,9 @@ def bf16_step_reference(args):
             np.linalg.norm(g16 - g64) / np.linalg.norm(g64))
         worst = max(worst, need)
     np.savez_compressed(args.out, **out)
-    print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.2f} MB); "
-          f"worst JAX bf16 leaf needs atol {worst:.3e} x its scale at rtol "
-          f"{GRAD_RTOL:g} against float64")
+    print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.2f} MB) in "
+          f"{time.perf_counter() - t0:.0f} s; worst JAX bf16 leaf needs atol "
+          f"{worst:.3e} x its scale at rtol {GRAD_RTOL:g} against float64")
 
 
 def restore_jax(ckpt_dir: str, step: int, template):
@@ -557,7 +621,7 @@ def main(argv=None):
     args.out = args.out or os.path.join(ASSETS, RECIPES[args.recipe])
     if args.recipe == "rb2d_resume":
         resume_reference(args)
-    elif args.recipe == "rb2d_bf16":
+    elif args.recipe in ("rb2d_bf16", "rb2d_bf16_pde"):
         bf16_step_reference(args)
     else:
         step_reference(args)

@@ -23,7 +23,8 @@ device time (the layers of a kernel apart).
 
 ``--sources A.cu B.cu ...`` times other versions of
 ``space_time_pde_torch/csrc/fused_jet.cu`` on the same inputs: each is
-built as the package builds it, and ``jet_fwd`` / ``jet_bwd`` run on each
+built as the package builds it (``csrc/`` on the include path, for
+``jet_common.cuh``), and ``jet_fwd`` / ``jet_bwd`` run on each
 in turn (CUDA events, the mean of ``--steps`` calls, the sources in
 order, then in reverse), with the largest difference of every output
 from the first source's, relative to that output's max |value|.
@@ -134,7 +135,7 @@ def time_sources(card, paths, reps):
                        "space_time_pde_torch", "_build")
     os.makedirs(out, exist_ok=True)
     procs = [subprocess.Popen(
-        [_build._nvcc(), *_build._FLAGS, "-o",
+        [_build._nvcc(), *_build._FLAGS, "-I", str(_build._CSRC), "-o",
          os.path.join(out, f"source{i}.so"), path], stderr=subprocess.PIPE,
         text=True) for i, path in enumerate(paths)]
     libs = []

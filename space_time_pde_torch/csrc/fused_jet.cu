@@ -100,14 +100,9 @@
 // of 3xTF32 products); the rest goes to per-block set-up and epilogues of
 // the smaller layers.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "jet_common.cuh"
 
 namespace {
-
-constexpr int kMaxOut = 8;
-constexpr int kLayers = 5;
-constexpr int kMults[kLayers] = {16, 8, 4, 2, 1};
 
 // Tensor-core tiling. A block is 8 warps, 2 along rows x 4 along columns;
 // a warp holds MT m16 tiles x NT n8 tiles of f32 accumulators, so a block
@@ -117,9 +112,6 @@ constexpr int kMults[kLayers] = {16, 8, 4, 2, 1};
 // chain s of the block's kT corner rows), so a warp's m-tiles hold the
 // primal and its tangents of the same 16 corner rows at the same fragment
 // positions. In the plain products a slot is just the next kT rows.
-constexpr int kWarpsM = 2, kWarpsN = 4;
-constexpr int kThreads = 32 * kWarpsM * kWarpsN;  // 256
-constexpr int kT = kWarpsM * 16;                  // 32 rows a slot
 constexpr int kBK = 32;                           // depth of a stage
 constexpr int kStages = 3;                        // cp.async ring
 // n8 tiles a warp (the block is 32 NT columns wide), measured per product:
@@ -137,18 +129,6 @@ __host__ __device__ constexpr int block_cols() { return kWarpsN * NT * 8; }
 template <int W>
 __host__ __device__ constexpr int col_tile() { return kBK * (W + 8); }
 
-// The chain layout of dimension D (see the header).
-template <int D>
-struct Jet {
-  static constexpr int kDim = D;
-  static constexpr int kCorners = 1 << D;                    // 8 / 16
-  static constexpr int kChains = D + 1;                      // primal + D
-  static constexpr int kRowsPerPoint = kCorners * kChains;   // 32 / 80
-  static constexpr int kBlocksOut = 1 + D + D * (D + 1) / 2;  // 10 / 15
-};
-
-// Blocks a split-K reduction aims for (four waves of one block per SM).
-constexpr int kTargetBlocks = 4 * 132;
 
 struct Weights {
   const float* wx_feat;      // [C, S], S = 31 nf
@@ -168,9 +148,6 @@ struct Grads {
   float* b5;
 };
 
-__host__ __device__ inline int cdiv(long long a, long long b) {
-  return (int)((a + b - 1) / b);
-}
 
 // A matrix operand in device memory. Row rr of slot s of a tile whose
 // first row is r0 is rr = r0 + s * step + j (j < kT), at
@@ -199,13 +176,6 @@ __device__ __forceinline__ void cp4(float* dst, const float* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(bytes)
                : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Each thread stages the same rows and 16-byte column chunk at every stage:
@@ -495,11 +465,6 @@ __device__ __forceinline__ void mainloop(float (&acc)[MT][NT][4],
   cp_wait<0>();
 }
 
-__device__ __forceinline__ void warp_coords(int& wm, int& wn, int& g,
-                                            int& t) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  wm = warp % kWarpsM, wn = warp / kWarpsM, g = lane >> 2, t = lane & 3;
-}
 
 // ---------------------------------------------------------------------------
 // Forward: one ImNet layer for every chain row. Block: kT corner rows x
@@ -740,336 +705,14 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_tn_kernel(TNArgs a) {
     }
 }
 
-// ---------------------------------------------------------------------------
-// Jet-block coefficients of one point: coef[blk][k * CH + c] (zeroed by the
-// caller) so that block blk = sum_{k,c} coef X4[p, k, c]. Thread k < 2^D
-// fills corner k's columns.
-template <int D>
-__device__ void fill_coefs(const float* fr, float* coef, int k) {
-  using J = Jet<D>;
-  float f[D], sg[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const bool bit = (k >> (D - 1 - d)) & 1;
-    f[d] = bit ? fr[d] : 1.f - fr[d];
-    sg[d] = bit ? 1.f : -1.f;
-  }
-  // Product over axes in axis order, skipping up to two of them.
-  auto prod = [&](int e1, int e2) {
-    float v = 1.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      if (d != e1 && d != e2) v *= f[d];
-    return v;
-  };
-  const int col = k * J::kChains;
-  coef[0 * J::kRowsPerPoint + col] = prod(-1, -1);
-  for (int a = 0; a < D; ++a) {
-    coef[(1 + a) * J::kRowsPerPoint + col] = sg[a] * prod(a, -1);
-    coef[(1 + a) * J::kRowsPerPoint + col + 1 + a] = prod(-1, -1);
-  }
-  int blk = 1 + D;
-  for (int a = 0; a < D; ++a) {
-    for (int b = a; b < D; ++b, ++blk) {
-      float* row = coef + blk * J::kRowsPerPoint + col;
-      row[1 + b] += sg[a] * prod(a, -1);
-      row[1 + a] += sg[b] * prod(b, -1);
-      if (a != b) row[0] = sg[a] * sg[b] * prod(a, b);
-    }
-  }
-}
 
-// Offset of chain row (corner k, chain c) of point p in a chain-plane
-// buffer of R corner rows and width nf.
-template <int D>
-__device__ __forceinline__ long long chain_row(long long rows, long long p,
-                                               int kc) {
-  using J = Jet<D>;
-  return (kc % J::kChains) * rows + p * J::kCorners + kc / J::kChains;
-}
 
-// Forward head: blend the chain rows into the jet blocks, then W5 (+ b5 on
-// the value block). One column j per thread; a block walks `ppb` points.
-template <int D>
-__global__ void jet_head_fwd_kernel(const float* __restrict__ x4,
-                                    const float* __restrict__ frac,
-                                    const float* __restrict__ w5,
-                                    const float* __restrict__ b5,
-                                    float* __restrict__ out, int n, int nf,
-                                    int out_dim, int ppb) {
-  using J = Jet<D>;
-  extern __shared__ float sm[];
-  float* coef = sm;                                    // [blocks][rows/pt]
-  float* stk = sm + J::kBlocksOut * J::kRowsPerPoint;  // [blocks][nf]
-  const int j = threadIdx.x;
-  const long long rows = (long long)n * J::kCorners;
-  const int p_begin = (int)blockIdx.x * ppb;
-  const int p_end = min(n, p_begin + ppb);
-  for (int p = p_begin; p < p_end; ++p) {
-    __syncthreads();
-    for (int i = j; i < J::kBlocksOut * J::kRowsPerPoint; i += blockDim.x)
-      coef[i] = 0.f;
-    __syncthreads();
-    if (j < J::kCorners) fill_coefs<D>(frac + (long long)p * D, coef, j);
-    __syncthreads();
-    if (j < nf) {
-      float acc[J::kBlocksOut] = {};
-      for (int kc = 0; kc < J::kRowsPerPoint; ++kc) {
-        const float x = x4[chain_row<D>(rows, p, kc) * nf + j];
-#pragma unroll
-        for (int b = 0; b < J::kBlocksOut; ++b)
-          acc[b] += coef[b * J::kRowsPerPoint + kc] * x;
-      }
-#pragma unroll
-      for (int b = 0; b < J::kBlocksOut; ++b) stk[b * nf + j] = acc[b];
-    }
-    __syncthreads();
-    for (int t = j; t < J::kBlocksOut * out_dim; t += blockDim.x) {
-      const int b = t / out_dim, o = t % out_dim;
-      float s = 0.f;
-      for (int jj = 0; jj < nf; ++jj) s += stk[b * nf + jj] * w5[jj * out_dim + o];
-      if (b == 0) s += b5[o];
-      out[((long long)p * J::kBlocksOut + b) * out_dim + o] = s;
-    }
-  }
-}
-
-// Backward head: ybar -> P_4 = Xbar_4 * m_4, and per-block partial sums of
-// dW5 ([nf, out]) and db5 ([out]), laid out [blocks][nf * out + out].
-template <int D>
-__global__ void jet_head_bwd_kernel(const float* __restrict__ x4,
-                                    const uint8_t* __restrict__ mask4,
-                                    const float* __restrict__ frac,
-                                    const float* __restrict__ w5,
-                                    const float* __restrict__ ybar,
-                                    float* __restrict__ p4,
-                                    float* __restrict__ part, int n, int nf,
-                                    int out_dim, float slope, int ppb) {
-  using J = Jet<D>;
-  __shared__ float coef[J::kBlocksOut * J::kRowsPerPoint];
-  __shared__ float yb[J::kBlocksOut * kMaxOut];
-  const int j = threadIdx.x;
-  const long long rows = (long long)n * J::kCorners;
-  float dw5[kMaxOut] = {};
-  float db5 = 0.f;
-  const int p_begin = (int)blockIdx.x * ppb;
-  const int p_end = min(n, p_begin + ppb);
-  for (int p = p_begin; p < p_end; ++p) {
-    __syncthreads();
-    for (int i = j; i < J::kBlocksOut * J::kRowsPerPoint; i += blockDim.x)
-      coef[i] = 0.f;
-    for (int i = j; i < J::kBlocksOut * out_dim; i += blockDim.x)
-      yb[(i / out_dim) * kMaxOut + i % out_dim] =
-          ybar[(long long)p * J::kBlocksOut * out_dim + i];
-    __syncthreads();
-    if (j < J::kCorners) fill_coefs<D>(frac + (long long)p * D, coef, j);
-    __syncthreads();
-    if (j < out_dim) db5 += yb[j];
-    if (j >= nf) continue;
-    float bar[J::kBlocksOut], stk[J::kBlocksOut];
-#pragma unroll
-    for (int b = 0; b < J::kBlocksOut; ++b) {
-      float s = 0.f;
-      for (int o = 0; o < out_dim; ++o) s += yb[b * kMaxOut + o] * w5[j * out_dim + o];
-      bar[b] = s;
-      stk[b] = 0.f;
-    }
-    for (int kc = 0; kc < J::kRowsPerPoint; ++kc) {
-      const long long idx = chain_row<D>(rows, p, kc) * nf + j;
-      const float x = x4[idx];
-      float xb = 0.f;
-#pragma unroll
-      for (int b = 0; b < J::kBlocksOut; ++b) {
-        const float cf = coef[b * J::kRowsPerPoint + kc];
-        stk[b] += cf * x;
-        xb += cf * bar[b];
-      }
-      const long long r = (long long)p * J::kCorners + kc / J::kChains;
-      p4[idx] = mask4[r * nf + j] ? xb : slope * xb;
-    }
-    for (int o = 0; o < out_dim; ++o) {
-      float s = 0.f;
-#pragma unroll
-      for (int b = 0; b < J::kBlocksOut; ++b) s += stk[b] * yb[b * kMaxOut + o];
-      dw5[o] += s;
-    }
-  }
-  float* dst = part + (long long)blockIdx.x * (nf * out_dim + out_dim);
-  if (j < nf)
-    for (int o = 0; o < out_dim; ++o) dst[j * out_dim + o] = dw5[o];
-  if (j < out_dim) dst[nf * out_dim + j] = db5;
-}
-
-// Per-chunk partials of the layer's bias-side gradients, [chunks][K + D][w]:
-// rows k < K: sum_p P[p, k, primal]; rows K + a: sum_p frac_pa
-// sum_k P[p, k, primal] + sum_{p,k} P[p, k, tangent a]. P: chain planes. A
-// block is kBiasCols column threads (V adjacent columns each, 16-byte loads
-// where w allows) by kBiasLanes point lanes: lane y sums the chunk's points
-// y, y + kBiasLanes, ... in order, then the lanes' sums are added pairwise
-// in a fixed tree through shared memory (lanes y and y + 4, then y and
-// y + 2, then 0 and 1), so a chunk's partial is a short run and a tree, not
-// one run over all its points: bitwise the same in every run.
-constexpr int kBiasCols = 32, kBiasLanes = 8;
-
-template <int V>
-__device__ __forceinline__ void load_v(const float* p, float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int D, int V>
-__global__ void __launch_bounds__(kBiasCols * kBiasLanes)
-    bias_grad_kernel(const float* __restrict__ pbuf,
-                     const float* __restrict__ frac, int n, int w, int ppc,
-                     float* __restrict__ part) {
-  using J = Jet<D>;
-  constexpr int R = J::kCorners + D;  // partial rows
-  __shared__ float tree[kBiasLanes / 2][R][V][kBiasCols];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int j = (blockIdx.x * kBiasCols + tx) * V;
-  const bool live = j < w;
-  const long long plane = (long long)n * J::kCorners * w;
-  float acc[R][V] = {};
-  const int p_begin = (int)blockIdx.y * ppc;
-  const int p_end = min(n, p_begin + ppc);
-  for (int p = p_begin + ty; live && p < p_end; p += kBiasLanes) {
-    float s[V] = {};
-#pragma unroll
-    for (int k = 0; k < J::kCorners; ++k) {
-      const float* base = pbuf + ((long long)p * J::kCorners + k) * w + j;
-      float v[V];
-      load_v<V>(base, v);
-#pragma unroll
-      for (int c = 0; c < V; ++c) acc[k][c] += v[c], s[c] += v[c];
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        load_v<V>(base + (d + 1) * plane, v);
-#pragma unroll
-        for (int c = 0; c < V; ++c) acc[J::kCorners + d][c] += v[c];
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const float f = frac[(long long)p * D + d];
-#pragma unroll
-      for (int c = 0; c < V; ++c) acc[J::kCorners + d][c] += f * s[c];
-    }
-  }
-#pragma unroll
-  for (int half = kBiasLanes / 2; half >= 1; half /= 2) {
-    if (ty >= half && ty < 2 * half) {
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < V; ++c) tree[ty - half][r][c][tx] = acc[r][c];
-    }
-    __syncthreads();
-    if (ty < half) {
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < V; ++c) acc[r][c] += tree[ty][r][c][tx];
-    }
-    __syncthreads();
-  }
-  if (ty != 0 || !live) return;
-  float* dst = part + (long long)blockIdx.y * R * w + j;
-#pragma unroll
-  for (int c = 0; c < V; ++c) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) dst[(long long)r * w + c] = acc[r][c];
-  }
-}
-
-// out[e / cols, e % cols] (stride ldo) = sum_z part[z * stride + e]. A
-// block sums 32 elements, warp q of kReduceWarps over the chunks z = q mod
-// kReduceWarps; the warps' sums are added in warp order: bitwise the same
-// in every run.
-constexpr int kReduceWarps = 8;
-
-__global__ void __launch_bounds__(32 * kReduceWarps)
-    reduce_kernel(const float* __restrict__ part, int chunks, long long stride,
-                  int rows, int cols, float* __restrict__ out,
-                  long long ldo) {
-  __shared__ float sums[kReduceWarps][32];
-  const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
-  const long long e = (long long)blockIdx.x * 32 + lane;
-  const bool ok = e < (long long)rows * cols;
-  float s = 0.f;
-  if (ok)
-    for (int z = q; z < chunks; z += kReduceWarps) s += part[z * stride + e];
-  sums[q][lane] = s;
-  __syncthreads();
-  if (q == 0 && ok) {
-    float v = sums[0][lane];
-#pragma unroll
-    for (int w = 1; w < kReduceWarps; ++w) v += sums[w][lane];
-    out[(e / cols) * ldo + e % cols] = v;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Host side. Every entry point returns cudaGetLastError() of its launches
-// (the first failure stops the sequence).
-
-#define STPDE_LAUNCH_CHECK()                       \
-  do {                                             \
-    const cudaError_t e_ = cudaGetLastError();     \
-    if (e_ != cudaSuccess) return (int)e_;         \
-  } while (0)
-
-struct Shape {
-  int n, c, dim, nf, out_dim;
-  long long rows;  // R = N * 2^D corner rows
-  int s;           // 31 nf
-  int w[kLayers];
-  int off[kLayers];
-};
-
-bool make_shape(int n, int c, int dim, int nf, int out_dim, Shape* sh) {
-  if ((dim != 3 && dim != 4) || n < 0 || c < 1 || nf < 1 || out_dim < 1 ||
-      out_dim > kMaxOut || nf > 1024)
-    return false;
-  sh->n = n, sh->c = c, sh->dim = dim, sh->nf = nf, sh->out_dim = out_dim;
-  sh->rows = (long long)n << dim;
-  int off = 0;
-  for (int i = 0; i < kLayers; ++i) {
-    sh->w[i] = nf * kMults[i];
-    sh->off[i] = off;
-    off += sh->w[i];
-  }
-  sh->s = off;
-  return true;
-}
-
-// f(Jet<D>{}) for the shape's D (make_shape admits 3 and 4 only).
-template <typename F>
-auto by_dim(const Shape& sh, F&& f) {
-  return sh.dim == 3 ? f(Jet<3>{}) : f(Jet<4>{});
-}
 
 Mat mat(const float* p, long long ld, long long rows, int cols,
         long long plane = 0, long long step = 0) {
   const bool vec = ((uintptr_t)p % 16 == 0) && ld % 4 == 0 && plane % 4 == 0;
   return Mat{p, ld, plane, step, rows, cols, vec ? 1 : 0};
 }
-
-// A refused attribute's error, cleared so that it does not stick to the
-// next launch.
-int attr_error(cudaError_t e) {
-  if (e != cudaSuccess) cudaGetLastError();
-  return (int)e;
-}
-#define STPDE_SMEM(kernel, bytes)                                      \
-  do {                                                                 \
-    const int e_ = attr_error(cudaFuncSetAttribute(                    \
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));  \
-    if (e_) return e_;                                                 \
-  } while (0)
 
 // Shared memory of the three products.
 template <int MT>
@@ -1085,16 +728,6 @@ constexpr int tn_smem() {
   return mainloop_smem<MT, kPlainNT, true, true, true>();
 }
 
-// Row chunks of a reduction over `m` rows into `tiles` output tiles.
-long long chunk_rows(long long m, int tiles, int* chunks) {
-  int want = kTargetBlocks / tiles;
-  const int most = cdiv(m, kBK);
-  want = want < 1 ? 1 : (want > most ? most : want);
-  long long chunk = (long long)cdiv(cdiv(m, want), kBK) * kBK;
-  if (chunk < kBK) chunk = kBK;
-  *chunks = m > 0 ? cdiv(m, chunk) : 1;
-  return chunk;
-}
 
 // Slots of the TN product's A tile: 64 rows where KA is at most 64 (the
 // latent width C of the skip products), else 128.
@@ -1106,27 +739,10 @@ int tn_tiles(int ka, int nb) {
 
 long long tn_partial_floats(long long m, int ka, int nb) {
   int chunks;
-  chunk_rows(m, tn_tiles(ka, nb), &chunks);
+  chunk_rows(m, tn_tiles(ka, nb), kBK, &chunks);
   return (long long)chunks * ka * nb;
 }
 
-// The bias-side sums: V columns a thread, kBiasCols x kBiasLanes threads a
-// block, enough point chunks for about 8 blocks per SM, at least one point
-// a lane.
-int bias_vec(int w) { return w % 4 == 0 ? 4 : 1; }
-
-int bias_chunks(const Shape& sh, int w, int* ppc) {
-  const int xblocks = cdiv(cdiv(w, bias_vec(w)), kBiasCols);
-  int chunks = cdiv(2 * kTargetBlocks, xblocks);
-  const int most = cdiv(sh.n, kBiasLanes);
-  if (chunks > most) chunks = most > 0 ? most : 1;
-  *ppc = sh.n > 0 ? cdiv(sh.n, chunks) : 1;
-  return sh.n > 0 ? cdiv(sh.n, *ppc) : 1;
-}
-
-constexpr int kHeadPoints = 4;  // points a head block walks
-
-int head_threads(int nf) { return cdiv(nf, 32) * 32; }
 
 long long fwd_workspace_bytes(const Shape& sh) {
   return sh.rows * (sh.dim + 1) * sh.s * (long long)sizeof(float) +
@@ -1182,21 +798,12 @@ void fwd_views(const Shape& sh, void* ws, float* x[kLayers],
   }
 }
 
-int reduce(const float* part, int chunks, long long stride, int rows,
-           int cols, float* out, long long ldo, cudaStream_t st) {
-  const long long e = (long long)rows * cols;
-  if (e == 0) return 0;
-  reduce_kernel<<<cdiv(e, 32), 32 * kReduceWarps, 0, st>>>(
-      part, chunks, stride, rows, cols, out, ldo);
-  STPDE_LAUNCH_CHECK();
-  return 0;
-}
 
 // out[KA, NB] (row stride ldo) = A[m, KA]^T B[m, NB], deterministic.
 int gemm_tn(const Mat& a, const Mat& b, long long m, int ka, int nb,
             float* part, float* out, long long ldo, cudaStream_t st) {
   int chunks;
-  const long long chunk = chunk_rows(m, tn_tiles(ka, nb), &chunks);
+  const long long chunk = chunk_rows(m, tn_tiles(ka, nb), kBK, &chunks);
   const int cb = cdiv(nb, block_cols<kPlainNT>());
   TNArgs g{a, b, part, m, chunk, ka, nb, cb};
   dim3 grid(cdiv(ka, tn_mt(ka) * kT) * cb, chunks);
@@ -1262,7 +869,7 @@ int run_forward(const Shape& sh, const float* feats, const float* frac,
   const size_t smem =
       sizeof(float) * (size_t)J::kBlocksOut * (J::kRowsPerPoint + sh.nf);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  jet_head_fwd_kernel<D><<<cdiv(sh.n, kHeadPoints), threads, smem, st>>>(
+  jet_head_fwd_kernel<D, float><<<cdiv(sh.n, kHeadPoints), threads, smem, st>>>(
       x[kLayers - 1], frac, wt.w5, wt.b5, out, sh.n, sh.nf, sh.out_dim,
       kHeadPoints);
   STPDE_LAUNCH_CHECK();
@@ -1288,8 +895,8 @@ int run_backward(const Shape& sh, const float* feats, const float* frac,
   // Head: P_4 into buf_a (layer widths alternate buffers: 4, 2, 0 -> a).
   const int hblocks = cdiv(sh.n, kHeadPoints);
   if (sh.n > 0) {
-    jet_head_bwd_kernel<D><<<hblocks, head_threads(sh.nf), 0, st>>>(
-        x[4], mask[4], frac, wt.w5, ybar, buf_a, part, sh.n, sh.nf,
+    jet_head_bwd_kernel<D, float><<<hblocks, head_threads(sh.nf), 0, st>>>(
+        x[4], mask[4], frac, wt.w5, ybar, buf_a, nullptr, part, sh.n, sh.nf,
         sh.out_dim, slope, kHeadPoints);
     STPDE_LAUNCH_CHECK();
   }
@@ -1323,11 +930,11 @@ int run_backward(const Shape& sh, const float* feats, const float* frac,
       const dim3 grid(cdiv(cdiv(w, v), kBiasCols), bchunks);
       const dim3 block(kBiasCols, kBiasLanes);
       if (v == 4)
-        bias_grad_kernel<D, 4><<<grid, block, 0, st>>>(cur, frac, sh.n, w,
-                                                       ppc, part);
+        bias_grad_kernel<D, 4, float><<<grid, block, 0, st>>>(
+            cur, cur, frac, sh.n, w, ppc, part);
       else
-        bias_grad_kernel<D, 1><<<grid, block, 0, st>>>(cur, frac, sh.n, w,
-                                                       ppc, part);
+        bias_grad_kernel<D, 1, float><<<grid, block, 0, st>>>(
+            cur, cur, frac, sh.n, w, ppc, part);
       STPDE_LAUNCH_CHECK();
     }
     const long long bstride = (long long)(J::kCorners + D) * w;

@@ -675,6 +675,17 @@ Weights pack(const float* wx0, const float* rel, const float* cb,
 // latents). Shared memory at C = 64, nf = 64: 223,488 bytes. The same
 // limits as the f32 kernel: 8 nf rounded up to 64 at most 512 and the
 // buffers within 227 KB (C <= 128 at nf = 64). No wgmma or TMA yet.
+//
+// The pre-gathered entry's bf16 instantiation (stpde_decode_blend_bf16,
+// replacing _kernel (:400, pallas_call :510) at compute_dtype=bfloat16) is
+// the same kernel (kPre) at _kernel's rounding points, which differ from
+// _kernel_gather's: the rows arrive pre-gathered ([N * 2^D, C] bf16), the
+// corner bias stays f32 (kernel_weights(dtype=bfloat16, f32=("b5", "cb"))),
+// and the whole skip term is rounded to bf16 before the hidden product is
+// added (_kernel stores its skip buffer xs in bf16, fused_query.py:425-428):
+// each pass runs the latents' K tiles first, rounds the accumulators with
+// the coordinate term and the corner bias in registers, then accumulates
+// the hidden product onto them. Same bound and limits.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -686,7 +697,7 @@ constexpr int kBfPass = kWidthAlign * kMaxNt;   // 512 columns per pass
 struct WeightsBf16 {
   const bf16* wx0;      // [W0, Cp]: Wx_feat[:, sl_0], transposed
   const bf16* rel;      // [D, Sp]
-  const bf16* cb;       // [2^D, Sp]
+  const void* cb;       // [2^D, Sp]: bf16 (gather), f32 (pre-gathered)
   const bf16* wb[4];    // layer i + 1: [W_{i+1}, W_i + Cp], transposed
   const bf16* w5;       // [nf, out]
   const float* b5;      // [out]
@@ -781,14 +792,19 @@ __device__ __forceinline__ void mma_tile_bf16(Acc& acc, const bf16* a,
 }
 
 // Coordinate term (frac rounded to bf16) and corner bias of row `row` at
-// columns col, col + 1 of rel / cb, in f32.
+// columns col, col + 1 of rel / cb, in f32; the corner bias is bf16 (kPre
+// false) or f32 (kPre true).
+template <bool kPre>
 __device__ __forceinline__ float2 skip_bias_bf16(const WeightsBf16& wt,
                                                  const ShapeBf16& s,
                                                  const float* fr, int row,
                                                  int col) {
   const int pp = row >> s.dim, k = row & ((1 << s.dim) - 1);
-  float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-      wt.cb + (size_t)k * s.sp + col));
+  const size_t o = (size_t)k * s.sp + col;
+  float2 v = kPre ? __ldg(reinterpret_cast<const float2*>(
+                        static_cast<const float*>(wt.cb) + o))
+                  : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                        static_cast<const bf16*>(wt.cb) + o));
   for (int d = 0; d < s.dim; ++d) {
     const float f = __bfloat162float(__float2bfloat16_rn(fr[pp * s.dim + d]));
     const float2 r = __bfloat1622float2(
@@ -800,8 +816,12 @@ __device__ __forceinline__ float2 skip_bias_bf16(const WeightsBf16& wt,
   return v;
 }
 
+// kPre: the pre-gathered entry (src: feats2 rows; corner bias f32; the
+// skip term rounded to bf16 before the hidden product is added), else the
+// gather entry (src: the cell-major table).
+template <bool kPre>
 __global__ void __launch_bounds__(kThreads, 1)
-decode_blend_bf16_kernel(const bf16* __restrict__ table,
+decode_blend_bf16_kernel(const bf16* __restrict__ src,
                          const int* __restrict__ cell_flat,
                          const float* __restrict__ frac, WeightsBf16 wt,
                          float* __restrict__ out, int n, int n_cells,
@@ -820,8 +840,8 @@ decode_blend_bf16_kernel(const bf16* __restrict__ table,
   const int p0 = blockIdx.x * ppb;
 
   stage_frac(fr, frac, p0, n, s.dim);
-  stage_feats<bf16, true>(feats, s.ldf, table, cell_flat, p0, n, n_cells, s.c,
-                          s.cp, s.dim);
+  stage_feats<bf16, !kPre>(feats, s.ldf, src, cell_flat, p0, n, n_cells,
+                           s.c, s.cp, s.dim);
 
   Acc acc;
 #pragma unroll 1
@@ -829,27 +849,54 @@ decode_blend_bf16_kernel(const bf16* __restrict__ table,
     const int w = s.w[layer], wprev = layer ? s.w[layer - 1] : 0;
     const int k = wprev + s.cp, nk = k / kBfKc;
     const bf16* wb = layer ? wt.wb[layer - 1] : wt.wx0;
+    // K tile j's offset: in order, or (kPre) the latents' tiles first.
+    const int nkl = s.cp / kBfKc;
+    auto k_at = [&](int j) {
+      return kPre ? (j < nkl ? wprev + j * kBfKc : (j - nkl) * kBfKc)
+                  : j * kBfKc;
+    };
 #pragma unroll 1
     for (int c0 = 0; c0 < w; c0 += kBfPass) {
       const int pw = w - c0 < kBfPass ? w - c0 : kBfPass;
       const int nt = pw / (8 * kWarpsN);
       zero(acc);
-      stage_bt(wbuf, wb, k, c0, pw, 0);
+      stage_bt(wbuf, wb, k, c0, pw, k_at(0));
       cp_commit();
       for (int j = 0; j < nk; ++j) {
         cp_wait_all();
         __syncthreads();
         if (j + 1 < nk) {
           stage_bt(wbuf + ((j + 1) & 1) * s.pass * kBfLdB, wb, k, c0, pw,
-                   (j + 1) * kBfKc);
+                   k_at(j + 1));
           cp_commit();
         }
-        const int k0 = j * kBfKc;
+        const int k0 = k_at(j);
         const bool from_h = k0 < wprev;
         mma_tile_bf16(acc, from_h ? h : feats, from_h ? s.ldh : s.ldf,
                       wm * 32, from_h ? k0 : k0 - wprev,
                       wbuf + (j & 1) * s.pass * kBfLdB, wn * nt * 8, nt, g,
                       t);
+        if (kPre && j == nkl - 1) {
+          // The skip term is complete: xs = bf16(feats Wx_feat + frac_b
+          // Wx_rel + corner_bias), and the hidden product adds to it.
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int jj = 0; jj < kMaxNt; ++jj) {
+              if (jj >= nt) continue;
+              const int col = c0 + (wn * nt + jj) * 8 + 2 * t;
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const float2 b = skip_bias_bf16<true>(
+                    wt, s, fr, wm * 32 + m * 16 + g + 8 * half,
+                    s.off[layer] + col);
+                float& v0 = acc[m][jj][2 * half];
+                float& v1 = acc[m][jj][2 * half + 1];
+                v0 = __bfloat162float(__float2bfloat16_rn(v0 + b.x));
+                v1 = __bfloat162float(__float2bfloat16_rn(v1 + b.y));
+              }
+            }
+        }
       }
       __syncthreads();  // every read of H and of the tiles is done
 #pragma unroll
@@ -862,7 +909,9 @@ decode_blend_bf16_kernel(const bf16* __restrict__ table,
           for (int half = 0; half < 2; ++half) {
             const int row = wm * 32 + m * 16 + g + 8 * half;
             const float2 b =
-                skip_bias_bf16(wt, s, fr, row, s.off[layer] + col);
+                kPre ? make_float2(0.f, 0.f)
+                     : skip_bias_bf16<false>(wt, s, fr, row,
+                                             s.off[layer] + col);
             const float v0 = activate(acc[m][j][2 * half] + b.x, act_code, ns);
             const float v1 =
                 activate(acc[m][j][2 * half + 1] + b.y, act_code, ns);
@@ -887,7 +936,8 @@ decode_blend_bf16_kernel(const bf16* __restrict__ table,
   head(out, hb, wt.w5, wt.b5, p0, n, s.nf, s.out_dim, s.dim);
 }
 
-int launch_bf16(const bf16* table, const int* cell_flat, const float* frac,
+template <bool kPre>
+int launch_bf16(const bf16* src, const int* cell_flat, const float* frac,
                 const WeightsBf16& wt, float* out, int n, int n_cells, int c,
                 int dim, int nf, int out_dim, int act_code, float ns,
                 void* stream) {
@@ -896,17 +946,17 @@ int launch_bf16(const bf16* table, const int* cell_flat, const float* frac,
   const ShapeBf16 s = make_shape_bf16(c, dim, nf, out_dim);
   if (s.w[1] > kBfPass) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      decode_blend_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      s.total);
+      decode_blend_bf16_kernel<kPre>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, s.total);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
   }
   const int ppb = kRows >> dim;
   const unsigned blocks = (unsigned)((n + ppb - 1) / ppb);
-  decode_blend_bf16_kernel<<<blocks, kThreads, s.total,
-                             (cudaStream_t)stream>>>(
-      table, cell_flat, frac, wt, out, n, n_cells, s, act_code, ns);
+  decode_blend_bf16_kernel<kPre><<<blocks, kThreads, s.total,
+                                   (cudaStream_t)stream>>>(
+      src, cell_flat, frac, wt, out, n, n_cells, s, act_code, ns);
   return (int)cudaGetLastError();
 }
 
@@ -948,11 +998,29 @@ int stpde_decode_blend_gather_bf16(
     const float* b5, float* out, int n, int n_cells, int c, int dim, int nf,
     int out_dim, int act_code, float negative_slope, void* stream) {
   auto p = [](const void* q) { return static_cast<const bf16*>(q); };
-  return launch_bf16(p(table), cell_flat, frac,
-                     WeightsBf16{p(wx0), p(rel), p(cb),
-                                 {p(wb1), p(wb2), p(wb3), p(wb4)}, p(w5), b5},
-                     out, n, n_cells, c, dim, nf, out_dim, act_code,
-                     negative_slope, stream);
+  return launch_bf16<false>(
+      p(table), cell_flat, frac,
+      WeightsBf16{p(wx0), p(rel), cb, {p(wb1), p(wb2), p(wb3), p(wb4)},
+                  p(w5), b5},
+      out, n, n_cells, c, dim, nf, out_dim, act_code, negative_slope,
+      stream);
+}
+
+// The pre-gathered entry's bf16 instantiation: feats2 [N * 2^D, C] bf16,
+// weights in the layout of kernel_weights(dtype=bfloat16, f32=("b5",
+// "cb")) (corner bias and b5 f32), frac and out f32.
+int stpde_decode_blend_bf16(
+    const void* feats2, const float* frac, const void* wx0, const void* rel,
+    const float* cb, const void* wb1, const void* wb2, const void* wb3,
+    const void* wb4, const void* w5, const float* b5, float* out, int n,
+    int c, int dim, int nf, int out_dim, int act_code, float negative_slope,
+    void* stream) {
+  auto p = [](const void* q) { return static_cast<const bf16*>(q); };
+  return launch_bf16<true>(
+      p(feats2), nullptr, frac,
+      WeightsBf16{p(wx0), p(rel), cb, {p(wb1), p(wb2), p(wb3), p(wb4)},
+                  p(w5), b5},
+      out, n, 0, c, dim, nf, out_dim, act_code, negative_slope, stream);
 }
 
 // Dynamic shared memory a bf16 block takes at these widths (bytes).

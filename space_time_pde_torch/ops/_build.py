@@ -5,8 +5,8 @@ interface, so each compiles with ``nvcc`` alone in seconds (no PyTorch
 headers) at first use, into ``space_time_pde_torch/_build/`` (listed in
 ``.gitignore``). All sources are compiled at once, one ``nvcc`` process
 each, started together; every library's name carries one hash over all
-the sources and the flags, so an edited source never loads a stale
-library. Pointers cross as ``c_void_p``, and every entry point returns
+the sources, the headers they share (``csrc/*.cuh``) and the flags, so an
+edited source never loads a stale library. Pointers cross as ``c_void_p``, and every entry point returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
 There is no fallback: a failed build raises.
 """
@@ -25,7 +25,7 @@ __all__ = ["load", "check", "build_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("fused_query", "fused_jet")
+_SOURCES = ("fused_query", "fused_jet", "fused_jet_bf16")
 _BUILD = _PKG / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -44,6 +44,8 @@ _ARGTYPES = {
         # feats2, frac, 9 weights, out, n, c, dim, nf, out_dim, act_code,
         # negative_slope, stream
         "stpde_decode_blend": ([_P] * 12 + [_I] * 6 + [_F, _P], _I),
+        # the same arguments, feats2 and weights bf16 (cb and b5 f32)
+        "stpde_decode_blend_bf16": ([_P] * 12 + [_I] * 6 + [_F, _P], _I),
         "stpde_block_rows": ([], _I),
         # c, dim, nf
         "stpde_decode_smem_bytes": ([_I] * 3, _I),
@@ -60,6 +62,14 @@ _ARGTYPES = {
         # feats2, frac, 9 weights, fwd workspace, ybar, dfeats, 9 grads,
         # workspace, n, c, dim, nf, out_dim, slope, stream
         "stpde_jet_bwd": ([_P] * 24 + [_I] * 5 + [_F, _P], _I),
+    },
+    # The same entry points at bf16 (feats2 and the weights but corner_bias
+    # and b5 bf16; frac, out, ybar and every gradient f32).
+    "fused_jet_bf16": {
+        "stpde_jet_fwd_bf16_workspace": ([_I] * 5, _L),
+        "stpde_jet_bwd_bf16_workspace": ([_I] * 5, _L),
+        "stpde_jet_fwd_bf16": ([_P] * 13 + [_I] * 5 + [_F, _P], _I),
+        "stpde_jet_bwd_bf16": ([_P] * 24 + [_I] * 5 + [_F, _P], _I),
     },
 }
 
@@ -81,8 +91,9 @@ def _nvcc() -> str:
 
 def _tag() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in _SOURCES:
-        h.update(name.encode() + (_CSRC / f"{name}.cu").read_bytes())
+    files = [_CSRC / f"{name}.cu" for name in _SOURCES]
+    for path in files + sorted(_CSRC.glob("*.cuh")):
+        h.update(path.name.encode() + path.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -39,14 +39,14 @@ fallback, the sort/unsort, ``points_sorted``), ``_augmented_xs`` /
 order decodes on one path.
 
 ``compute_dtype=torch.bfloat16`` (the JAX kernels' default, the bf16
-policy's decode) is the gather entry's second instantiation: a bf16
-table, bf16 weights and Hopper's bf16 tensor cores
-(``stpde_decode_blend_gather_bf16``, counted under
-``decode_blend_gather_bf16``), rounding where ``_kernel_gather`` rounds
-(:func:`decode_blend_gather_plain`). The pre-gathered entry is f32 only:
-its TPU kernel rounds at other places (``corner_bias`` kept f32, the
-skip buffer stored bf16), and a bf16 request raises
-``NotImplementedError`` (ROADMAP queue 2).
+policy's decode) is each entry's second instantiation: bf16 latent rows,
+bf16 weights and Hopper's bf16 tensor cores, rounding where its TPU
+kernel rounds. The gather entry (``stpde_decode_blend_gather_bf16``,
+counted under ``decode_blend_gather_bf16``) rounds as ``_kernel_gather``
+(:func:`decode_blend_gather_plain`); the pre-gathered one
+(``stpde_decode_blend_bf16``, counted under ``decode_blend_bf16``) as
+``_kernel``, which keeps ``corner_bias`` f32 and rounds the whole skip
+term to bf16 (:func:`decode_blend_plain`).
 """
 
 from __future__ import annotations
@@ -83,10 +83,14 @@ _WEIGHTS = ("wx_feat", "wx_rel", "corner_bias", "wh1", "wh2", "wh3", "wh4",
 # latent rows to its 32-row weight tile (csrc/fused_query.cu).
 _WIDTH_ALIGN, _C_ALIGN = 64, 32
 
-# Kernel launches per entry point (the gather entry's bf16 instantiation
-# apart); only the CUDA branch of a wrapper adds to them.
+# The packed weights the bf16 instantiations round to bf16 (corner_bias and
+# b5 stay f32, as the TPU's pack_imnet_params keeps them).
+_ROUNDED = ("wx_feat", "wx_rel", "wh1", "wh2", "wh3", "wh4", "w5")
+
+# Kernel launches per entry point (each bf16 instantiation apart); only the
+# CUDA branch of a wrapper adds to them.
 LAUNCHES = {"decode_blend_gather": 0, "decode_blend": 0,
-            "decode_blend_gather_bf16": 0}
+            "decode_blend_gather_bf16": 0, "decode_blend_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -94,10 +98,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def pack_imnet_params(imnet) -> Dict[str, torch.Tensor]:
+def pack_imnet_params(imnet,
+                      dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """Repack an :class:`~space_time_pde_torch.models.imnet.ImNet`'s
     weights for the fused decode (the JAX ``pack_imnet_params`` with
-    ``pad_to=0``, f32).
+    ``pad_to=0``; ``dtype=torch.bfloat16`` rounds the weights of
+    ``_ROUNDED`` to bf16, as the JAX one at ``dtype=bfloat16``, with
+    ``corner_bias`` folded from the unrounded ``wx_rel`` and ``b5`` f32).
 
     Layer i >= 1 consumes ``[h, x]``, so its weight rows split into
     ``Wh_i`` and an x block; the x blocks of all five layers stack into
@@ -133,16 +140,19 @@ def pack_imnet_params(imnet) -> Dict[str, torch.Tensor]:
     packed.update({f"wh{i + 1}": w for i, w in enumerate(wh)})
     # Fresh contiguous copies: a view of a parameter taken under
     # no_grad would still require grad.
-    return {k: v.float().clone(memory_format=torch.contiguous_format)
-            for k, v in packed.items()}
+    out = {k: v.float().clone(memory_format=torch.contiguous_format)
+           for k, v in packed.items()}
+    if dtype != torch.float32:
+        out.update({k: out[k].to(dtype) for k in _ROUNDED})
+    return out
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def kernel_weights(packed, *, nf: int,
-                   dtype=torch.float32) -> Dict[str, torch.Tensor]:
+def kernel_weights(packed, *, nf: int, dtype=torch.float32,
+                   f32=("b5",)) -> Dict[str, torch.Tensor]:
     """:func:`pack_imnet_params`'s output in the decode kernel's layout,
     in the order of its C arguments.
 
@@ -160,11 +170,12 @@ def kernel_weights(packed, *, nf: int,
       and the skip term together;
     - ``w5``, ``b5`` as packed.
 
-    ``dtype=torch.bfloat16`` gives the bf16 instantiation's weights: all
-    but ``b5`` rounded to bf16 (``cb`` from the f32 ``corner_bias``, as
-    the TPU kernel's ``_augment_params`` rounds it), and ``wx0`` and
-    ``wb1..wb4`` transposed (``[W, K]``, K contiguous: the layout of the
-    bf16 tensor cores' B fragments).
+    ``dtype=torch.bfloat16`` gives the bf16 instantiations' weights: all
+    but those named in ``f32`` rounded to bf16 (the gather entry's ``cb``
+    from the f32 ``corner_bias``, as the TPU kernel's ``_augment_params``
+    rounds it; the pre-gathered entry keeps ``cb`` f32 too), and ``wx0``
+    and ``wb1..wb4`` transposed (``[W, K]``, K contiguous: the layout of
+    the bf16 tensor cores' B fragments).
     """
     c = packed["wx_feat"].shape[0]
     widths = [nf * m for m in _MULTS]
@@ -191,7 +202,7 @@ def kernel_weights(packed, *, nf: int,
         for k in out:
             if k == "wx0" or k.startswith("wb"):
                 out[k] = out[k].t()
-            if k != "b5":
+            if k not in f32:
                 out[k] = out[k].to(dtype)
     return {k: v.contiguous() for k, v in out.items()}
 
@@ -232,9 +243,19 @@ def _corner_weights(frac: torch.Tensor) -> torch.Tensor:
 
 def decode_blend_plain(feats2, frac, packed, *, nf: int, n_corners: int,
                        activation: str = "leaky_relu",
-                       negative_slope: float = 0.01) -> torch.Tensor:
+                       negative_slope: float = 0.01,
+                       compute_dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch twin of :func:`decode_blend`: feats2 ``[N*K, C]``,
-    frac ``[N, D]`` -> ``[N, out]``."""
+    frac ``[N, D]`` -> ``[N, out]``.
+
+    At ``compute_dtype=torch.bfloat16`` it rounds where the TPU's
+    ``_kernel`` does (:func:`_decode_bf16`, ``pregathered``): as the
+    gather twin, except that ``corner_bias`` stays f32 and the whole skip
+    term is rounded to bf16 before each layer adds it."""
+    if compute_dtype != torch.float32:
+        return _decode_bf16(feats2, frac, packed, nf=nf,
+                            act=get_activation(activation, negative_slope),
+                            pregathered=True)
     n = frac.shape[0]
     feats = feats2.reshape(n, n_corners, feats2.shape[-1])
     act = get_activation(activation, negative_slope)
@@ -276,14 +297,29 @@ def decode_blend_gather_plain(table, cell_flat, frac, packed, *, nf: int,
         return decode_blend_plain(feats2, frac, packed, nf=nf,
                                   n_corners=n_corners, activation=activation,
                                   negative_slope=negative_slope)
-    rnd = lambda t: t.to(compute_dtype).float()
-    n = frac.shape[0]
-    feats = rnd(feats2).reshape(n, n_corners, c)
-    act = get_activation(activation, negative_slope)
+    return _decode_bf16(feats2, frac, packed, nf=nf,
+                        act=get_activation(activation, negative_slope),
+                        pregathered=False)
+
+
+def _decode_bf16(feats2, frac, packed, *, nf: int, act, pregathered: bool):
+    """The bf16 decode of both TPU kernels, products of bf16 values in f32
+    (exact): ``pregathered`` rounds as ``_kernel`` (the skip term
+    ``feats @ wx_feat + (frac @ wx_rel + corner_bias)`` rounded to bf16 as
+    a whole, ``corner_bias`` f32), else as ``_kernel_gather``
+    (``corner_bias`` rounded, the skip term f32)."""
+    rnd = lambda t: t.to(torch.bfloat16).float()
+    n, dim = frac.shape
+    n_corners = 2 ** dim
+    feats = rnd(feats2).reshape(n, n_corners, feats2.shape[-1])
     bounds = np.cumsum([0] + [nf * m for m in _MULTS])
-    xs = (feats @ rnd(packed["wx_feat"])
-          + (rnd(frac) @ rnd(packed["wx_rel"]))[:, None]
-          + rnd(packed["corner_bias"])[None])       # [N, K, S] f32
+    xr = (rnd(frac) @ rnd(packed["wx_rel"]))[:, None]
+    if pregathered:
+        xs = rnd(feats @ rnd(packed["wx_feat"])
+                 + (xr + packed["corner_bias"].float()[None]))
+    else:
+        xs = (feats @ rnd(packed["wx_feat"]) + xr
+              + rnd(packed["corner_bias"])[None])   # [N, K, S] f32
     sl = [slice(int(bounds[i]), int(bounds[i + 1])) for i in range(5)]
     h = act(xs[..., sl[0]])
     for i in range(1, 5):
@@ -293,11 +329,12 @@ def decode_blend_gather_plain(table, cell_flat, frac, packed, *, nf: int,
 
 
 def _check(tensors: Dict[str, torch.Tensor], packed, *, n: int, c: int,
-           dim: int, nf: int, compute_dtype=torch.float32) -> torch.device:
-    """Device, dtype, shape and contiguity checks shared by both
-    wrappers (the latent rows, ``table`` or ``feats2``, in
-    ``compute_dtype``, the packed weights f32); returns the common
-    device."""
+           dim: int, nf: int, compute_dtype=torch.float32,
+           packed_dtype=torch.float32) -> torch.device:
+    """Device, dtype, shape and contiguity checks shared by the decode and
+    jet wrappers (the latent rows, ``table`` or ``feats2``, in
+    ``compute_dtype``; the packed weights of ``_ROUNDED`` in
+    ``packed_dtype``, the rest f32); returns the common device."""
     s = 31 * nf
     k = 2 ** dim
     shapes = {"wx_feat": (c, s), "wx_rel": (dim, s), "corner_bias": (k, s),
@@ -318,7 +355,8 @@ def _check(tensors: Dict[str, torch.Tensor], packed, *, n: int, c: int,
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, frac on {device}")
         want = {"cell_flat": torch.int32, "table": compute_dtype,
-                "feats2": compute_dtype}.get(name, torch.float32)
+                "feats2": compute_dtype}.get(
+                    name, packed_dtype if name in _ROUNDED else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
@@ -395,14 +433,13 @@ def decode_blend(feats2, frac, packed, *, nf: int, n_corners: int,
                  activation: str = "leaky_relu",
                  negative_slope: float = 0.01,
                  compute_dtype=torch.float32) -> torch.Tensor:
-    """Decode pre-gathered corner rows: feats2 ``[N * 2^D, C]``, frac
-    ``[N, D]`` -> ``[N, out]`` f32. f32 only: a bf16 ``compute_dtype``
-    raises ``NotImplementedError`` (ROADMAP queue 2)."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"compute_dtype {compute_dtype}: the bf16 pre-gathered decode "
-            "(decode_blend's _kernel instantiation, ROADMAP queue 2) is not "
-            "ported")
+    """Decode pre-gathered corner rows: feats2 ``[N * 2^D, C]`` in
+    ``compute_dtype`` (f32, or bf16 for the bf16 instantiation), frac
+    ``[N, D]`` f32 -> ``[N, out]`` f32."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"compute_dtype {compute_dtype}: the "
+                                  "decode kernel has f32 and bf16 "
+                                  "instantiations")
     n, dim = frac.shape
     if n_corners != 2 ** dim:
         raise ValueError(f"n_corners {n_corners} != 2**{dim}")
@@ -411,22 +448,25 @@ def decode_blend(feats2, frac, packed, *, nf: int, n_corners: int,
                          f"{tuple(feats2.shape)}")
     c = feats2.shape[-1]
     device = _check({"feats2": feats2, "frac": frac}, packed, n=n, c=c,
-                    dim=dim, nf=nf)
+                    dim=dim, nf=nf, compute_dtype=compute_dtype)
     if device.type == "cpu":
         return decode_blend_plain(feats2, frac, packed, nf=nf,
                                   n_corners=n_corners, activation=activation,
-                                  negative_slope=negative_slope)
+                                  negative_slope=negative_slope,
+                                  compute_dtype=compute_dtype)
     lib = _build.load()
     out = torch.empty((n, packed["w5"].shape[-1]), dtype=torch.float32,
                       device=device)
-    kw = kernel_weights(packed, nf=nf)
-    code = lib.stpde_decode_blend(
+    kw = kernel_weights(packed, nf=nf, dtype=compute_dtype, f32=("b5", "cb"))
+    entry = "decode_blend" + ("_bf16" if compute_dtype == torch.bfloat16
+                              else "")
+    code = getattr(lib, "stpde_" + entry)(
         feats2.data_ptr(), frac.data_ptr(),
         *[w.data_ptr() for w in kw.values()], out.data_ptr(),
         n, c, dim, nf, out.shape[-1], ACTIVATION_CODES[activation],
         negative_slope, torch.cuda.current_stream(device).cuda_stream)
-    _build.check(code, "decode_blend")
-    LAUNCHES["decode_blend"] += 1
+    _build.check(code, entry)
+    LAUNCHES[entry] += 1
     return out
 
 
@@ -444,8 +484,8 @@ def fused_query_local_implicit_grid(imnet, latent_grid, pts, xmin=0.0,
     (:func:`decode_blend_gather`); "pregather" gathers ``[N*2^D, C]``
     rows first and runs :func:`decode_blend`. Both take any point order.
     ``compute_dtype``: f32, or bf16 (the latent table rounded to bf16, as
-    the TPU path's ``gcast``; "kernel" only, as JAX's "auto" takes the
-    gather kernel: "pregather" raises ``NotImplementedError``).
+    the TPU path's ``gcast``; each entry at its own TPU kernel's rounding
+    points).
     """
     if gather not in ("kernel", "pregather"):
         raise ValueError(f"gather must be 'kernel' or 'pregather', got "

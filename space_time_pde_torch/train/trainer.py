@@ -24,14 +24,16 @@ the optimizer skips keeps them, as JAX keeps ``batch_stats`` on a
 skipped step) and the eval function in eval mode (running statistics).
 
 The bf16 compute policy (``use_bf16``, ``models/policy.py``): both
-families' encoders and the ImNet compute in bf16 with f32 parameters.
-The jet stays f32, as in the JAX trainer without ``--pde_bf16``: the
-encoders return an f32 latent (flax's ``out.astype(float32)``), and the
-ImNet runs at f32 inside the jet (the fused jet packs the f32 weights;
-the plain jet calls the ImNet at f32), while the regression-only query and the eval decode keep the
-policy (the eval's fused decode takes the bf16 kernel). The loss and
-metrics are f32. ``pde_bf16`` with ``use_bf16`` (the bf16 jets) raises
-``NotImplementedError``: those kernels are the next slice (ROADMAP).
+families' encoders and the ImNet compute in bf16 with f32 parameters;
+the encoders return an f32 latent (flax's ``out.astype(float32)``). The
+jet computes in ``jet_dtype``, as in the JAX trainer: f32 unless both
+``use_bf16`` and ``pde_bf16`` are set (``--pde_bf16`` alone keeps the f32
+jet). The fused jet packs the weights in it (at bf16 the bf16 jet
+kernels, ``ops/fused_jet.py``); the plain jet (``jet_jnp``) calls the
+ImNet in it on the latent cast to it, as JAX's ``imnet.clone(dtype=
+jet_dtype)`` on ``latent.astype(jet_dtype)``. The regression-only query
+and the eval decode keep the policy (the eval's fused decode takes the
+bf16 kernel). The loss and metrics are f32.
 """
 
 from __future__ import annotations
@@ -55,8 +57,8 @@ from space_time_pde_torch.ops.jet import query_local_implicit_grid_jet
 from space_time_pde_torch.train.optim import Optimizer
 
 __all__ = ["TrainState", "build_models", "flax_init_", "init_state",
-           "make_loss_fn", "make_train_step", "make_multi_step",
-           "make_eval_fn"]
+           "jet_compute_dtype", "make_loss_fn", "make_train_step",
+           "make_multi_step", "make_eval_fn"]
 
 PDE_DERIVS = ("jet", "jet_jnp", "tower")
 
@@ -178,6 +180,15 @@ def _reg_loss(kind: str, pred, target):
     raise ValueError(f"unknown reg_loss_type {kind!r}")
 
 
+def jet_compute_dtype(cfg) -> torch.dtype:
+    """The jet's compute type: bf16 only under both ``use_bf16`` and
+    ``pde_bf16`` (the JAX trainer's ``jet_dtype``), else f32. A bf16 jet
+    diverged in a JAX training run (``BASELINE.md`` round 2): the PDE
+    residuals are small differences of large terms."""
+    return (torch.bfloat16 if cfg.model.use_bf16 and cfg.train.pde_bf16
+            else torch.float32)
+
+
 def make_loss_fn(cfg, unet: nn.Module, imnet: ImNet, pde_layer):
     """loss_fn(batch) -> (loss, metrics dict of 0-d tensors); batch:
     lres [B, *grid, C], point_coord [B, N, D], point_value [B, N, V]
@@ -194,14 +205,10 @@ def make_loss_fn(cfg, unet: nn.Module, imnet: ImNet, pde_layer):
                and pde_layer.max_derivative_order() <= 2)
     use_fused_jet = use_jet and derivs == "jet" and cfg.model.fused_query
     pde_kind = cfg.train.pde_loss_type
-    if cfg.model.use_bf16 and cfg.train.pde_bf16:
-        raise NotImplementedError(
-            "pde_bf16 with use_bf16: the bf16 jet kernels (_jet_fwd_kernel / "
-            "_jet_bwd_kernel at compute_dtype bf16) are not ported yet "
-            "(ROADMAP queue 2); the policy's jet runs f32 without it")
-    # The jet's ImNet at f32 whatever the policy (JAX: imnet.clone(dtype=
-    # jet_dtype)); the fused jet packs the f32 weights itself.
-    jet_imnet = lambda v: imnet(v, dtype=torch.float32)
+    jet_dtype = jet_compute_dtype(cfg)
+    # The jet's ImNet in jet_dtype whatever the policy (JAX: imnet.clone(
+    # dtype=jet_dtype)); the fused jet packs the weights in it itself.
+    jet_imnet = lambda v: imnet(v, dtype=jet_dtype)
 
     def loss_fn(batch):
         coords = batch["point_coord"]
@@ -212,10 +219,14 @@ def make_loss_fn(cfg, unet: nn.Module, imnet: ImNet, pde_layer):
             return query_local_implicit_grid(imnet, latent, pts)
 
         if use_fused_jet:
-            pred, jac, hess = fused_query_jet(imnet, latent, coords)
+            pred, jac, hess = fused_query_jet(imnet, latent, coords,
+                                              compute_dtype=jet_dtype)
         elif use_jet:
+            # At f32 the latent keeps its type (a float64 model's
+            # recomputation stays float64).
             pred, jac, hess = query_local_implicit_grid_jet(
-                jet_imnet, latent, coords)
+                jet_imnet, latent if jet_dtype == torch.float32
+                else latent.to(jet_dtype), coords)
         else:
             pred = fwd(coords)
         reg = _reg_loss(kind, pred, batch["point_value"])

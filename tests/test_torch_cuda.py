@@ -93,7 +93,8 @@ def test_kernels_match_plain(device, nf, c, dim, n, activation):
     got2 = fq.decode_blend(feats2, frac, packed, n_corners=2 ** dim, **kw)
     torch.cuda.synchronize()
     assert fq.LAUNCHES == {"decode_blend_gather": 1, "decode_blend": 1,
-                           "decode_blend_gather_bf16": 0}
+                           "decode_blend_gather_bf16": 0,
+                           "decode_blend_bf16": 0}
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
     np.testing.assert_allclose(got2.cpu().numpy(), want.cpu().numpy(), **TOL)
 
@@ -106,39 +107,54 @@ BF16_DIRECT = 4 * 2.0 ** -8
 
 @pytest.mark.parametrize("nf,c,dim,n,activation", CASES)
 def test_bf16_kernel_matches_plain(device, nf, c, dim, n, activation):
+    """Both entries' bf16 instantiations (the gather kernel and the
+    pre-gathered one, which rounds at other points) against their bf16
+    twins."""
     packed, table, cell_flat, frac = _inputs(device, nf, c, dim, n,
                                              activation)
     table = table.to(torch.bfloat16)
     kw = dict(nf=nf, activation=activation, negative_slope=0.01,
               compute_dtype=torch.bfloat16)
     want = fq.decode_blend_gather_plain(table, cell_flat, frac, packed, **kw)
+    feats2 = table[cell_flat.long()].reshape(-1, c).contiguous()
+    want2 = fq.decode_blend_plain(feats2, frac, packed, n_corners=2 ** dim,
+                                  **kw)
     fq.reset_launches()
     got = fq.decode_blend_gather(table, cell_flat, frac, packed, **kw)
+    got2 = fq.decode_blend(feats2, frac, packed, n_corners=2 ** dim, **kw)
     torch.cuda.synchronize()
     assert fq.LAUNCHES == {"decode_blend_gather": 0, "decode_blend": 0,
-                           "decode_blend_gather_bf16": 1}
-    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
-    err = float((got - want).abs().max())
-    assert err <= BF16_DIRECT * float(want.abs().max()), err
+                           "decode_blend_gather_bf16": 1,
+                           "decode_blend_bf16": 1}
+    for g, w in ((got, want), (got2, want2)):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        err = float((g - w).abs().max())
+        assert err <= BF16_DIRECT * float(w.abs().max()), err
 
 
 @pytest.mark.parametrize("dim", [3, 4])
 def test_bf16_kernel_within_twice_twin_of_float64(device, dim):
-    """At the flagship widths the bf16 kernel sits at most twice as far
-    from the float64 f32-function as its bf16 twin does."""
+    """At the flagship widths each bf16 decode kernel sits at most twice
+    as far from the float64 f32-function as its bf16 twin does."""
     packed, table, cell_flat, frac = _inputs(device, 64, 64, dim, 4096,
                                              "leaky_relu")
     p64 = {k: v.double() for k, v in packed.items()}
     want64 = fq.decode_blend_gather_plain(table.double(), cell_flat,
                                           frac.double(), p64, nf=64)
     tb = table.to(torch.bfloat16)
+    feats2 = tb[cell_flat.long()].reshape(-1, 64).contiguous()
     kw = dict(nf=64, compute_dtype=torch.bfloat16)
-    got = fq.decode_blend_gather(tb, cell_flat, frac, packed, **kw)
-    twin = fq.decode_blend_gather_plain(tb, cell_flat, frac, packed, **kw)
+    pairs = (
+        (fq.decode_blend_gather(tb, cell_flat, frac, packed, **kw),
+         fq.decode_blend_gather_plain(tb, cell_flat, frac, packed, **kw)),
+        (fq.decode_blend(feats2, frac, packed, n_corners=2 ** dim, **kw),
+         fq.decode_blend_plain(feats2, frac, packed, n_corners=2 ** dim,
+                               **kw)))
     torch.cuda.synchronize()
-    need, floor = _atol_needed(got, want64), _atol_needed(twin, want64)
-    assert bool(torch.isfinite(got).all()) and need <= 2 * floor, \
-        (need, floor)
+    for got, twin in pairs:
+        need, floor = _atol_needed(got, want64), _atol_needed(twin, want64)
+        assert bool(torch.isfinite(got).all()) and need <= 2 * floor, \
+            (need, floor)
 
 
 def test_out_of_range_cell_decodes_nan(device):
@@ -230,14 +246,15 @@ def _within(got, plain32, plain64):
     return bool(torch.isfinite(got).all()) and need <= max(2 * floor, 1e-6)
 
 
-def _flips_near_zero(kmasks, pres64):
-    """Every kernel branch that differs from float64's lies within
-    FLIP_REL of 0 (relative to the layer's largest pre-activation)."""
-    for m, pre in zip(kmasks, pres64):
+def _flips_near_zero(kmasks, pres, rel=FLIP_REL):
+    """Every kernel branch that differs from the reference's (whose
+    pre-activations are ``pres``) lies within ``rel`` of 0 (relative to
+    the layer's largest pre-activation)."""
+    for m, pre in zip(kmasks, pres):
         pre = pre.reshape(m.shape)
         flip = m != (pre >= 0)
         if flip.any() and float(pre[flip].abs().max()) > \
-                FLIP_REL * float(pre.abs().max()):
+                rel * float(pre.abs().max()):
             return False
     return True
 
@@ -291,7 +308,8 @@ def test_jet_kernels_match_plain(device, nf, c, n, activation, dim):
     out, ws = fj.jet_fwd(feats2, frac, packed, **kw)
     dfeats, grads = fj.jet_bwd(feats2, frac, packed, ws, ybar, **kw)
     torch.cuda.synchronize()
-    assert fj.LAUNCHES == {"jet_fwd": 1, "jet_bwd": 1}
+    assert fj.LAUNCHES == {"jet_fwd": 1, "jet_bwd": 1,
+                           "jet_fwd_bf16": 0, "jet_bwd_bf16": 0}
     km = fj.workspace_masks(ws, n, dim, nf)
     want = fj.jet_fwd_plain(feats2, frac, packed, **kw)
     want64, pres64 = fj.jet_fwd_plain(f64, fr64, p64, return_pre=True, **kw)
@@ -354,7 +372,8 @@ def test_fused_query_jet_trains_through_kernels(device, dim):
 
     fj.reset_launches()
     got = grads(device)
-    assert fj.LAUNCHES == {"jet_fwd": 1, "jet_bwd": 1}
+    assert fj.LAUNCHES == {"jet_fwd": 1, "jet_bwd": 1,
+                           "jet_fwd_bf16": 0, "jet_bwd_bf16": 0}
     for g, w in zip(got, grads(torch.device("cpu"))):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=3e-4,
                                    atol=3e-4 * float(w.abs().max()))
@@ -369,3 +388,119 @@ def test_jet_kernels_refuse_other_d(device):
     with pytest.raises(NotImplementedError, match=r"\(3, 4\)"):
         fj.fused_query_jet(imnet, torch.zeros(1, 3, 3, 4, device=device),
                            torch.zeros(1, 5, 2, device=device))
+
+
+# --- the bf16 jet kernels (csrc/fused_jet_bf16.cu) ---------------------------
+#
+# Against their bf16 twins (jet_fwd_plain at bf16, jet_bwd_bf16_plain), by
+# the decode's direct rule: every block and gradient within BF16_DIRECT of
+# its max |twin|. A sum taken in another order can round a skip term to the
+# other bf16 step, which can move a pre-activation near 0 to the other
+# LeakyReLU branch: such a flip passes if every branch on which the kernel
+# and the twin differ has a twin pre-activation within BF16_FLIP_REL of its
+# layer's max |pre|, and on the kernel's own branches (read from its
+# workspace) the kernel meets the direct rule against the twin run on them.
+
+BF16_FLIP_REL = 2.0 ** -6
+BF16 = torch.bfloat16
+
+
+def _bf16_packed(packed):
+    return {k: v.to(BF16) if k in fq._ROUNDED else v
+            for k, v in packed.items()}
+
+
+def _direct(got, want):
+    return bool(torch.isfinite(got).all()) and float(
+        (got.float() - want.float()).abs().max()) <= \
+        BF16_DIRECT * float(want.float().abs().max())
+
+
+# Points a forward block holds: 32 corner rows, 4 points at D = 3 and 2 at
+# D = 4; the edges take one point, one short of a block and one past it.
+# C = 4 and widths below 8 take the unaligned (2-byte) staging.
+BF16_JET_CASES = ([(8, 16, n, "leaky_relu", 3) for n in (1, 3, 5, 17)]
+                  + [(8, 16, n, "leaky_relu", 4) for n in (1, 3, 9)]
+                  + [(2, 4, 37, "leaky_relu", 3), (2, 4, 37, "relu", 4),
+                     (4, 4, 50, "leaky_relu", 3), (4, 4, 50, "leaky_relu", 4),
+                     (64, 64, 2048, "leaky_relu", 3),
+                     (64, 64, 1024, "leaky_relu", 4)])
+
+
+@pytest.mark.parametrize("nf,c,n,activation,dim", BF16_JET_CASES)
+def test_bf16_jet_kernels_match_twins(device, nf, c, n, activation, dim):
+    from space_time_pde_torch.ops import fused_jet as fj
+
+    packed, feats2, frac, ybar, slope = _jet_inputs(device, nf, c, n,
+                                                    activation, dim=dim)
+    p16, f16 = _bf16_packed(packed), feats2.to(BF16)
+    kw = dict(nf=nf, slope=slope)
+    fj.reset_launches()
+    out, ws = fj.jet_fwd(f16, frac, p16, compute_dtype=BF16, **kw)
+    dfeats, grads = fj.jet_bwd(f16, frac, p16, ws, ybar, compute_dtype=BF16,
+                               **kw)
+    torch.cuda.synchronize()
+    assert fj.LAUNCHES == {"jet_fwd": 0, "jet_bwd": 0, "jet_fwd_bf16": 1,
+                           "jet_bwd_bf16": 1}
+    assert dfeats.dtype == torch.float32
+    km = fj.workspace_masks(ws, n, dim, nf, compute_dtype=BF16)
+    twin, pres = fj.jet_fwd_plain(f16, frac, p16, compute_dtype=BF16,
+                                  return_pre=True, **kw)
+    flips_ok = _flips_near_zero(km, pres, BF16_FLIP_REL)
+    twin_m = fj.jet_fwd_plain(f16, frac, p16, compute_dtype=BF16, masks=km,
+                              **kw)
+    d, g = fj.jet_bwd_bf16_plain(f16, frac, p16, ybar, **kw)
+    dm, gm = fj.jet_bwd_bf16_plain(f16, frac, p16, ybar, masks=km, **kw)
+    for what, got, want, want_m in (
+            [("blocks", out, twin, twin_m), ("dfeats2", dfeats, d, dm)]
+            + [(k, grads[k], g[k], gm[k]) for k in grads]):
+        assert _direct(got, want) or (flips_ok and _direct(got, want_m)), \
+            what
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+def test_bf16_jet_backward_is_deterministic(device, dim):
+    from space_time_pde_torch.ops import fused_jet as fj
+
+    packed, feats2, frac, ybar, _ = _jet_inputs(device, 8, 16, 3000,
+                                                "leaky_relu", dim=dim)
+    p16, f16 = _bf16_packed(packed), feats2.to(BF16)
+    _, ws = fj.jet_fwd(f16, frac, p16, nf=8, compute_dtype=BF16)
+    first = fj.jet_bwd(f16, frac, p16, ws, ybar, nf=8, compute_dtype=BF16)
+    second = fj.jet_bwd(f16, frac, p16, ws, ybar, nf=8, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    for name in first[1]:
+        assert torch.equal(first[1][name], second[1][name]), name
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+def test_fused_query_jet_bf16_trains_through_kernels(device, dim):
+    """The bf16 jet's autograd Function on the card (the bf16 kernels)
+    against the same on the CPU (their twins), gradients of the ImNet and
+    the latent grid by the direct rule."""
+    from space_time_pde_torch.ops import fused_jet as fj
+
+    torch.manual_seed(4)
+    imnet = ImNet(dim=dim, in_features=8, out_features=4, nf=4)
+    rng = np.random.RandomState(4)
+    latent = torch.from_numpy(
+        rng.randn(2, *(4, 5, 6, 3)[:dim], 8).astype(np.float32))
+    pts = torch.from_numpy(rng.rand(2, 50, dim).astype(np.float32))
+    cot = [torch.from_numpy(rng.randn(2, 50, 4, *([dim] * i)).astype(
+        np.float32)) for i in range(3)]
+
+    def grads(dev):
+        model = copy.deepcopy(imnet).to(dev)
+        lat = latent.to(dev).requires_grad_(True)
+        outs = fj.fused_query_jet(model, lat, pts.to(dev),
+                                  compute_dtype=BF16)
+        sum((o * c.to(dev)).sum() for o, c in zip(outs, cot)).backward()
+        return [lat.grad.cpu()] + [p.grad.cpu() for p in model.parameters()]
+
+    fj.reset_launches()
+    got = grads(device)
+    assert fj.LAUNCHES == {"jet_fwd": 0, "jet_bwd": 0, "jet_fwd_bf16": 1,
+                           "jet_bwd_bf16": 1}
+    for g, w in zip(got, grads(torch.device("cpu"))):
+        assert _direct(g, w)

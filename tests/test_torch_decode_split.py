@@ -291,7 +291,7 @@ def _jet_kernel_chain(packed, feats2, frac, *, nf, slope, matmul):
                          for c in range(1, dim + 1)]
     h = x[0].reshape(n, k, nf)
     g = torch.stack(x[1:], 1).reshape(n, k, dim, nf)
-    return fj._jet_blocks(h, g, frac, packed), masks
+    return fj._head(fj._stacked(h, g, frac), packed, lambda t: t), masks
 
 
 def _jet_atol(got, want):

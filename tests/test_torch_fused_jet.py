@@ -74,7 +74,8 @@ def test_fused_query_jet_matches_pallas_and_jnp(dim, spatial, n, activation,
     tfj.reset_launches()
     got = tfj.fused_query_jet(tm, torch.from_numpy(latent),
                               torch.from_numpy(pts))
-    assert tfj.LAUNCHES == {"jet_fwd": 0, "jet_bwd": 0}
+    assert tfj.LAUNCHES == {"jet_fwd": 0, "jet_bwd": 0,
+                            "jet_fwd_bf16": 0, "jet_bwd_bf16": 0}
     for want in (_pallas(model, params, jnp.asarray(latent),
                          jnp.asarray(pts)),
                  _jnp(model, params, jnp.asarray(latent), jnp.asarray(pts))):
@@ -128,7 +129,7 @@ def test_jet_bwd_plain_is_the_function_backward(slope):
                                 slope=slope)
     leaves = {k: v.clone().requires_grad_(True) for k, v in packed.items()}
     f = feats2.clone().requires_grad_(True)
-    out = tfj._Jet.apply(4, slope, f, frac,
+    out = tfj._Jet.apply(4, slope, torch.float32, f, frac,
                          *[leaves[k] for k in tfq._WEIGHTS])
     (out * ybar).sum().backward()
     np.testing.assert_allclose(f.grad.numpy(), dfeats.numpy(), rtol=1e-6,
@@ -141,8 +142,10 @@ def test_jet_bwd_plain_is_the_function_backward(slope):
 def test_fused_jet_rejects():
     _, _, tm = _pair()
     lat, pts = torch.zeros(1, 3, 3, 3, 8), torch.zeros(1, 4, 3)
-    with pytest.raises(NotImplementedError, match="f32"):
-        tfj.fused_query_jet(tm, lat, pts, compute_dtype=torch.bfloat16)
+    # f32 and bf16 are the kernels' instantiations (the bf16 jets:
+    # tests/test_torch_bf16_jet.py); another dtype names them.
+    with pytest.raises(NotImplementedError, match="f32 and bf16"):
+        tfj.fused_query_jet(tm, lat, pts, compute_dtype=torch.float16)
     _, _, gelu = _pair(activation="gelu")
     with pytest.raises(ValueError, match="piecewise-linear"):
         tfj.fused_query_jet(gelu, lat, pts)

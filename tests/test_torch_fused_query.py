@@ -79,7 +79,8 @@ def test_decode_blend_plain_matches_pallas(activation, n):
                            activation=activation)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert tfq.LAUNCHES == {"decode_blend_gather": 0, "decode_blend": 0,
-                           "decode_blend_gather_bf16": 0}
+                           "decode_blend_gather_bf16": 0,
+                           "decode_blend_bf16": 0}
 
 
 QUERY_CASES = [
@@ -115,7 +116,8 @@ def test_fused_query_matches_pallas(gather, spatial, xmin, xmax,
         xmax=xmax, gather=gather)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert tfq.LAUNCHES == {"decode_blend_gather": 0, "decode_blend": 0,
-                           "decode_blend_gather_bf16": 0}
+                           "decode_blend_gather_bf16": 0,
+                           "decode_blend_bf16": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -135,20 +137,22 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="n_corners"):
         tfq.decode_blend(torch.zeros(20, 4), frac, packed, nf=2,
                          n_corners=4)
-    # bf16: the gather entry takes a bf16 table (an f32 one raises); the
-    # pre-gathered entry has no bf16 instantiation and says where it is
-    # queued.
+    # bf16: each entry takes bf16 latent rows (f32 ones raise); f32 and
+    # bf16 are the only instantiations.
     with pytest.raises(TypeError, match="table"):
         tfq.decode_blend_gather(table, cells, frac, packed, nf=2,
                                 compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfq.decode_blend(torch.zeros(40, 4, dtype=torch.bfloat16), frac,
+    with pytest.raises(TypeError, match="feats2"):
+        tfq.decode_blend(torch.zeros(40, 4), frac, packed, nf=2,
+                         n_corners=8, compute_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="f32 and bf16"):
+        tfq.decode_blend(torch.zeros(40, 4, dtype=torch.float16), frac,
                          packed, nf=2, n_corners=8,
-                         compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfq.fused_query_local_implicit_grid(
-            tm, torch.zeros(1, 2, 2, 2, 4), torch.zeros(1, 3, 3),
-            gather="pregather", compute_dtype=torch.bfloat16)
+                         compute_dtype=torch.float16)
+    got = tfq.fused_query_local_implicit_grid(
+        tm, torch.zeros(1, 2, 2, 2, 4), torch.zeros(1, 3, 3),
+        gather="pregather", compute_dtype=torch.bfloat16)
+    assert got.shape == (1, 3, 4) and got.dtype == torch.float32
 
 
 @pytest.mark.parametrize("dim", [2, 3])

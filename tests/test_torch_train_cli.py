@@ -63,10 +63,12 @@ def test_train_then_resume(tmp_path, capsys):
     assert "resumed from step 8 (epoch 2)" in out
     assert resumed["start_epoch"] == 2 and resumed["step"] == 12
     assert [e["epoch"] for e in resumed["epochs"]] == [2]
-    assert fused_jet.LAUNCHES == {"jet_fwd": 0, "jet_bwd": 0}
+    assert fused_jet.LAUNCHES == {"jet_fwd": 0, "jet_bwd": 0,
+                                  "jet_fwd_bf16": 0, "jet_bwd_bf16": 0}
     assert fused_query.LAUNCHES == {"decode_blend_gather": 0,
                                     "decode_blend": 0,
-                                    "decode_blend_gather_bf16": 0}
+                                    "decode_blend_gather_bf16": 0,
+                                    "decode_blend_bf16": 0}
     with open(tmp_path / "log" / "metrics.jsonl") as f:
         recs = [json.loads(line) for line in f]
     assert [r["step"] for r in recs if "train/loss" in r] == [4, 8, 12]

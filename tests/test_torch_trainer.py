@@ -308,8 +308,9 @@ def test_checkpoint_round_trip_is_step_exact(tmp_path):
 
 
 def test_unported_modes_raise():
-    # use_bf16: bf16 modules with f32 parameters; the bf16 jets
-    # (pde_bf16) are not ported.
+    # use_bf16: bf16 modules with f32 parameters; the jet computes in bf16
+    # only with pde_bf16 too (tests/test_torch_bf16_jet.py), as JAX's
+    # jet_dtype.
     tcfg = TConfig.from_dict(_cfg().to_dict())
     tcfg.model.use_bf16 = True
     for d in (IGRES, (4, 4, 4, 4)):
@@ -320,9 +321,12 @@ def test_unported_modes_raise():
         assert all(getattr(m, "dtype", torch.bfloat16) == torch.bfloat16
                    for m in unet.modules())
     ttrain.make_loss_fn(tcfg, unet, imnet, None)
+    assert ttrain.jet_compute_dtype(tcfg) == torch.float32
     tcfg.train.pde_bf16 = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.make_loss_fn(tcfg, unet, imnet, None)
+    ttrain.make_loss_fn(tcfg, unet, imnet, None)
+    assert ttrain.jet_compute_dtype(tcfg) == torch.bfloat16
+    tcfg.model.use_bf16 = False
+    assert ttrain.jet_compute_dtype(tcfg) == torch.float32
     tcfg = TConfig.from_dict(_cfg().to_dict())
     tcfg.model.norm = "batch"
     unet, imnet = ttrain.build_models(tcfg, IGRES, "cpu")

@@ -9,8 +9,13 @@ Phases (any failure raises and exits non-zero):
    (switched off);
 2. build every kernel from ``space_time_pde_torch/csrc`` (one nvcc per
    source, in parallel); print each kernel's registers and spills from
-   ptxas, both D instantiations of the jet kernels apart, and the decode
-   block's rows and dynamic shared memory at the flagship widths;
+   ptxas, both D instantiations of the jet kernels apart, the decode
+   block's rows and dynamic shared memory at the flagship widths, the bf16
+   decode's plan there (shared memory, ring stages, cluster size, rows a
+   tile) and, where the toolkit has ``cuobjdump``, the count of its wgmma
+   (``HGMMA``), bulk-copy (``UBLKCP``), TMA (``UTMALDG``) and mbarrier
+   (``SYNCS``) instructions in its SASS, and how many times ptxas noted
+   that it serialized the wgmmas (C7520; 0 expected);
 3. both decode kernels against their plain PyTorch twins on the card,
    at the rb2d flagship widths (C = 64, nf = 64, D = 3, out = 4) on
    65,536 seeded points that include lattice faces, cell edges and
@@ -140,13 +145,14 @@ F. the train CLIs: rb2d with ``--space_devices 2 --sharded_encoder`` on
 and the bf16 compute policy (``use_bf16``; each phase's launch counts
 set to 0 just before its path and read just after):
 
-G. the gather decode's bf16 instantiation (``decode_blend_gather`` with
-   ``compute_dtype=bfloat16``, ``stpde_decode_blend_gather_bf16``)
-   against its bf16 plain twin on phase 3's and 10's 65,536 points and
-   grids (D = 3 and 4, C = 64, nf = 64), the table rounded to bf16: per
-   point within BF16_DIRECT of max |twin|, and against the f32 function
-   in float64 at most BF16_KERNEL_SLACK times as far as the twin; CUDA-
-   event times against the bf16 bound;
+G. the gather decode's bf16 kernel (``decode_blend_gather`` with
+   ``compute_dtype=bfloat16``, ``stpde_decode_blend_gather_bf16``,
+   ``csrc/fused_query_bf16.cu``; its weights tiled once by
+   ``decode_tiles``) against its bf16 plain twin on phase 3's and 10's
+   65,536 points and grids (D = 3 and 4, C = 64, nf = 64), the table
+   rounded to bf16: per point within BF16_DIRECT of max |twin|, and
+   against the f32 function in float64 at most BF16_KERNEL_SLACK times
+   as far as the twin; CUDA-event times against the bf16 bound;
 H. the 8 real RB2D windows of phase A through the eval CLI's models and
    ``make_dense_decoder`` at ``--decode_dtype bf16`` (the f32 checkpoint's
    UNet, the bf16 decode): per point within BF16_DIRECT of max |JAX bf16|
@@ -325,9 +331,10 @@ REPLACES = {
 }
 SOURCES = {
     "decode_blend_gather": "space_time_pde_torch/csrc/fused_query.cu",
-    "decode_blend_gather_bf16": "space_time_pde_torch/csrc/fused_query.cu",
+    "decode_blend_gather_bf16":
+        "space_time_pde_torch/csrc/fused_query_bf16.cu",
     "decode_blend": "space_time_pde_torch/csrc/fused_query.cu",
-    "decode_blend_bf16": "space_time_pde_torch/csrc/fused_query.cu",
+    "decode_blend_bf16": "space_time_pde_torch/csrc/fused_query_bf16.cu",
     "jet_fwd": "space_time_pde_torch/csrc/fused_jet.cu",
     "jet_bwd": "space_time_pde_torch/csrc/fused_jet.cu",
     "jet_fwd_bf16": "space_time_pde_torch/csrc/fused_jet_bf16.cu",
@@ -415,6 +422,38 @@ def ptxas_summary(log: str):
             out.append(f"{name}: {m.group(1)} registers, {spills}")
             name = None
     return out
+
+
+def bf16_plan(dim, pregathered):
+    """The bf16 decode's plan (``stpde_decode_bf16_plan``) at the flagship
+    widths (C = 64, nf = 64)."""
+    import ctypes
+
+    from space_time_pde_torch.ops import _build
+
+    buf = (ctypes.c_longlong * 6)()
+    _build.load("fused_query_bf16").stpde_decode_bf16_plan(
+        64, dim, 64, pregathered, buf)
+    return dict(zip(("smem", "stages", "kx", "image", "cluster", "rows"),
+                    list(buf)))
+
+
+def sass_counts():
+    """Counts of the bf16 decode's wgmma, bulk-copy, TMA and mbarrier
+    instructions in its SASS (``cuobjdump -sass``), or why there are
+    none."""
+    import shutil
+
+    from space_time_pde_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "cuobjdump not found"
+    sass = subprocess.run(
+        [tool, "-sass", str(_build.library_path("fused_query_bf16"))],
+        capture_output=True, text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "UBLKCP", "UTMALDG", "SYNCS")}
 
 
 def bound(kind, *, n, c, dim, nf, out, n_cells=0, math="ffma"):
@@ -1350,10 +1389,11 @@ def bf16_kernel_vs_plain(imnet, device, spatial):
         imnet, device, spatial)
     table16 = table.to(torch.bfloat16)
     kw["compute_dtype"] = torch.bfloat16
+    tiles = fq.decode_tiles(packed, nf=imnet.nf, dim=len(spatial))
     return bf16_decode_vs_twin(
         "decode_blend_gather_bf16",
         lambda: fq.decode_blend_gather(table16, cell_flat, frac, packed,
-                                       **kw),
+                                       tiles=tiles, **kw),
         lambda: fq.decode_blend_gather_plain(table16, cell_flat, frac,
                                              packed, **kw),
         want64, dict(kind="decode_blend_gather", n=N_CHECK,
@@ -1719,9 +1759,10 @@ def bf16_pregather_vs_plain(imnet, device, spatial):
     feats2 = table.to(bf)[cell_flat.long()].reshape(
         -1, imnet.in_features).contiguous()
     kw = dict(kw, n_corners=2 ** dim, compute_dtype=bf)
+    tiles = fq.decode_tiles(packed, nf=imnet.nf, dim=dim, pregathered=True)
     row, got = bf16_decode_vs_twin(
         "decode_blend_bf16",
-        lambda: fq.decode_blend(feats2, frac, packed, **kw),
+        lambda: fq.decode_blend(feats2, frac, packed, tiles=tiles, **kw),
         lambda: fq.decode_blend_plain(feats2, frac, packed, **kw), want64,
         dict(kind="decode_blend", n=N_CHECK, c=imnet.in_features, dim=dim,
              nf=imnet.nf, out=imnet.out_features))
@@ -2454,15 +2495,26 @@ def main():
     t0 = time.perf_counter()
     _build.load()
     log = _build.build_log()
-    for src in ("fused_query", "fused_jet", "fused_jet_bf16"):
+    for src in ("fused_query", "fused_query_bf16", "fused_jet",
+                "fused_jet_bf16"):
         for line in ptxas_summary(log.get(src, "")):
             print(f"{src}.cu {line}", flush=True)
     lib = _build.load()
     print("fused_query.cu decode block: "
           f"{lib.stpde_block_rows()} corner rows, dynamic shared memory "
           f"{lib.stpde_decode_smem_bytes(64, 3, 64)} bytes at C = 64, "
-          "nf = 64 (the bf16 instantiation "
-          f"{lib.stpde_decode_bf16_smem_bytes(64, 3, 64)})", flush=True)
+          "nf = 64", flush=True)
+    for dim, pre in ((3, 0), (4, 0), (3, 1), (4, 1)):
+        plan = bf16_plan(dim, pre)
+        print(f"fused_query_bf16.cu plan at C = 64, nf = 64, D = {dim}, "
+              f"{'pre-gathered' if pre else 'gather'}: {plan['smem']} bytes "
+              f"of shared memory a CTA, {plan['stages']} ring stages of "
+              f"16 KB, kx {plan['kx']}, tile image {plan['image']} bf16 "
+              f"values, clusters of {plan['cluster']} CTAs, "
+              f"{plan['rows']} corner rows a tile", flush=True)
+    print(f"fused_query_bf16.cu SASS: {sass_counts()}; ptxas notes of "
+          "serialized wgmma (C7520): "
+          f"{log.get('fused_query_bf16', '').count('C7520')}", flush=True)
     say(f"kernels loaded in {time.perf_counter() - t0:.1f}s ("
         + (f"nvcc {log['seconds']:.1f}s, all sources in parallel" if log
            else "already built") + ")")

@@ -104,7 +104,7 @@ def _provenance(cfg, device, sampler, layout) -> str:
         jet = f"{derivs} (plain PyTorch)"
     bf16 = cfg.model.use_bf16
     decode = ("decode_blend_gather" + ("_bf16" if bf16 else "")
-              + " (csrc/fused_query.cu)"
+              + f" (csrc/fused_query{'_bf16' * bf16}.cu)"
               if cfg.model.fused_query and device.type == "cuda"
               else "plain PyTorch")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"

@@ -5,7 +5,8 @@ Counterpart of ``experiments/turb3d/evaluation.py``: load exported
 weights, encode each eval window's low-res (t, z, y, x) input once with
 UNet4d, decode the implicit field on the dense high-res lattice in
 chunks through the port's decode kernel at 16 corners
-(``csrc/fused_query.cu``; its plain twin on the CPU), and report the
+(``csrc/fused_query.cu``, ``csrc/fused_query_bf16.cu`` under
+``--decode_dtype bf16``; its plain twin on the CPU), and report the
 per-window rel-L2 against the ground truth with the same lines as the
 JAX CLI (per window, mean and per channel), or with ``--full_sequence``
 one stitched decode of the whole simulation.

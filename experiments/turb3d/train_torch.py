@@ -171,7 +171,7 @@ def _provenance(cfg, device, sampler, layout) -> str:
     else:
         jet = f"{pde_derivs} (plain PyTorch)"
     decode = ("decode_blend_gather" + ("_bf16" if bf16 else "")
-              + " at D=4 (csrc/fused_query.cu)"
+              + f" at D=4 (csrc/fused_query{'_bf16' * bf16}.cu)"
               if device.type == "cuda" else "plain PyTorch")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")

@@ -89,14 +89,13 @@
 // bounds. Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (space_time_pde_torch/ops/_build.py).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "decode_common.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int kRows = 64;          // corner rows per block
 constexpr int kThreads = 512;      // 16 warps: 2 along rows x 8 along columns
@@ -150,24 +149,6 @@ Shape make_shape(int c, int dim, int nf, int out_dim) {
   s.fr = s.f + kRows * (s.cp + 4);
   s.total = s.fr + kRows;
   return s;
-}
-
-__device__ __forceinline__ float activate(float x, int code, float ns) {
-  switch (code) {
-    case 0: return fmaxf(x, 0.f);                                 // relu
-    case 1: return x >= 0.f ? x : ns * x;                         // leaky_relu
-    case 2: return x > 0.f ? x : expm1f(x);                       // elu
-    case 3: {                                                     // gelu
-      const float c = 0.7978845608028654f;                        // sqrt(2/pi)
-      return x * (0.5f * (1.f + tanhf(c * (x + 0.044715f * (x * x * x)))));
-    }
-    case 4:                                                       // silu
-    case 5: return x * (1.f / (1.f + expf(-x)));                  // swish
-    case 6: return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));       // softplus
-    case 7: return tanhf(x);
-    case 8: return 1.f / (1.f + expf(-x));                        // sigmoid
-    default: return sinf(x);                                      // sin (9)
-  }
 }
 
 __device__ __forceinline__ uint32_t tf32(float x) {
@@ -281,19 +262,6 @@ __device__ __forceinline__ void stage_cols(float* dst, const float* src,
   }
 }
 
-// What the f32 and bf16 instantiations share: the block's frac and corner
-// latents in shared memory, the corner blend and the head. T is the
-// element type of the table (or rows) and of the head's weights.
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 __device__ __forceinline__ float nan_f32() {
   return __int_as_float(0x7fc00000);
 }
@@ -312,8 +280,9 @@ __device__ __forceinline__ void stage_frac(float* fr, const float* frac,
 // r & (2^D - 1) of point p0 + (r >> D), from row cell_flat[p] of the
 // cell-major table (kGather; NaN for a cell outside [0, n_cells)) or from
 // the pre-gathered rows; 0 past point n and in the padding columns.
-template <typename T, bool kGather>
-__device__ __forceinline__ void stage_feats(T* feats, int ldf, const T* src,
+template <bool kGather>
+__device__ __forceinline__ void stage_feats(float* feats, int ldf,
+                                            const float* src,
                                             const int* cell_flat, int p0,
                                             int n, int n_cells, int c, int cp,
                                             int dim) {
@@ -321,13 +290,13 @@ __device__ __forceinline__ void stage_feats(T* feats, int ldf, const T* src,
   for (int i = threadIdx.x; i < kRows * cp; i += kThreads) {
     const int r = i / cp, ch = i - r * cp;
     const int gp = p0 + (r >> dim), k = r & (n_corners - 1);
-    T v = from_f32<T>(0.f);
+    float v = 0.f;
     if (gp < n && ch < c) {
       if (kGather) {
         const int cell = cell_flat[gp];
         v = (cell >= 0 && cell < n_cells)
                 ? src[((size_t)cell * n_corners + k) * c + ch]
-                : from_f32<T>(nan_f32());
+                : nan_f32();
       } else {
         v = src[((size_t)gp * n_corners + k) * c + ch];
       }
@@ -337,9 +306,7 @@ __device__ __forceinline__ void stage_feats(T* feats, int ldf, const T* src,
 }
 
 // The last layer's f32 h [kRows][ldh] blended over the corners with the
-// multilinear weights of fr -> hb [ppb][nf], rounded to T (the head's
-// operand type).
-template <typename T>
+// multilinear weights of fr -> hb [ppb][nf].
 __device__ __forceinline__ void blend_corners(float* hb, const float* h,
                                               int ldh, const float* fr,
                                               int nf, int dim) {
@@ -355,15 +322,14 @@ __device__ __forceinline__ void blend_corners(float* hb, const float* h,
       }
       v += h[(pp * n_corners + k) * ldh + j] * w;
     }
-    hb[i] = to_f32(from_f32<T>(v));
+    hb[i] = v;
   }
 }
 
 // The head, out[p] = hb[p] @ w5 + b5: one warp per (point, output), lanes
 // over nf, f32 sums, b5 f32.
-template <typename T>
 __device__ __forceinline__ void head(float* out, const float* hb,
-                                     const T* w5, const float* b5, int p0,
+                                     const float* w5, const float* b5, int p0,
                                      int n, int nf, int out_dim, int dim) {
   const int ppb = kRows >> dim;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -371,7 +337,7 @@ __device__ __forceinline__ void head(float* out, const float* hb,
     const int pp = i / out_dim, o = i - pp * out_dim;
     float v = 0.f;
     for (int j = lane; j < nf; j += 32)
-      v += hb[pp * nf + j] * to_f32(__ldg(w5 + (size_t)j * out_dim + o));
+      v += hb[pp * nf + j] * __ldg(w5 + (size_t)j * out_dim + o);
 #pragma unroll
     for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
     const int gp = p0 + pp;
@@ -532,7 +498,7 @@ decode_blend_kernel(const float* __restrict__ src,      // table or feats2
   if (nh > 1) stage_cols(w0s + s.cp * kLdW0, wt.wx0, s.cp, kKc, s.w[0]);
   cp_commit();
   stage_frac(fr, frac, p0, n, s.dim);
-  stage_feats<float, kGather>(feats, ldf, src, cell_flat, p0, n, n_cells,
+  stage_feats<kGather>(feats, ldf, src, cell_flat, p0, n, n_cells,
                               s.c, s.cp, s.dim);
 
   cp_wait_all();
@@ -606,7 +572,7 @@ decode_blend_kernel(const float* __restrict__ src,      // table or feats2
 
   // h_4 is in H; blend the corners into hb = R2 [ppb][nf], then the head.
   float* hb = r2;
-  blend_corners<float>(hb, r1, s.ldh, fr, s.nf, s.dim);
+  blend_corners(hb, r1, s.ldh, fr, s.nf, s.dim);
   __syncthreads();
   head(out, hb, wt.w5, wt.b5, p0, n, s.nf, s.out_dim, s.dim);
 }
@@ -643,325 +609,6 @@ Weights pack(const float* wx0, const float* rel, const float* cb,
 
 }  // namespace
 
-// ---------------------------------------------------------------------------
-// The bf16 instantiation of the gather entry (stpde_decode_blend_gather_bf16):
-// what _kernel_gather computes at compute_dtype=bfloat16, on Hopper's bf16
-// tensor cores, one mma.sync.m16n8k16 (bf16 operands, f32 accumulators) per
-// k16 step and no split planes. It rounds where the TPU kernel rounds (the
-// plain twin, ops/fused_query.py::decode_blend_gather_plain, rounds at the
-// same points): the table is read as bf16 (half the f32 table's bytes); the
-// weights arrive rounded to bf16 (corner_bias from the unrounded wx_rel,
-// b5 f32); frac is rounded for the coordinate term, the blend weights take
-// the f32 frac; a layer's skip term and pre-activation are summed in f32
-// (the latent part of the skip in the same K loop as the hidden product, as
-// the f32 kernel does, the coordinate term and the corner bias in the
-// epilogue), the activation runs in f32 and h is rounded to bf16 where it is
-// stored as the next layer's A operand; the last layer's h stays f32 for
-// the blend, and hblend is rounded to bf16 before the head.
-//
-// Bound: arithmetic, 0.88 ms per 65,536 flagship points at D = 3 (8.7e11
-// operations at 989 TFLOP/s dense bf16), 1.76 ms at D = 4.
-//
-// Layout: the same 64 corner rows a block and 16 warps (2 along rows x 8
-// along columns) as the f32 kernel, but layer by layer: h_0 (16 nf wide)
-// fits in shared memory as bf16 (64 x 1,032 x 2 bytes at nf = 64), so each
-// layer's output overwrites the one activation buffer H after its K loop,
-// and layer 0 runs in two column passes of at most 512 (a warp's 8 n-tiles
-// of accumulators). The B operands come transposed ([W, K], K contiguous;
-// kernel_weights(dtype=bfloat16)), so a fragment is two 32-bit loads; they
-// are staged in 32-row K tiles by cp.async into a double buffer, a tile
-// per block once (row stride K tile + 8: the fragment loads are free of
-// bank conflicts, as are A's with the +8 row padding of H and the
-// latents). Shared memory at C = 64, nf = 64: 223,488 bytes. The same
-// limits as the f32 kernel: 8 nf rounded up to 64 at most 512 and the
-// buffers within 227 KB (C <= 128 at nf = 64). No wgmma or TMA yet.
-//
-// The pre-gathered entry's bf16 instantiation (stpde_decode_blend_bf16,
-// replacing _kernel (:400, pallas_call :510) at compute_dtype=bfloat16) is
-// the same kernel (kPre) at _kernel's rounding points, which differ from
-// _kernel_gather's: the rows arrive pre-gathered ([N * 2^D, C] bf16), the
-// corner bias stays f32 (kernel_weights(dtype=bfloat16, f32=("b5", "cb"))),
-// and the whole skip term is rounded to bf16 before the hidden product is
-// added (_kernel stores its skip buffer xs in bf16, fused_query.py:425-428):
-// each pass runs the latents' K tiles first, rounds the accumulators with
-// the coordinate term and the corner bias in registers, then accumulates
-// the hidden product onto them. Same bound and limits.
-// ---------------------------------------------------------------------------
-
-namespace {
-
-constexpr int kBfKc = 32;                 // K rows per staged weight tile
-constexpr int kBfLdB = kBfKc + 8;         // staged tile row stride (bf16)
-constexpr int kBfPass = kWidthAlign * kMaxNt;   // 512 columns per pass
-
-struct WeightsBf16 {
-  const bf16* wx0;      // [W0, Cp]: Wx_feat[:, sl_0], transposed
-  const bf16* rel;      // [D, Sp]
-  const void* cb;       // [2^D, Sp]: bf16 (gather), f32 (pre-gathered)
-  const bf16* wb[4];    // layer i + 1: [W_{i+1}, W_i + Cp], transposed
-  const bf16* w5;       // [nf, out]
-  const float* b5;      // [out]
-};
-
-// Padded sizes and the shared-memory plan (bytes).
-struct ShapeBf16 {
-  int c, cp, dim, nf, out_dim;
-  int w[5], off[5], sp;
-  int ldh;      // H row stride (bf16); as f32, h_4 uses w[4] + 4
-  int ldf;      // latent row stride (bf16)
-  int pass;     // columns a pass stages
-  int o_w, o_f, o_fr, total;
-};
-
-ShapeBf16 make_shape_bf16(int c, int dim, int nf, int out_dim) {
-  ShapeBf16 s{};
-  s.c = c, s.cp = round_up(c, kBfKc), s.dim = dim, s.nf = nf;
-  s.out_dim = out_dim;
-  for (int i = 0, off = 0; i < 5; ++i) {
-    s.w[i] = round_up(nf << (4 - i), kWidthAlign);
-    s.off[i] = off;
-    off += s.w[i];
-    s.sp = off;
-  }
-  s.ldh = s.w[0] + 8;
-  s.ldf = s.cp + 8;
-  s.pass = s.w[0] < kBfPass ? s.w[0] : kBfPass;
-  const int h = imax(2 * kRows * s.ldh, 4 * kRows * (s.w[4] + 4));
-  s.o_w = round_up(h, 16);
-  s.o_f = s.o_w + 2 * (2 * s.pass * kBfLdB);
-  s.o_fr = s.o_f + round_up(2 * kRows * s.ldf, 16);
-  s.total = s.o_fr + 4 * kRows;
-  return s;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void cp16b(bf16* dst, const bf16* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-// K rows [k0, k0 + kBfKc) of columns [c0, c0 + pw) of a transposed [W, K]
-// weight -> dst [pw][kBfLdB].
-__device__ __forceinline__ void stage_bt(bf16* dst, const bf16* src, int k,
-                                         int c0, int pw, int k0) {
-  for (int i = threadIdx.x; i < pw * (kBfKc / 8); i += kThreads) {
-    const int r = i >> 2, q = i & 3;
-    cp16b(dst + r * kBfLdB + 8 * q, src + (size_t)(c0 + r) * k + k0 + 8 * q);
-  }
-}
-
-// acc += A[row0 : +32, a_k0 : +kBfKc] @ Bt[n0 : +8 nt, 0 : kBfKc]^T.
-__device__ __forceinline__ void mma_tile_bf16(Acc& acc, const bf16* a,
-                                              int lda, int row0, int a_k0,
-                                              const bf16* bt, int n0, int nt,
-                                              int g, int t) {
-#pragma unroll
-  for (int ks = 0; ks < kBfKc; ks += 16) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const bf16* p = a + (row0 + 16 * m + g) * lda + a_k0 + ks + 2 * t;
-      af[m][0] = ld32(p);
-      af[m][1] = ld32(p + 8 * lda);
-      af[m][2] = ld32(p + 8);
-      af[m][3] = ld32(p + 8 * lda + 8);
-    }
-#pragma unroll
-    for (int j = 0; j < kMaxNt; ++j) {
-      if (j < nt) {
-        const bf16* q = bt + (n0 + 8 * j + g) * kBfLdB + ks + 2 * t;
-        const uint32_t b0 = ld32(q), b1 = ld32(q + 8);
-        mma_bf16(acc[0][j], af[0], b0, b1);
-        mma_bf16(acc[1][j], af[1], b0, b1);
-      }
-    }
-  }
-}
-
-// Coordinate term (frac rounded to bf16) and corner bias of row `row` at
-// columns col, col + 1 of rel / cb, in f32; the corner bias is bf16 (kPre
-// false) or f32 (kPre true).
-template <bool kPre>
-__device__ __forceinline__ float2 skip_bias_bf16(const WeightsBf16& wt,
-                                                 const ShapeBf16& s,
-                                                 const float* fr, int row,
-                                                 int col) {
-  const int pp = row >> s.dim, k = row & ((1 << s.dim) - 1);
-  const size_t o = (size_t)k * s.sp + col;
-  float2 v = kPre ? __ldg(reinterpret_cast<const float2*>(
-                        static_cast<const float*>(wt.cb) + o))
-                  : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                        static_cast<const bf16*>(wt.cb) + o));
-  for (int d = 0; d < s.dim; ++d) {
-    const float f = __bfloat162float(__float2bfloat16_rn(fr[pp * s.dim + d]));
-    const float2 r = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(wt.rel + (size_t)d * s.sp +
-                                                 col));
-    v.x += f * r.x;
-    v.y += f * r.y;
-  }
-  return v;
-}
-
-// kPre: the pre-gathered entry (src: feats2 rows; corner bias f32; the
-// skip term rounded to bf16 before the hidden product is added), else the
-// gather entry (src: the cell-major table).
-template <bool kPre>
-__global__ void __launch_bounds__(kThreads, 1)
-decode_blend_bf16_kernel(const bf16* __restrict__ src,
-                         const int* __restrict__ cell_flat,
-                         const float* __restrict__ frac, WeightsBf16 wt,
-                         float* __restrict__ out, int n, int n_cells,
-                         ShapeBf16 s, int act_code, float ns) {
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  bf16* h = reinterpret_cast<bf16*>(smem_b);           // [kRows][ldh]
-  float* h4 = reinterpret_cast<float*>(smem_b);        // [kRows][w4 + 4]
-  bf16* wbuf = reinterpret_cast<bf16*>(smem_b + s.o_w);  // [2][pass][kBfLdB]
-  bf16* feats = reinterpret_cast<bf16*>(smem_b + s.o_f);  // [kRows][ldf]
-  float* fr = reinterpret_cast<float*>(smem_b + s.o_fr);  // [ppb][D]
-  const int ld4 = s.w[4] + 4;
-  const int ppb = kRows >> s.dim;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3, wm = warp / kWarpsN,
-            wn = warp % kWarpsN;
-  const int p0 = blockIdx.x * ppb;
-
-  stage_frac(fr, frac, p0, n, s.dim);
-  stage_feats<bf16, !kPre>(feats, s.ldf, src, cell_flat, p0, n, n_cells,
-                           s.c, s.cp, s.dim);
-
-  Acc acc;
-#pragma unroll 1
-  for (int layer = 0; layer < 5; ++layer) {
-    const int w = s.w[layer], wprev = layer ? s.w[layer - 1] : 0;
-    const int k = wprev + s.cp, nk = k / kBfKc;
-    const bf16* wb = layer ? wt.wb[layer - 1] : wt.wx0;
-    // K tile j's offset: in order, or (kPre) the latents' tiles first.
-    const int nkl = s.cp / kBfKc;
-    auto k_at = [&](int j) {
-      return kPre ? (j < nkl ? wprev + j * kBfKc : (j - nkl) * kBfKc)
-                  : j * kBfKc;
-    };
-#pragma unroll 1
-    for (int c0 = 0; c0 < w; c0 += kBfPass) {
-      const int pw = w - c0 < kBfPass ? w - c0 : kBfPass;
-      const int nt = pw / (8 * kWarpsN);
-      zero(acc);
-      stage_bt(wbuf, wb, k, c0, pw, k_at(0));
-      cp_commit();
-      for (int j = 0; j < nk; ++j) {
-        cp_wait_all();
-        __syncthreads();
-        if (j + 1 < nk) {
-          stage_bt(wbuf + ((j + 1) & 1) * s.pass * kBfLdB, wb, k, c0, pw,
-                   k_at(j + 1));
-          cp_commit();
-        }
-        const int k0 = k_at(j);
-        const bool from_h = k0 < wprev;
-        mma_tile_bf16(acc, from_h ? h : feats, from_h ? s.ldh : s.ldf,
-                      wm * 32, from_h ? k0 : k0 - wprev,
-                      wbuf + (j & 1) * s.pass * kBfLdB, wn * nt * 8, nt, g,
-                      t);
-        if (kPre && j == nkl - 1) {
-          // The skip term is complete: xs = bf16(feats Wx_feat + frac_b
-          // Wx_rel + corner_bias), and the hidden product adds to it.
-#pragma unroll
-          for (int m = 0; m < 2; ++m)
-#pragma unroll
-            for (int jj = 0; jj < kMaxNt; ++jj) {
-              if (jj >= nt) continue;
-              const int col = c0 + (wn * nt + jj) * 8 + 2 * t;
-#pragma unroll
-              for (int half = 0; half < 2; ++half) {
-                const float2 b = skip_bias_bf16<true>(
-                    wt, s, fr, wm * 32 + m * 16 + g + 8 * half,
-                    s.off[layer] + col);
-                float& v0 = acc[m][jj][2 * half];
-                float& v1 = acc[m][jj][2 * half + 1];
-                v0 = __bfloat162float(__float2bfloat16_rn(v0 + b.x));
-                v1 = __bfloat162float(__float2bfloat16_rn(v1 + b.y));
-              }
-            }
-        }
-      }
-      __syncthreads();  // every read of H and of the tiles is done
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int j = 0; j < kMaxNt; ++j) {
-          if (j >= nt) continue;
-          const int col = c0 + (wn * nt + j) * 8 + 2 * t;
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int row = wm * 32 + m * 16 + g + 8 * half;
-            const float2 b =
-                kPre ? make_float2(0.f, 0.f)
-                     : skip_bias_bf16<false>(wt, s, fr, row,
-                                             s.off[layer] + col);
-            const float v0 = activate(acc[m][j][2 * half] + b.x, act_code, ns);
-            const float v1 =
-                activate(acc[m][j][2 * half + 1] + b.y, act_code, ns);
-            if (layer < 4)
-              *reinterpret_cast<__nv_bfloat162*>(h + row * s.ldh + col) =
-                  __floats2bfloat162_rn(v0, v1);
-            else
-              *reinterpret_cast<float2*>(h4 + row * ld4 + col) =
-                  make_float2(v0, v1);
-          }
-        }
-    }
-  }
-  __syncthreads();
-
-  // h_4 (f32) is in H; blend the corners in f32, rounded to bf16, into
-  // hb [ppb][nf] (the weight buffer's space), then the head on bf16 x bf16
-  // products.
-  float* hb = reinterpret_cast<float*>(wbuf);
-  blend_corners<bf16>(hb, h4, ld4, fr, s.nf, s.dim);
-  __syncthreads();
-  head(out, hb, wt.w5, wt.b5, p0, n, s.nf, s.out_dim, s.dim);
-}
-
-template <bool kPre>
-int launch_bf16(const bf16* src, const int* cell_flat, const float* frac,
-                const WeightsBf16& wt, float* out, int n, int n_cells, int c,
-                int dim, int nf, int out_dim, int act_code, float ns,
-                void* stream) {
-  if (n <= 0) return 0;
-  if (dim < 1 || (1 << dim) > kRows) return (int)cudaErrorInvalidValue;
-  const ShapeBf16 s = make_shape_bf16(c, dim, nf, out_dim);
-  if (s.w[1] > kBfPass) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      decode_blend_bf16_kernel<kPre>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, s.total);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  const int ppb = kRows >> dim;
-  const unsigned blocks = (unsigned)((n + ppb - 1) / ppb);
-  decode_blend_bf16_kernel<kPre><<<blocks, kThreads, s.total,
-                                   (cudaStream_t)stream>>>(
-      src, cell_flat, frac, wt, out, n, n_cells, s, act_code, ns);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" {
 
 // Weights in the layout of ops/fused_query.py::kernel_weights.
@@ -987,45 +634,6 @@ int stpde_decode_blend(
                        pack(wx0, rel, cb, wb1, wb2, wb3, wb4, w5, b5), out,
                        n, 0, c, dim, nf, out_dim, act_code, negative_slope,
                        stream);
-}
-
-// The bf16 instantiation: table [n_cells, 2^D * C] bf16, weights in the
-// layout of kernel_weights(dtype=bfloat16) (b5 f32), frac and out f32.
-int stpde_decode_blend_gather_bf16(
-    const void* table, const int* cell_flat, const float* frac,
-    const void* wx0, const void* rel, const void* cb, const void* wb1,
-    const void* wb2, const void* wb3, const void* wb4, const void* w5,
-    const float* b5, float* out, int n, int n_cells, int c, int dim, int nf,
-    int out_dim, int act_code, float negative_slope, void* stream) {
-  auto p = [](const void* q) { return static_cast<const bf16*>(q); };
-  return launch_bf16<false>(
-      p(table), cell_flat, frac,
-      WeightsBf16{p(wx0), p(rel), cb, {p(wb1), p(wb2), p(wb3), p(wb4)},
-                  p(w5), b5},
-      out, n, n_cells, c, dim, nf, out_dim, act_code, negative_slope,
-      stream);
-}
-
-// The pre-gathered entry's bf16 instantiation: feats2 [N * 2^D, C] bf16,
-// weights in the layout of kernel_weights(dtype=bfloat16, f32=("b5",
-// "cb")) (corner bias and b5 f32), frac and out f32.
-int stpde_decode_blend_bf16(
-    const void* feats2, const float* frac, const void* wx0, const void* rel,
-    const float* cb, const void* wb1, const void* wb2, const void* wb3,
-    const void* wb4, const void* w5, const float* b5, float* out, int n,
-    int c, int dim, int nf, int out_dim, int act_code, float negative_slope,
-    void* stream) {
-  auto p = [](const void* q) { return static_cast<const bf16*>(q); };
-  return launch_bf16<true>(
-      p(feats2), nullptr, frac,
-      WeightsBf16{p(wx0), p(rel), cb, {p(wb1), p(wb2), p(wb3), p(wb4)},
-                  p(w5), b5},
-      out, n, 0, c, dim, nf, out_dim, act_code, negative_slope, stream);
-}
-
-// Dynamic shared memory a bf16 block takes at these widths (bytes).
-int stpde_decode_bf16_smem_bytes(int c, int dim, int nf) {
-  return make_shape_bf16(c, dim, nf, 0).total;
 }
 
 // Corner rows a block decodes (points per block = this >> D).

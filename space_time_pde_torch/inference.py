@@ -33,7 +33,7 @@ import torch
 from space_time_pde_torch.models.policy import policy_dtype
 from space_time_pde_torch.ops.fused_query import (
     _flat_cells, block_points, cell_major_features, decode_blend_gather,
-    pack_imnet_params)
+    decode_tiles, pack_imnet_params)
 from space_time_pde_torch.ops.grid_interp import _locate
 
 # The eval CLIs' --matmul_precision -> TF32 for the encoder. "default"
@@ -206,8 +206,8 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536,
     everywhere else, and the decode kernel runs its 3xTF32 products
     whatever this says. ``compute_dtype``: the decode's (the eval CLIs'
     ``--decode_dtype``): f32 (3xTF32 products), or bf16 (the latent table
-    rounded to bf16, as JAX's ``gcast``, and the kernel's bf16
-    instantiation on the bf16 tensor cores). The UNet runs in its own
+    rounded to bf16, as JAX's ``gcast``, and the bf16 kernel on the bf16
+    tensor cores, its weights tiled here once). The UNet runs in its own
     policy (its ``dtype``), whatever this says.
     """
     torch.backends.cudnn.allow_tf32 = False
@@ -226,6 +226,9 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536,
         packed = pack_imnet_params(imnet)
     common = dict(nf=imnet.nf, activation=imnet.activation,
                   negative_slope=imnet.negative_slope)
+    if device.type == "cuda" and compute_dtype == torch.bfloat16:
+        with torch.no_grad():
+            common["tiles"] = decode_tiles(packed, nf=imnet.nf, dim=dim)
 
     @torch.no_grad()
     def decode(lres):
@@ -249,6 +252,6 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536,
         "tf32_matmul": bool(tf32_encoder),
         "tf32_cudnn": bool(tf32_encoder),
         "out_shape": tuple(out_shape), "chunk": int(chunk),
-        "block_pts": block_points(dim, device),
+        "block_pts": block_points(dim, device, compute_dtype),
     }
     return decode

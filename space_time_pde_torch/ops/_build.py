@@ -21,11 +21,11 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load", "check", "build_log"]
+__all__ = ["load", "check", "build_log", "library_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("fused_query", "fused_jet", "fused_jet_bf16")
+_SOURCES = ("fused_query", "fused_query_bf16", "fused_jet", "fused_jet_bf16")
 _BUILD = _PKG / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -38,19 +38,27 @@ _ARGTYPES = {
         # out, n, n_cells, c, dim, nf, out_dim, act_code, negative_slope,
         # stream
         "stpde_decode_blend_gather": ([_P] * 13 + [_I] * 7 + [_F, _P], _I),
-        # the same arguments, table and weights bf16 (b5 f32)
-        "stpde_decode_blend_gather_bf16": ([_P] * 13 + [_I] * 7 + [_F, _P],
-                                           _I),
         # feats2, frac, 9 weights, out, n, c, dim, nf, out_dim, act_code,
         # negative_slope, stream
         "stpde_decode_blend": ([_P] * 12 + [_I] * 6 + [_F, _P], _I),
-        # the same arguments, feats2 and weights bf16 (cb and b5 f32)
-        "stpde_decode_blend_bf16": ([_P] * 12 + [_I] * 6 + [_F, _P], _I),
         "stpde_block_rows": ([], _I),
         # c, dim, nf
         "stpde_decode_smem_bytes": ([_I] * 3, _I),
-        "stpde_decode_bf16_smem_bytes": ([_I] * 3, _I),
         "stpde_error_string": ([_I], ctypes.c_char_p),
+    },
+    "fused_query_bf16": {
+        # table, cell_flat, frac, tile image (fused_query.decode_tiles), its
+        # elements, w5, b5, out, n, n_cells, c, dim, nf, out_dim, act_code,
+        # negative_slope, stream
+        "stpde_decode_blend_gather_bf16": (
+            [_P] * 4 + [_L] + [_P] * 3 + [_I] * 7 + [_F, _P], _I),
+        # feats2, frac, tile image, its elements, w5, b5, out, n, c, dim,
+        # nf, out_dim, act_code, negative_slope, stream
+        "stpde_decode_blend_bf16": (
+            [_P] * 3 + [_L] + [_P] * 3 + [_I] * 6 + [_F, _P], _I),
+        "stpde_block_rows_bf16": ([], _I),
+        # c, dim, nf, pregathered, out[6]
+        "stpde_decode_bf16_plan": ([_I] * 4 + [_P], None),
     },
     "fused_jet": {
         # n, c, dim, nf, out_dim
@@ -140,6 +148,12 @@ def load(name: str = "fused_query"):
     if not _libs:
         _build_all()
     return _libs[name]
+
+
+def library_path(name: str) -> Path:
+    """The built shared library of ``csrc/<name>.cu`` (after :func:`load`)."""
+    load(name)
+    return _BUILD / f"libstpde_{name}_{_tag()}.so"
 
 
 def check(code: int, what: str) -> None:

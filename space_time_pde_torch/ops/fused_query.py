@@ -14,15 +14,16 @@ Entry points, each a wrapper with a plain-integer launch count in
 - :func:`decode_blend` — pre-gathered corner rows (replaces the Pallas
   ``_kernel``).
 
-On a CUDA tensor a wrapper launches its kernel
-(``csrc/fused_query.cu``) or raises; on a CPU tensor it runs the plain
-PyTorch twin in this module (:func:`decode_blend_gather_plain`,
-:func:`decode_blend_plain`), which the CPU tests hold against JAX and
-``chip_smoke.py`` holds the kernels against on the card. The kernels
-have no backward, so the wrappers run under ``no_grad`` on every
-device; the twins themselves stay differentiable.
+On a CUDA tensor a wrapper launches its kernel (``csrc/fused_query.cu``
+at f32, ``csrc/fused_query_bf16.cu`` at bf16) or raises; on a CPU tensor
+it runs the plain PyTorch twin in this module
+(:func:`decode_blend_gather_plain`, :func:`decode_blend_plain`), which
+the CPU tests hold against JAX and ``chip_smoke.py`` holds the kernels
+against on the card. The kernels have no backward, so the wrappers run
+under ``no_grad`` on every device; the twins themselves stay
+differentiable.
 
-The kernel runs its products on the tensor cores in 3xTF32 (each f32
+The f32 kernel runs its products on the tensor cores in 3xTF32 (each f32
 operand split into two TF32 parts, three products, f32 accumulation) on
 64 corner rows a block (:func:`block_points`). It takes its weights in
 the layout of :func:`kernel_weights`, which the CUDA branch of each
@@ -33,25 +34,30 @@ of 64 and C to a multiple of 32.
 Dropped from the TPU module, with nothing in their place: the one-hot
 MXU gather, ``corner_tables`` and the sorted 2 x 128-cell windows
 (window anchors, the fits-check and its ``lax.cond`` pregather
-fallback, the sort/unsort, ``points_sorted``), ``_augmented_xs`` /
-``_augment_params`` / ``_FRAC_LANES`` and 128-lane padding
-(``pad_to``): an H100 thread loads a cell's row by its id, so any point
-order decodes on one path.
+fallback, the sort/unsort, ``points_sorted``), ``_FRAC_LANES`` and
+128-lane padding (``pad_to``): an H100 thread loads a cell's row by its
+id, so any point order decodes on one path. (``_augmented_xs`` /
+``_augment_params`` have a counterpart in the bf16 kernel only: its X
+operand carries bf16(frac) and corner one-hot columns.)
 
 ``compute_dtype=torch.bfloat16`` (the JAX kernels' default, the bf16
-policy's decode) is each entry's second instantiation: bf16 latent rows,
-bf16 weights and Hopper's bf16 tensor cores, rounding where its TPU
-kernel rounds. The gather entry (``stpde_decode_blend_gather_bf16``,
-counted under ``decode_blend_gather_bf16``) rounds as ``_kernel_gather``
+policy's decode) runs each entry's bf16 kernel
+(``csrc/fused_query_bf16.cu``: thread-block clusters, weight stages
+multicast through an mbarrier ring, wgmma): bf16 latent rows, bf16
+weights, Hopper's bf16 tensor cores, rounding where its TPU kernel
+rounds. The gather entry (``stpde_decode_blend_gather_bf16``, counted
+under ``decode_blend_gather_bf16``) rounds as ``_kernel_gather``
 (:func:`decode_blend_gather_plain`); the pre-gathered one
 (``stpde_decode_blend_bf16``, counted under ``decode_blend_bf16``) as
 ``_kernel``, which keeps ``corner_bias`` f32 and rounds the whole skip
-term to bf16 (:func:`decode_blend_plain`).
+term to bf16 (:func:`decode_blend_plain`). That kernel takes its weights
+as one image of its shared-memory stages, :func:`decode_tiles`, which a
+decoder builds once and hands to every launch (``tiles=``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -68,6 +74,8 @@ __all__ = [
     "block_points",
     "pack_imnet_params",
     "kernel_weights",
+    "DecodeTiles",
+    "decode_tiles",
     "cell_major_features",
     "decode_blend",
     "decode_blend_gather",
@@ -82,6 +90,10 @@ _WEIGHTS = ("wx_feat", "wx_rel", "corner_bias", "wh1", "wh2", "wh3", "wh4",
 # The kernel's padding: widths to its 8 column warps x 8 columns, the
 # latent rows to its 32-row weight tile (csrc/fused_query.cu).
 _WIDTH_ALIGN, _C_ALIGN = 64, 32
+
+# The bf16 decode kernel's tile (csrc/fused_query_bf16.cu): a pass takes
+# at most 512 columns and a weight stage 16 KB.
+_BF16_PASS, _BF16_STAGE = 512, 16384
 
 # The packed weights the bf16 instantiations round to bf16 (corner_bias and
 # b5 stay f32, as the TPU's pack_imnet_params keeps them).
@@ -205,6 +217,100 @@ def kernel_weights(packed, *, nf: int, dtype=torch.float32,
             if k not in f32:
                 out[k] = out[k].to(dtype)
     return {k: v.contiguous() for k, v in out.items()}
+
+
+def _bf16_plan(c: int, dim: int, nf: int, pregathered: bool):
+    """The bf16 kernel's widths (each layer's padded to a power of two
+    >= 32), its X width kx (C latents, D frac, ``pieces`` bf16 columns of
+    each corner's one-hot, padded to 16) and ``pieces`` (3 for the
+    pre-gathered entry's f32 corner bias, else 1)."""
+    pieces = 3 if pregathered else 1
+    widths = [max(32, 1 << (nf * m - 1).bit_length()) for m in _MULTS]
+    return widths, _round_up(c + dim + (pieces << dim), 16), pieces
+
+
+def _bf16_schedule(widths, kx):
+    """``(layer, c0, np, k0, kn)`` of every weight stage in the order the
+    bf16 kernel consumes them: layer by layer, column passes of at most
+    512, K (X first, then h) in stages of 8192 / np rows, the last one
+    ragged."""
+    for layer, w in enumerate(widths):
+        k = kx + (widths[layer - 1] if layer else 0)
+        np_ = min(w, _BF16_PASS)
+        kd = _BF16_STAGE // (2 * np_)
+        for c0 in range(0, w, np_):
+            for k0 in range(0, k, kd):
+                yield layer, c0, np_, k0, min(kd, k - k0)
+
+
+class DecodeTiles(NamedTuple):
+    """The bf16 decode kernel's weights (:func:`decode_tiles`)."""
+
+    image: torch.Tensor     # [elements] bf16, stage after stage
+    w5: torch.Tensor        # [nf, out] bf16
+    b5: torch.Tensor        # [1, out] f32
+    c: int
+    dim: int
+    nf: int
+    pregathered: bool
+
+
+def _bf16_layer_matrices(packed, *, nf: int, dim: int, pregathered: bool):
+    """Each layer's B^T for the bf16 kernel, f32 holding bf16 values:
+    ``[W_i, kx + W_{i-1}]`` (padded widths), columns ``[Wx_feat_i | Wx_rel_i
+    | corner_bias_i pieces | 0 | Wh_i]``, from
+    ``kernel_weights(dtype=bfloat16)`` (``f32=("b5", "cb")`` for the
+    pre-gathered entry, whose f32 corner bias is split exactly into three
+    bf16 pieces, hi + mid + lo)."""
+    kw = kernel_weights(packed, nf=nf, dtype=torch.bfloat16,
+                        f32=("b5", "cb") if pregathered else ("b5",))
+    c = packed["wx_feat"].shape[0]
+    widths, kx, pieces = _bf16_plan(c, dim, nf, pregathered)
+    true = [nf * m for m in _MULTS]
+    pad64 = [_round_up(w, _WIDTH_ALIGN) for w in true]
+    offs = np.cumsum([0] + pad64)
+    mats = []
+    for i in range(5):
+        cols = slice(int(offs[i]), int(offs[i]) + true[i])
+        b = torch.zeros(widths[i], kx + (widths[i - 1] if i else 0),
+                        dtype=torch.float32, device=kw["rel"].device)
+        lat = (kw["wx0"] if i == 0 else
+               kw[f"wb{i}"][:, pad64[i - 1]:])[:true[i], :c]
+        b[:true[i], :c] = lat.float()
+        b[:true[i], c:c + dim] = kw["rel"][:, cols].t().float()
+        rest = kw["cb"][:, cols].t().float()            # [w, 2^D]
+        for j in range(pieces):
+            piece = rest.to(torch.bfloat16).float()
+            rest = rest - piece
+            b[:true[i], c + dim + j:c + dim + (pieces << dim):pieces] = piece
+        if i:
+            b[:true[i], kx:kx + true[i - 1]] = \
+                kw[f"wb{i}"][:true[i], :true[i - 1]].float()
+        mats.append(b)
+    return mats, kw
+
+
+def decode_tiles(packed, *, nf: int, dim: int,
+                 pregathered: bool = False) -> DecodeTiles:
+    """The bf16 decode kernel's weights (csrc/fused_query_bf16.cu), built
+    once per decoder: every stage of :func:`_bf16_schedule` in the exact
+    shared-memory image of wgmma's K-major, no-swizzle B operand, one
+    contiguous bf16 run a stage (``[k16 block][8-column group][2 k
+    halves][8 columns][8 k]``), so the kernel loads each with one bulk
+    copy; plus the head's weights (w5 bf16, b5 f32). ``pregathered``
+    picks the entry (:func:`decode_blend`'s, corner bias f32) or the
+    gather one's."""
+    mats, kw = _bf16_layer_matrices(packed, nf=nf, dim=dim,
+                                    pregathered=pregathered)
+    c = packed["wx_feat"].shape[0]
+    widths, kx, _ = _bf16_plan(c, dim, nf, pregathered)
+    parts = []
+    for layer, c0, np_, k0, kn in _bf16_schedule(widths, kx):
+        blk = mats[layer][c0:c0 + np_, k0:k0 + kn]
+        parts.append(blk.reshape(np_ // 8, 8, kn // 16, 2, 8).permute(
+            2, 0, 3, 1, 4).reshape(-1))
+    image = torch.cat(parts).to(torch.bfloat16)
+    return DecodeTiles(image, kw["w5"], kw["b5"], c, dim, nf, pregathered)
 
 
 def cell_major_features(grid: torch.Tensor) -> torch.Tensor:
@@ -369,28 +475,61 @@ def _check(tensors: Dict[str, torch.Tensor], packed, *, n: int, c: int,
     return device
 
 
-def block_points(dim: int, device) -> int | None:
-    """Points a kernel block decodes on ``device`` (None on the CPU,
-    where the plain twin has no blocks): 64 corner rows, 8 points at
-    D = 3 and 4 at D = 4. The kernel owns its block shape and
-    shared-memory size; a launch whose nf and C need more shared memory
-    than the card has (nf above 64, or C above 96 at nf = 64) returns
-    the CUDA error, and the wrapper raises it."""
+def block_points(dim: int, device,
+                 compute_dtype=torch.float32) -> int | None:
+    """Points a kernel block (the bf16 kernel: a CTA's tile) of the
+    ``compute_dtype`` decode takes at a time on ``device`` (None on the
+    CPU, where the plain twin has no blocks): 64 corner rows in both, 8
+    points at D = 3 and 4 at D = 4. Each kernel owns its tile and
+    shared-memory plan; a launch whose nf and C need more shared memory
+    than the card has returns the CUDA error, and the wrapper raises
+    it."""
     if torch.device(device).type != "cuda":
         return None
+    if compute_dtype == torch.bfloat16:
+        return _build.load("fused_query_bf16").stpde_block_rows_bf16() >> dim
     return _build.load().stpde_block_rows() >> dim
+
+
+def _launch_bf16(entry, rows, frac, packed, tiles, *, nf, dim, c,
+                 pregathered, args, activation, negative_slope):
+    """Launch a bf16 decode kernel with ``tiles`` (built here when None)
+    and count it."""
+    if tiles is None:
+        tiles = decode_tiles(packed, nf=nf, dim=dim, pregathered=pregathered)
+    if (tiles.c, tiles.dim, tiles.nf, tiles.pregathered) != \
+            (c, dim, nf, pregathered) or tiles.image.device != frac.device:
+        raise ValueError(f"tiles are for C={tiles.c} D={tiles.dim} "
+                         f"nf={tiles.nf} pregathered={tiles.pregathered} on "
+                         f"{tiles.image.device}, not C={c} D={dim} nf={nf} "
+                         f"pregathered={pregathered} on {frac.device}")
+    n = frac.shape[0]
+    out = torch.empty((n, tiles.w5.shape[-1]), dtype=torch.float32,
+                      device=frac.device)
+    code = getattr(_build.load("fused_query_bf16"), "stpde_" + entry)(
+        rows.data_ptr(), *args, frac.data_ptr(), tiles.image.data_ptr(),
+        tiles.image.numel(), tiles.w5.data_ptr(), tiles.b5.data_ptr(),
+        out.data_ptr(), n, *([] if pregathered else [rows.shape[0]]), c,
+        dim, nf, out.shape[-1], ACTIVATION_CODES[activation],
+        negative_slope, torch.cuda.current_stream(frac.device).cuda_stream)
+    _build.check(code, entry)
+    LAUNCHES[entry] += 1
+    return out
 
 
 @torch.no_grad()
 def decode_blend_gather(table, cell_flat, frac, packed, *, nf: int,
                         activation: str = "leaky_relu",
                         negative_slope: float = 0.01,
-                        compute_dtype=torch.float32) -> torch.Tensor:
+                        compute_dtype=torch.float32,
+                        tiles: DecodeTiles | None = None) -> torch.Tensor:
     """Decode with the gather fused in: table ``[n_cells, 2^D * C]``
     (:func:`cell_major_features`) in ``compute_dtype`` (f32, or bf16 for
-    the bf16 instantiation), cell_flat ``[N]`` int32, frac ``[N, D]``
-    f32 -> ``[N, out]`` f32. A cell id outside the table decodes NaN on
-    the card (the plain twin raises an IndexError)."""
+    the bf16 kernel), cell_flat ``[N]`` int32, frac ``[N, D]`` f32 ->
+    ``[N, out]`` f32. A cell id outside the table decodes NaN on the card
+    (the plain twin raises an IndexError). ``tiles``: the bf16 kernel's
+    weights, ``decode_tiles(packed, ...)`` built once by the caller
+    (else per launch)."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"compute_dtype {compute_dtype}: the "
                                   "decode kernel has f32 and bf16 "
@@ -411,20 +550,22 @@ def decode_blend_gather(table, cell_flat, frac, packed, *, nf: int,
         return decode_blend_gather_plain(
             table, cell_flat, frac, packed, nf=nf, activation=activation,
             negative_slope=negative_slope, compute_dtype=compute_dtype)
-    lib = _build.load()
+    if compute_dtype == torch.bfloat16:
+        return _launch_bf16(
+            "decode_blend_gather_bf16", table, frac, packed, tiles, nf=nf,
+            dim=dim, c=c, pregathered=False, args=[cell_flat.data_ptr()],
+            activation=activation, negative_slope=negative_slope)
     out = torch.empty((n, packed["w5"].shape[-1]), dtype=torch.float32,
                       device=device)
-    kw = kernel_weights(packed, nf=nf, dtype=compute_dtype)
-    bf16 = compute_dtype == torch.bfloat16
-    entry = "decode_blend_gather" + ("_bf16" if bf16 else "")
-    code = getattr(lib, "stpde_" + entry)(
+    kw = kernel_weights(packed, nf=nf)
+    code = _build.load().stpde_decode_blend_gather(
         table.data_ptr(), cell_flat.data_ptr(), frac.data_ptr(),
         *[w.data_ptr() for w in kw.values()], out.data_ptr(),
         n, table.shape[0], c, dim, nf, out.shape[-1],
         ACTIVATION_CODES[activation], negative_slope,
         torch.cuda.current_stream(device).cuda_stream)
-    _build.check(code, entry)
-    LAUNCHES[entry] += 1
+    _build.check(code, "decode_blend_gather")
+    LAUNCHES["decode_blend_gather"] += 1
     return out
 
 
@@ -432,10 +573,12 @@ def decode_blend_gather(table, cell_flat, frac, packed, *, nf: int,
 def decode_blend(feats2, frac, packed, *, nf: int, n_corners: int,
                  activation: str = "leaky_relu",
                  negative_slope: float = 0.01,
-                 compute_dtype=torch.float32) -> torch.Tensor:
+                 compute_dtype=torch.float32,
+                 tiles: DecodeTiles | None = None) -> torch.Tensor:
     """Decode pre-gathered corner rows: feats2 ``[N * 2^D, C]`` in
-    ``compute_dtype`` (f32, or bf16 for the bf16 instantiation), frac
-    ``[N, D]`` f32 -> ``[N, out]`` f32."""
+    ``compute_dtype`` (f32, or bf16 for the bf16 kernel), frac ``[N, D]``
+    f32 -> ``[N, out]`` f32. ``tiles``: as :func:`decode_blend_gather`'s,
+    ``decode_tiles(..., pregathered=True)``."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"compute_dtype {compute_dtype}: the "
                                   "decode kernel has f32 and bf16 "
@@ -454,19 +597,21 @@ def decode_blend(feats2, frac, packed, *, nf: int, n_corners: int,
                                   n_corners=n_corners, activation=activation,
                                   negative_slope=negative_slope,
                                   compute_dtype=compute_dtype)
-    lib = _build.load()
+    if compute_dtype == torch.bfloat16:
+        return _launch_bf16(
+            "decode_blend_bf16", feats2, frac, packed, tiles, nf=nf,
+            dim=dim, c=c, pregathered=True, args=[],
+            activation=activation, negative_slope=negative_slope)
     out = torch.empty((n, packed["w5"].shape[-1]), dtype=torch.float32,
                       device=device)
-    kw = kernel_weights(packed, nf=nf, dtype=compute_dtype, f32=("b5", "cb"))
-    entry = "decode_blend" + ("_bf16" if compute_dtype == torch.bfloat16
-                              else "")
-    code = getattr(lib, "stpde_" + entry)(
+    kw = kernel_weights(packed, nf=nf)
+    code = _build.load().stpde_decode_blend(
         feats2.data_ptr(), frac.data_ptr(),
         *[w.data_ptr() for w in kw.values()], out.data_ptr(),
         n, c, dim, nf, out.shape[-1], ACTIVATION_CODES[activation],
         negative_slope, torch.cuda.current_stream(device).cuda_stream)
-    _build.check(code, entry)
-    LAUNCHES[entry] += 1
+    _build.check(code, "decode_blend")
+    LAUNCHES["decode_blend"] += 1
     return out
 
 
@@ -493,6 +638,10 @@ def fused_query_local_implicit_grid(imnet, latent_grid, pts, xmin=0.0,
     packed = pack_imnet_params(imnet)
     common = dict(nf=imnet.nf, activation=imnet.activation,
                   negative_slope=imnet.negative_slope)
+    if latent_grid.is_cuda and compute_dtype == torch.bfloat16:
+        common["tiles"] = decode_tiles(packed, nf=imnet.nf,
+                                       dim=latent_grid.ndim - 2,
+                                       pregathered=gather == "pregather")
     outs = []
     for grid, p in zip(latent_grid, pts):
         spatial = tuple(grid.shape[:-1])

@@ -65,7 +65,7 @@ def test_kernels_build(device):
     _build.load()
     log = _build.build_log()
     print(f"nvcc {log.get('seconds', 0.0):.1f}s")
-    for src in ("fused_query", "fused_jet"):
+    for src in ("fused_query", "fused_query_bf16", "fused_jet"):
         print(f"{src}.cu:\n{log.get(src, '')}")
 
 
@@ -197,6 +197,9 @@ def test_shared_memory_overflow_raises(device):
     refused launch's CUDA error is raised, and the next launch runs."""
     assert fq.block_points(3, device) == _build.load().stpde_block_rows() // 8
     assert fq.block_points(4, device) == 4
+    rows16 = _build.load("fused_query_bf16").stpde_block_rows_bf16()
+    assert fq.block_points(3, device, torch.bfloat16) == rows16 // 8
+    assert fq.block_points(4, device, torch.bfloat16) == rows16 // 16
     for nf, c, fits in ((64, 8, True), (65, 8, False), (64, 96, True),
                         (64, 97, False)):
         packed, table, cell_flat, frac = _inputs(device, nf, c, 3, 16,
@@ -212,6 +215,131 @@ def test_shared_memory_overflow_raises(device):
         else:
             with pytest.raises(RuntimeError, match="CUDA error"):
                 fq.decode_blend_gather(table, cell_flat, frac, packed, nf=nf)
+
+
+# --- the bf16 decode kernel (csrc/fused_query_bf16.cu) ---------------------
+#
+# A CTA decodes 64 corner rows at a time (8 points at D = 3, 4 at D = 4) in
+# clusters of stpde_decode_bf16_plan's size, persistent over the tiles.
+
+
+def _bf16_plan(dim, pre, c=64, nf=64):
+    import ctypes
+
+    buf = (ctypes.c_longlong * 6)()
+    _build.load("fused_query_bf16").stpde_decode_bf16_plan(c, dim, nf,
+                                                           int(pre), buf)
+    return dict(zip(("smem", "stages", "kx", "image", "cluster", "rows"),
+                    list(buf)))
+
+
+def _bf16_both(device, nf, c, dim, n, seed=0):
+    """Both bf16 entries' kernel outputs and twins on the same points."""
+    packed, table, cell_flat, frac = _inputs(device, nf, c, dim, n,
+                                             "leaky_relu", seed=seed)
+    table = table.to(torch.bfloat16)
+    kw = dict(nf=nf, compute_dtype=torch.bfloat16)
+    feats2 = table[cell_flat.long()].reshape(-1, c).contiguous()
+    k = 2 ** dim
+    got = (fq.decode_blend_gather(table, cell_flat, frac, packed, **kw),
+           fq.decode_blend(feats2, frac, packed, n_corners=k, **kw))
+    want = (fq.decode_blend_gather_plain(table, cell_flat, frac, packed,
+                                         **kw),
+            fq.decode_blend_plain(feats2, frac, packed, n_corners=k, **kw))
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+def test_bf16_kernel_ragged_n(device, dim):
+    """n = 1, fewer points than a tile, fewer than a cluster's tiles, and
+    n past a whole number of clusters' tiles: every point against its twin
+    by the BF16_DIRECT rule, nothing written past n."""
+    plan = _bf16_plan(dim, False)
+    ppt = plan["rows"] >> dim
+    cluster_pts = ppt * plan["cluster"]
+    for n in (1, ppt - 1, cluster_pts - 1, 3 * cluster_pts + ppt + 1):
+        got, want = _bf16_both(device, 64, 64, dim, n)
+        for g, w in zip(got, want):
+            assert g.shape == (n, 4) and bool(torch.isfinite(g).all()), n
+            err = float((g - w).abs().max())
+            assert err <= BF16_DIRECT * float(w.abs().max()), (n, err)
+
+
+def test_bf16_out_of_range_cell_decodes_nan_in_its_row(device):
+    """Cell ids past the table and below 0, in the middle of a run of
+    tiles: NaN in those points' rows only, every other point as its twin
+    decodes it."""
+    packed, table, cell_flat, frac = _inputs(device, 64, 64, 3, 1000,
+                                             "leaky_relu")
+    bad = [5, 517, 999]
+    cell_flat[bad[0]] = table.shape[0]
+    cell_flat[bad[1]] = -1
+    cell_flat[bad[2]] = 2 ** 30
+    tb = table.to(torch.bfloat16)
+    kw = dict(nf=64, compute_dtype=torch.bfloat16)
+    got = fq.decode_blend_gather(tb, cell_flat, frac, packed, **kw)
+    ok = torch.ones(1000, dtype=torch.bool, device=device)
+    ok[bad] = False
+    good = cell_flat.clone()
+    good[bad] = 0
+    want = fq.decode_blend_gather_plain(tb, good, frac, packed, **kw)
+    torch.cuda.synchronize()
+    nan_rows = torch.isnan(got).any(dim=1)
+    assert torch.equal(nan_rows, ~ok)
+    assert bool(torch.isnan(got[~ok]).all())
+    err = float((got[ok] - want[ok]).abs().max())
+    assert err <= BF16_DIRECT * float(want[ok].abs().max()), err
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+def test_bf16_kernel_is_deterministic(device, dim):
+    """Two launches of each bf16 entry give the same bits (every row is
+    computed and written once, whichever CTA takes its tile)."""
+    first, _ = _bf16_both(device, 64, 64, dim, 20000, seed=3)
+    second, _ = _bf16_both(device, 64, 64, dim, 20000, seed=3)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bf16_kernel_limits_raise(device):
+    """The plan must fit 227 KB with at least 3 ring stages. At nf = 64,
+    D = 3 the gather entry decodes C = 181 (kx = 192) and refuses C = 182
+    (kx = 208); nf = 64 decodes and nf = 65 (h_0 padded to 2048 columns)
+    is refused; the pre-gathered entry (three bf16 pieces of each corner
+    bias) decodes C = 165 and refuses C = 166. Each refused launch raises
+    its CUDA error, and the launch after it runs."""
+    assert _bf16_plan(3, False, c=181)["smem"] <= 232448
+    assert _bf16_plan(3, False, c=182)["smem"] > 232448
+    assert _bf16_plan(3, True, c=165)["smem"] <= 232448
+    assert _bf16_plan(3, True, c=166)["smem"] > 232448
+    for nf, c, pre, fits in ((64, 181, False, True), (64, 182, False, False),
+                             (8, 181, False, True), (64, 8, False, True),
+                             (65, 8, False, False), (64, 165, True, True),
+                             (64, 166, True, False), (8, 16, True, True)):
+        packed, table, cell_flat, frac = _inputs(device, nf, c, 3, 40,
+                                                 "leaky_relu")
+        tb = table.to(torch.bfloat16)
+        feats2 = tb[cell_flat.long()].reshape(-1, c).contiguous()
+        kw = dict(nf=nf, compute_dtype=torch.bfloat16)
+        if pre:
+            run = lambda: fq.decode_blend(feats2, frac, packed, n_corners=8,
+                                          **kw)
+            twin = lambda: fq.decode_blend_plain(feats2, frac, packed,
+                                                 n_corners=8, **kw)
+        else:
+            run = lambda: fq.decode_blend_gather(tb, cell_flat, frac,
+                                                 packed, **kw)
+            twin = lambda: fq.decode_blend_gather_plain(tb, cell_flat, frac,
+                                                        packed, **kw)
+        if fits:
+            got, want = run(), twin()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            assert err <= BF16_DIRECT * float(want.abs().max()), (nf, c, err)
+        else:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                run()
 
 
 # --- jet kernels (csrc/fused_jet.cu) ----------------------------------------

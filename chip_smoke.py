@@ -12,10 +12,11 @@ Phases (any failure raises and exits non-zero):
    ptxas, both D instantiations of the jet kernels apart, the decode
    block's rows and dynamic shared memory at the flagship widths, the bf16
    decode's plan there (shared memory, ring stages, cluster size, rows a
-   tile) and, where the toolkit has ``cuobjdump``, the count of its wgmma
-   (``HGMMA``), bulk-copy (``UBLKCP``), TMA (``UTMALDG``) and mbarrier
-   (``SYNCS``) instructions in its SASS, and how many times ptxas noted
-   that it serialized the wgmmas (C7520; 0 expected);
+   tile), the bf16 jets' rings, and, where the toolkit has ``cuobjdump``,
+   the count of the wgmma (``HGMMA``), bulk-copy (``UBLKCP``), TMA
+   (``UTMALDG``) and mbarrier (``SYNCS``) instructions in the SASS of the
+   bf16 decode and of the bf16 jets, and how many times ptxas noted that
+   it serialized the wgmmas of either (C7520; 0 expected);
 3. both decode kernels against their plain PyTorch twins on the card,
    at the rb2d flagship widths (C = 64, nf = 64, D = 3, out = 4) on
    65,536 seeded points that include lattice faces, cell edges and
@@ -175,7 +176,8 @@ decode (each phase's launch counts set to 0 just before its path and
 read just after):
 
 K. both bf16 jet kernels (``stpde_jet_fwd_bf16`` / ``_bwd_bf16``,
-   ``csrc/fused_jet_bf16.cu``) against their bf16 twins
+   ``csrc/fused_jet_bf16.cu``: every product on one persistent wgmma
+   kernel fed by TMA through an mbarrier ring) against their bf16 twins
    (``jet_fwd_plain`` at bf16, ``jet_bwd_bf16_plain``) on phase 4's 8,192
    points (D = 3) and phase 11's 4,096 (D = 4), rows rounded to bf16 and
    weights packed at bf16: every forward block and backward gradient
@@ -213,6 +215,7 @@ status line.
 Imports nothing of JAX or of the JAX package.
 """
 
+import ctypes
 import hashlib
 import importlib.util
 import json
@@ -403,6 +406,15 @@ def ptxas_summary(log: str):
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m and "gemm_kernel" in m.group(1):
+            # The bf16 jets' product kernel, named by its problem type.
+            g = re.search(r"gemm_kernelINS_\d+([A-Za-z]+)I((?:L[ib]\d+E)+)E",
+                          m.group(1))
+            args = re.findall(r"L[ib](\d+)E", g.group(2)) if g else []
+            name = (f"gemm_kernel<{g.group(1)}<{', '.join(args)}>>" if g
+                    else "gemm_kernel")
+            spills = "spill not reported"
+            continue
         if m:
             k = re.search(
                 r"\d+((?:[a-z]+_)+(?:[a-z]+\d+_)*kernel)"
@@ -427,8 +439,6 @@ def ptxas_summary(log: str):
 def bf16_plan(dim, pregathered):
     """The bf16 decode's plan (``stpde_decode_bf16_plan``) at the flagship
     widths (C = 64, nf = 64)."""
-    import ctypes
-
     from space_time_pde_torch.ops import _build
 
     buf = (ctypes.c_longlong * 6)()
@@ -438,10 +448,10 @@ def bf16_plan(dim, pregathered):
                     list(buf)))
 
 
-def sass_counts():
-    """Counts of the bf16 decode's wgmma, bulk-copy, TMA and mbarrier
-    instructions in its SASS (``cuobjdump -sass``), or why there are
-    none."""
+def sass_counts(source="fused_query_bf16"):
+    """Counts of the wgmma, bulk-copy, TMA and mbarrier instructions in
+    the SASS of ``csrc/<source>.cu`` (``cuobjdump -sass``), or why there
+    are none."""
     import shutil
 
     from space_time_pde_torch.ops import _build
@@ -450,7 +460,7 @@ def sass_counts():
     if not os.path.exists(tool):
         return "cuobjdump not found"
     sass = subprocess.run(
-        [tool, "-sass", str(_build.library_path("fused_query_bf16"))],
+        [tool, "-sass", str(_build.library_path(source))],
         capture_output=True, text=True, check=True).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass))
             for op in ("HGMMA", "UBLKCP", "UTMALDG", "SYNCS")}
@@ -2512,9 +2522,20 @@ def main():
               f"16 KB, kx {plan['kx']}, tile image {plan['image']} bf16 "
               f"values, clusters of {plan['cluster']} CTAs, "
               f"{plan['rows']} corner rows a tile", flush=True)
-    print(f"fused_query_bf16.cu SASS: {sass_counts()}; ptxas notes of "
-          "serialized wgmma (C7520): "
-          f"{log.get('fused_query_bf16', '').count('C7520')}", flush=True)
+    for src in ("fused_query_bf16", "fused_jet_bf16"):
+        print(f"{src}.cu SASS: {sass_counts(src)}; ptxas notes of "
+              "serialized wgmma (C7520): "
+              f"{log.get(src, '').count('C7520')}", flush=True)
+    ring = (ctypes.c_longlong * 4)()
+    for what, mt, staging in (("forward layers and chain product, D = 3",
+                               4, 1),
+                              ("forward layers and chain product, D = 4",
+                               5, 1),
+                              ("split-K weight gradients, 256 rows", 4, 0)):
+        _build.load("fused_jet_bf16").stpde_jet_bf16_ring(mt, staging, ring)
+        print(f"fused_jet_bf16.cu ring of the {what}: {ring[1]} stages of "
+              f"{ring[0]} bytes, {ring[2]} bytes of shared memory a CTA of "
+              f"{ring[3]} threads", flush=True)
     say(f"kernels loaded in {time.perf_counter() - t0:.1f}s ("
         + (f"nvcc {log['seconds']:.1f}s, all sources in parallel" if log
            else "already built") + ")")

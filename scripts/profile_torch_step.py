@@ -17,9 +17,15 @@ card's name and power limit. Needs a CUDA device.
 inputs (the committed exports' ImNets, 8,192 points at D = 3 and 4,096
 at D = 4), each kernel of the call with its device time and launches
 per call; ``--each`` adds one call's launches in order, each with its
-device time (the layers of a kernel apart).
+device time (the layers of a kernel apart). ``--dtype bf16`` runs the
+bf16 instantiation (``csrc/fused_jet_bf16.cu``: the rows rounded to bf16,
+the weights packed at bf16) instead of the f32 one; ``--source A.cu``
+profiles another version of that instantiation's source (built as the
+package builds it, ``csrc/`` on the include path), e.g. an earlier
+commit's, for a before / after table.
 
-    python scripts/profile_torch_step.py --jets --each
+    python scripts/profile_torch_step.py --jets --each [--dtype bf16] \
+        [--source A.cu]
 
 ``--sources A.cu B.cu ...`` times other versions of
 ``space_time_pde_torch/csrc/fused_jet.cu`` on the same inputs: each is
@@ -100,11 +106,37 @@ def jet_cases(device):
         torch.cuda.empty_cache()
 
 
-def profile_jets(card, reps, top, each):
+def profile_jets(card, reps, top, each, dtype="f32", source=None):
     from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.ops import fused_query as fq
+
+    if source:
+        import ctypes
+        import tempfile
+
+        from space_time_pde_torch.ops import _build
+
+        name = "fused_jet_bf16" if dtype == "bf16" else "fused_jet"
+        _build.load()
+        so = os.path.join(tempfile.mkdtemp(), "source.so")
+        subprocess.run([_build._nvcc(), *_build._FLAGS, "-I",
+                        str(_build._CSRC), "-o", so, source], check=True,
+                       capture_output=True)
+        lib = ctypes.CDLL(so)
+        for fn, (at, rt) in _build._ARGTYPES[name].items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes, getattr(lib, fn).restype = at, rt
+        _build._libs[name] = lib
+        print(f"profiling {source} in place of csrc/{name}.cu", flush=True)
 
     for dim, n, nf, (feats2, frac, packed, ybar, kw) in jet_cases(
             torch.device("cuda")):
+        if dtype == "bf16":
+            bf = torch.bfloat16
+            feats2 = feats2.to(bf)
+            packed = {k: v.to(bf) if k in fq._ROUNDED else v
+                      for k, v in packed.items()}
+            kw = dict(kw, compute_dtype=bf)
         _, ws = fj.jet_fwd(feats2, frac, packed, **kw)
         fj.jet_bwd(feats2, frac, packed, ws, ybar, **kw)
         torch.cuda.synchronize()
@@ -113,7 +145,8 @@ def profile_jets(card, reps, top, each):
                                                 ybar, **kw)))
         for name, fn in calls:
             rows, total = device_rows(fn, reps)
-            print(f"{name} at D={dim}, {n} points, C={feats2.shape[-1]} "
+            print(f"{name} ({dtype}) at D={dim}, {n} points, "
+                  f"C={feats2.shape[-1]} "
                   f"nf={nf} on {card}: {total:.3f} ms of kernel time "
                   f"a call, {sum(r[1] for r in rows):.0f} launches a call")
             print_rows(rows, total, top, "call")
@@ -279,6 +312,11 @@ def main(argv=None):
                         help="profile jet_fwd / jet_bwd alone at D = 3, 4")
     parser.add_argument("--each", action="store_true",
                         help="with --jets: one call's launches in order")
+    parser.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                        help="with --jets: the instantiation to profile")
+    parser.add_argument("--source", metavar="CU",
+                        help="with --jets: profile this version of the "
+                        "instantiation's source")
     parser.add_argument("--sources", nargs="+", metavar="CU",
                         help="time these versions of csrc/fused_jet.cu")
     parser.add_argument("--mma-ceiling", action="store_true",
@@ -303,7 +341,8 @@ def main(argv=None):
         time_sources(card, args.sources, args.steps)
         return
     if args.jets:
-        profile_jets(card, args.steps, args.top, args.each)
+        profile_jets(card, args.steps, args.top, args.each, args.dtype,
+                     args.source)
         return
     step, state, batch, _, _ = reference_step(
         os.path.join(ASSETS, f"{args.recipe}_train_step_ref.npz"), device)

@@ -78,6 +78,9 @@ _ARGTYPES = {
         "stpde_jet_bwd_bf16_workspace": ([_I] * 5, _L),
         "stpde_jet_fwd_bf16": ([_P] * 13 + [_I] * 5 + [_F, _P], _I),
         "stpde_jet_bwd_bf16": ([_P] * 24 + [_I] * 5 + [_F, _P], _I),
+        # A tiles a stage, staging, out[4]; m, ka, nb, out[5]
+        "stpde_jet_bf16_ring": ([_I, _I, _P], None),
+        "stpde_jet_bf16_tn_plan": ([_L, _I, _I, _P], None),
     },
 }
 

@@ -84,6 +84,8 @@ __all__ = [
     "jet_bwd_plain",
     "jet_bwd_bf16_plain",
     "workspace_masks",
+    "bf16_tn_plan",
+    "bf16_ring",
     "fused_query_jet",
 ]
 
@@ -336,6 +338,47 @@ def workspace_masks(workspace, n: int, dim: int, nf: int,
         out.append(workspace[start:start + rows * w].view(rows, w).bool())
         start += rows * w
     return out
+
+
+# The bf16 kernels' product schedule (csrc/fused_jet_bf16.cu), mirrored
+# here so that the CPU tests can follow it: 64 x 64 bf16 tiles, 128 columns
+# an item (two consumer warpgroups of 64), a ring of (MT + 2)-tile stages.
+BF16_TILE = 64
+BF16_TILE_COLS = 128
+_TARGET_BLOCKS = 4 * 132            # jet_common.cuh::kTargetBlocks
+_MAX_SMEM, _ALIGN, _BAR_BYTES, _STAGING = 232448, 1024, 1024, 32768
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bf16_tn_plan(m: int, ka: int, nb: int):
+    """The bf16 backward's split-K plan of ``A^T B`` over ``m`` rows into
+    ``[ka, nb]`` (``tn_plan`` and ``jet_common.cuh::chunk_rows``): (A tiles
+    an item (1, 2 or 4 by ka), output tiles along ka, along nb, chunk rows
+    (a multiple of a stage), chunks). Each chunk's partial is written once
+    and the partials are summed in a fixed order."""
+    mt = 1 if ka <= BF16_TILE else (2 if ka <= 2 * BF16_TILE else 4)
+    mtiles = _cdiv(ka, mt * BF16_TILE)
+    ntiles = _cdiv(nb, BF16_TILE_COLS)
+    want = max(1, min(_TARGET_BLOCKS // (mtiles * ntiles),
+                      _cdiv(m, BF16_TILE)))
+    chunk = max(_cdiv(_cdiv(m, want), BF16_TILE) * BF16_TILE, BF16_TILE)
+    chunks = _cdiv(m, chunk) if m > 0 else 1
+    return mt, mtiles, ntiles, chunk, chunks
+
+
+def bf16_ring(mt: int, staging: bool):
+    """The bf16 product kernel's ring with ``mt`` A tiles a stage
+    (``gemm_ring``): (stage bytes, ring stages (0 if fewer than 3 fit in
+    227 KB), dynamic shared-memory bytes); ``staging``: the epilogue's 32 KB
+    of staging rows (the forward layers and the backward's chain
+    product)."""
+    stage = (mt + 2) * BF16_TILE * BF16_TILE * 2
+    out = _STAGING if staging else 0
+    n = min((_MAX_SMEM - _ALIGN - _BAR_BYTES - out) // stage, 6)
+    return stage, (n if n >= 3 else 0), _ALIGN + n * stage + _BAR_BYTES + out
 
 
 def _kernel_args(feats2, frac, packed, *, nf: int, compute_dtype):

@@ -557,6 +557,13 @@ BF16_JET_CASES = ([(8, 16, n, "leaky_relu", 3) for n in (1, 3, 5, 17)]
 
 @pytest.mark.parametrize("nf,c,n,activation,dim", BF16_JET_CASES)
 def test_bf16_jet_kernels_match_twins(device, nf, c, n, activation, dim):
+    _bf16_jet_check(device, nf, c, n, activation, dim)
+
+
+def _bf16_jet_check(device, nf, c, n, activation, dim):
+    """Both bf16 jet kernels, one launch each, against their twins by the
+    direct rule (or on the kernel's own branches where only flips near 0
+    differ)."""
     from space_time_pde_torch.ops import fused_jet as fj
 
     packed, feats2, frac, ybar, slope = _jet_inputs(device, nf, c, n,
@@ -632,3 +639,73 @@ def test_fused_query_jet_bf16_trains_through_kernels(device, dim):
                            "jet_bwd_bf16": 1}
     for g, w in zip(got, grads(torch.device("cpu"))):
         assert _direct(g, w)
+
+
+# Corner rows an item of the bf16 product kernel (csrc/fused_jet_bf16.cu,
+# a wgmma m64 tile): 8 points at D = 3, 4 at D = 4. A persistent wave is
+# one item per SM.
+BF16_JET_ROWS = 64
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+def test_bf16_jet_ragged_n(device, dim):
+    """n around the item: one point, one point short of an item, one past
+    it, and a count whose items are not a multiple of a persistent wave
+    (the card's SMs) and whose last item is ragged."""
+    ppi = BF16_JET_ROWS >> dim
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for n in (1, ppi - 1, ppi + 1, (sms + 1) * ppi + 3):
+        _bf16_jet_check(device, 8, 16, n, "leaky_relu", dim)
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+def test_bf16_jet_forward_is_deterministic(device, dim):
+    """Two forward launches give the same bits: the jet and the whole
+    workspace (every layer's chains and masks)."""
+    from space_time_pde_torch.ops import fused_jet as fj
+
+    packed, feats2, frac, _, _ = _jet_inputs(device, 64, 64, 3000,
+                                             "leaky_relu", dim=dim)
+    p16, f16 = _bf16_packed(packed), feats2.to(BF16)
+    first = fj.jet_fwd(f16, frac, p16, nf=64, compute_dtype=BF16)
+    second = fj.jet_fwd(f16, frac, p16, nf=64, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def test_bf16_jet_nf_limit_raises(device):
+    """nf = 1024 (a 16,384-wide layer 0) runs and matches the twins; nf =
+    1025 is refused (the wrapper raises), and the launch after it runs."""
+    from space_time_pde_torch.ops import fused_jet as fj
+
+    _bf16_jet_check(device, 1024, 8, 5, "leaky_relu", 3)
+    packed, feats2, frac, _, _ = _jet_inputs(device, 1025, 8, 5,
+                                             "leaky_relu")
+    with pytest.raises(ValueError, match="rejects"):
+        fj.jet_fwd(feats2.to(BF16), frac, _bf16_packed(packed), nf=1025,
+                   compute_dtype=BF16)
+    del packed
+    _bf16_jet_check(device, 8, 16, 9, "leaky_relu", 3)
+
+
+def test_bf16_jet_plans_match_host_mirrors(device):
+    """The library's ring and split-K plans (``stpde_jet_bf16_ring``,
+    ``stpde_jet_bf16_tn_plan``) are ``ops/fused_jet.py``'s mirrors, which
+    the CPU schedule tests follow."""
+    import ctypes
+
+    from space_time_pde_torch.ops import fused_jet as fj
+
+    lib = _build.load("fused_jet_bf16")
+    buf = (ctypes.c_longlong * 5)()
+    for mt in (1, 2, 4, 5):
+        for staging in (0, 1):
+            lib.stpde_jet_bf16_ring(mt, staging, buf)
+            assert tuple(buf[:3]) == fj.bf16_ring(mt, bool(staging))
+            assert buf[3] == 384
+    for m in (8, 296, 1184, 65536, 262144, 327680):
+        for ka, nb in ((1, 1), (16, 8), (64, 1024), (128, 64),
+                       (1024, 512), (16384, 8192)):
+            lib.stpde_jet_bf16_tn_plan(m, ka, nb, buf)
+            assert tuple(buf) == fj.bf16_tn_plan(m, ka, nb), (m, ka, nb)

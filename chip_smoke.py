@@ -203,6 +203,17 @@ M. phase 8's step under ``use_bf16`` with ``pde_bf16`` against
    from JAX bf16 there); the bf16 jets launched and the f32 ones not;
 N. both train CLIs with ``--use_bf16 true --pde_bf16 true`` (phase J's
    runs): finite losses, s/step, the path's jets ``jet_*_bf16`` alone;
+O. the eval CLIs on checkpoint directories (``--ckpt``), each run's
+   source, step, decode dtype and kernel, rel-L2, steady points/s and
+   launches printed (the gather decode of its dtype alone, no jet). O1:
+   port checkpoints holding the committed exports' weights, ``--ckpt``
+   beside ``--params`` on phase 5's Taylor–Green windows and phase 12's
+   val windows, window 0, the per-window rel-L2 and the saved
+   predictions equal bit for bit. O2 (inside phases 9, B, 15, F and N,
+   while their directories live): 2 windows of each run's directory,
+   window 0 bit for bit against ``make_dense_decoder`` over models built
+   at the eval grid and given the run's weights (the live state; phase
+   F's rank 0 file through a plain ``torch.load``);
 
 and last, one JSON line of the eight kernels (the four f32 kernels and
 the four bf16 instantiations; ``path``: eval, train or off_path;
@@ -954,9 +965,11 @@ def load_driver(*parts):
 def train_path(card, driver, flags, log_dir, batch_points, what,
                buffers=False):
     """Phases 9, 15 and B: ``driver.main`` trains 2 epochs x 8 steps,
-    then resumes to epoch 3; returns the launch counts of the first run.
-    ``buffers``: between the two, a resume that trains no epoch must
-    restore the first run's BatchNorm statistics bit for bit."""
+    then resumes to epoch 3; returns the launch counts of the first run
+    and each run's final ``TrainState`` by its step (phase O2 evaluates
+    the checkpoints against them). ``buffers``: between the two, a
+    resume that trains no epoch must restore the first run's BatchNorm
+    statistics bit for bit."""
     from space_time_pde_torch.ops import fused_jet as fj
     from space_time_pde_torch.ops import fused_query as fq
 
@@ -965,6 +978,7 @@ def train_path(card, driver, flags, log_dir, batch_points, what,
     first = driver.main(flags + ["--epochs", "2"])
     torch.cuda.synchronize()
     launches = {**fj.LAUNCHES, **fq.LAUNCHES}
+    runs = [first]
     if buffers:
         held = driver.main(flags + [
             "--epochs", "2", "--resume", os.path.join(log_dir,
@@ -981,6 +995,7 @@ def train_path(card, driver, flags, log_dir, batch_points, what,
     resumed = driver.main(flags + [
         "--epochs", "3", "--resume", os.path.join(log_dir, "checkpoints")])
     torch.cuda.synchronize()
+    runs.append(resumed)
     say(f"{what} train path launches (2 epochs x 8 steps): {launches}")
     for name in ("jet_fwd", "jet_bwd"):
         if launches[name] < 1:
@@ -1006,7 +1021,7 @@ def train_path(card, driver, flags, log_dir, batch_points, what,
         f"{rate:.0f} points/s ({batch_points} points a step, recipe "
         f"widths, jet + jet backward kernels) on {card}; losses "
         + ", ".join(f"{e['loss']:.5f}" for e in epochs))
-    return launches
+    return launches, {r["step"]: r["state"] for r in runs}
 
 
 def rb2d_flags(tmp, log_dir):
@@ -1031,14 +1046,19 @@ def taylor_green_folder(tmp):
              taylor_green_fields(nt=32, nz=128, nx=256))
 
 
-def rb2d_train_path(card, *extra, what="rb2d"):
-    """Phase 9 (and B with ``--norm batch``)."""
+def rb2d_train_path(card, *extra, what="rb2d", ckpt_path="rb2d_ckpt_eval"):
+    """Phase 9 (and B with ``--norm batch``), then phase O2 on the run's
+    checkpoints; returns the train path's launches and {``ckpt_path``:
+    the eval's}."""
     with tempfile.TemporaryDirectory() as tmp:
         taylor_green_folder(tmp)
         log_dir = os.path.join(tmp, "log")
-        return train_path(card, load_driver("rb2d", "train_torch.py"),
-                          rb2d_flags(tmp, log_dir) + list(extra), log_dir,
-                          8 * 1024, what, buffers="batch" in extra)
+        launches, states = train_path(
+            card, load_driver("rb2d", "train_torch.py"),
+            rb2d_flags(tmp, log_dir) + list(extra), log_dir, 8 * 1024, what,
+            buffers="batch" in extra)
+        return launches, own_run_eval(card, ckpt_path, "rb2d", log_dir,
+                                      live_weights(states))
 
 
 def rb2d_serving(device, card):
@@ -1274,6 +1294,8 @@ def turb3d_serving(device, card):
 
 
 def turb3d_train_path(card):
+    """Phase 15, then phase O2 on the run's checkpoints (as
+    :func:`rb2d_train_path`)."""
     with tempfile.TemporaryDirectory() as tmp:
         beltrami_files(tmp, (42, 100, 101, 7))
         log_dir = os.path.join(tmp, "log")
@@ -1288,8 +1310,11 @@ def turb3d_train_path(card):
             "--pseudo_epoch_size", "32", "--alpha_pde", "0.1",
             "--lr", "5e-3", "--lr_schedule", "cosine",
             "--pde_loss_type", "huber", "--seed", "42", "--log_dir", log_dir]
-        return train_path(card, load_driver("turb3d", "train_torch.py"),
-                          flags, log_dir, 4 * 1024, "turb3d")
+        launches, states = train_path(
+            card, load_driver("turb3d", "train_torch.py"), flags, log_dir,
+            4 * 1024, "turb3d")
+        return launches, own_run_eval(card, "turb3d_ckpt_eval", "turb3d",
+                                      log_dir, live_weights(states))
 
 
 def rb2d_real_windows(device, card):
@@ -1298,6 +1323,7 @@ def rb2d_real_windows(device, card):
     from space_time_pde_torch.bridge import load_exported
     from space_time_pde_torch.inference import make_dense_decoder
     from space_time_pde_torch.ops import fused_query as fq
+    from space_time_pde_torch.utils.checkpoint import eval_weights
     from space_time_pde_torch.utils.config import Config
 
     evaluation_torch = load_driver("rb2d", "evaluation_torch.py")
@@ -1307,7 +1333,7 @@ def rb2d_real_windows(device, card):
     out_shape = tuple(int(s) for s in ref["out_shape"])
     unet, imnet = evaluation_torch.build_models(
         Config.from_dict(exported["config"]), ref["lres"].shape[1:4],
-        exported, device)
+        eval_weights(params=ASSET), device)
     decoder = make_dense_decoder(unet, imnet, out_shape)
     mean, std = ref["channel_mean"], ref["channel_std"]
     ref32 = ref["values"].astype(np.float64)
@@ -1419,6 +1445,7 @@ def rb2d_real_windows_bf16(device, card):
     from space_time_pde_torch.inference import decode_dtype, \
         make_dense_decoder
     from space_time_pde_torch.ops import fused_query as fq
+    from space_time_pde_torch.utils.checkpoint import eval_weights
     from space_time_pde_torch.utils.config import Config
 
     evaluation_torch = load_driver("rb2d", "evaluation_torch.py")
@@ -1430,7 +1457,7 @@ def rb2d_real_windows_bf16(device, card):
     cfg = Config.from_dict(exported["config"])
     out_shape = tuple(int(s) for s in ref["out_shape"])
     unet, imnet = evaluation_torch.build_models(
-        cfg, ref["lres"].shape[1:4], exported, device)
+        cfg, ref["lres"].shape[1:4], eval_weights(params=ASSET), device)
     decoder = make_dense_decoder(
         unet, imnet, out_shape,
         compute_dtype=decode_dtype("bf16", cfg.model.use_bf16))
@@ -1526,13 +1553,14 @@ def bf16_step_vs_jax(device, pde_bf16=False):
         raise SystemExit(f"the bf16 training step disagrees with JAX: {bad}")
 
 
-def bf16_train_clis(card, pde_bf16=False):
+def bf16_train_clis(card, pde_bf16=False, evaluate=False):
     """Both train CLIs with ``--use_bf16 true`` (phase J; with
     ``pde_bf16`` also ``--pde_bf16 true``, phase N), phases 9's and 15's
     flags, 2 epochs x 8 steps: finite losses, s/step of epoch 1, and the
     path's launches of each, which must take one jet instantiation alone
     (f32 under ``--use_bf16`` alone, bf16 with ``--pde_bf16``) and the
-    bf16 gather decode (the epoch eval)."""
+    bf16 gather decode (the epoch eval). ``evaluate``: phase O2 on each
+    run's checkpoints, its launches under ``<family>_<tag>_ckpt_eval``."""
     from space_time_pde_torch.ops import fused_jet as fj
     from space_time_pde_torch.ops import fused_query as fq
 
@@ -1566,16 +1594,28 @@ def bf16_train_clis(card, pde_bf16=False):
         for k in other:
             if paths[name][k]:
                 raise SystemExit(f"{name} launched {k}")
+        return res
 
     tag = "pde_bf16" if pde_bf16 else "bf16"
+
+    def own_eval(family, log_dir, res):
+        if evaluate:
+            paths.update(own_run_eval(
+                card, f"{family}_{tag}_ckpt_eval", family, log_dir,
+                live_weights({res["step"]: res["state"]}), dtype="bfloat16"))
+
     with tempfile.TemporaryDirectory() as tmp:
         taylor_green_folder(tmp)
-        train(f"rb2d_{tag}_train", load_driver("rb2d", "train_torch.py"),
-              rb2d_flags(tmp, os.path.join(tmp, "log")), 8 * 1024)
+        log_dir = os.path.join(tmp, "log")
+        own_eval("rb2d", log_dir, train(
+            f"rb2d_{tag}_train", load_driver("rb2d", "train_torch.py"),
+            rb2d_flags(tmp, log_dir), 8 * 1024))
     with tempfile.TemporaryDirectory() as tmp:
         beltrami_files(tmp, (42, 100, 101, 7))
-        train(f"turb3d_{tag}_train", load_driver("turb3d", "train_torch.py"),
-              turb3d_flags(tmp, os.path.join(tmp, "log")), 4 * 1024)
+        log_dir = os.path.join(tmp, "log")
+        own_eval("turb3d", log_dir, train(
+            f"turb3d_{tag}_train", load_driver("turb3d", "train_torch.py"),
+            turb3d_flags(tmp, log_dir), 4 * 1024))
     return paths
 
 
@@ -1936,6 +1976,210 @@ def resume_from_jax(device, card):
         if launches[name] < 1:
             raise SystemExit(f"{name} was not launched by the resumed run")
     return launches
+
+
+# ------------------------------------------------------------------------
+# Phase O: the eval CLIs on checkpoint directories (``--ckpt``). O2 runs
+# inside the train phases, while their temporary directories live.
+
+
+def o_eval(card, name, family, flags, dtype):
+    """One phase-O run of ``family``'s eval CLI with ``flags`` on the card:
+    prints its source, step, decode dtype and kernel, rel-L2, steady
+    points/s and launches; it must decode in ``dtype`` through that
+    dtype's gather kernel alone (no jet, no other decode). Returns
+    (results, launches)."""
+    from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.ops import fused_query as fq
+
+    fj.reset_launches()
+    fq.reset_launches()
+    res = load_driver(family, "evaluation_torch.py").main(
+        flags + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {**fj.LAUNCHES, **fq.LAUNCHES}
+    prov = res["provenance"]
+    kernel = ("decode_blend_gather_bf16" if dtype == "bfloat16"
+              else "decode_blend_gather")
+    rate = res.get("steady_pts_per_s")
+    say(f"{name}: {res['source']} step {res['step']}; decode dtype "
+        f"{prov['compute_dtype']} kernel {prov['kernel']}; windows "
+        f"{res['t0s']} rel-L2 " + ", ".join(f"{r:.6g}" for r in
+                                          res["rel_l2"])
+        + (f"; {rate / 1e6:.3f}M pts/s over windows 2+ on {card}"
+           if rate else "") + f"; launches {launches}")
+    stray = sorted(k for k, n in launches.items() if n and k != kernel)
+    if launches[kernel] < 1 or stray or prov["compute_dtype"] != dtype or \
+            not np.isfinite(res["rel_l2"]).all() or \
+            not torch.isfinite(res["window0"]).all():
+        raise SystemExit(f"{name}: the eval did not decode {dtype} through "
+                         f"{kernel} alone (also launched {stray}) to finite "
+                         "values")
+    return res, launches
+
+
+def live_weights(states):
+    """Phase O2's weights from the runs of this process: {step: the
+    ``TrainState`` a run ended with} -> ``weights(step)``, the (UNet,
+    ImNet) state dicts of the run that saved ``step``."""
+    def weights(step):
+        if step not in states:
+            raise SystemExit(f"no run ended at the newest checkpoint's step "
+                             f"{step} (the runs ended at {sorted(states)})")
+        return states[step].unet.state_dict(), states[step].imnet.state_dict()
+    return weights
+
+
+def file_weights(ckpt_dir):
+    """Phase O2's weights of a run in other processes: the newest
+    ``ckpt_<step>.pt`` read with a plain ``torch.load``, its tensors
+    split into the two state dicts."""
+    newest = max((n for n in os.listdir(ckpt_dir)
+                  if re.fullmatch(r"ckpt_\d+\.pt", n)),
+                 key=lambda n: int(n[5:-3]))
+    payload = torch.load(os.path.join(ckpt_dir, newest), map_location="cpu",
+                         weights_only=True)
+    tensors = {**payload["params"], **payload["buffers"]}
+
+    def weights(step):
+        if step != payload["step"]:
+            raise SystemExit(f"{newest} holds step {payload['step']}, the "
+                             f"eval read step {step}")
+        return tuple({k.partition(".")[2]: v for k, v in tensors.items()
+                      if k.startswith(f"{m}.")} for m in ("unet", "imnet"))
+    return weights
+
+
+def own_run_eval(card, name, family, log_dir, weights, dtype="float32"):
+    """Phase O2: ``family``'s eval CLI with ``--ckpt <log_dir>/checkpoints``
+    on 2 windows; window 0 must equal, bit for bit, the decode of
+    ``inference.make_dense_decoder`` over models that the trainer builds
+    at the eval grid (the saved config's), given ``weights(step)``.
+    Returns {``name``: the eval's launches}."""
+    from space_time_pde_torch.inference import decode_dtype, \
+        make_dense_decoder
+    from space_time_pde_torch.train import build_models
+    from space_time_pde_torch.utils.checkpoint import latest_checkpoint
+    from space_time_pde_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    ckpt_dir = os.path.join(log_dir, "checkpoints")
+    res, launches = o_eval(card, name, family, [
+        "--ckpt", ckpt_dir, "--eval_windows", "2",
+        "--save_path", os.path.join(log_dir, "pred_ckpt.npz")], dtype)
+    cfg = Config.from_dict(latest_checkpoint(ckpt_dir)["extra"]["config"])
+    unet_sd, imnet_sd = weights(res["step"])
+    igres = tuple(res["lres0"].shape[:-1])
+    unet, imnet = build_models(cfg, igres, torch.device("cuda"))
+    unet.load_state_dict(unet_sd)
+    imnet.load_state_dict(imnet_sd)
+    decoder = make_dense_decoder(
+        unet.eval(), imnet.eval(), tuple(res["window0"].shape[:-1]),
+        chunk=res["provenance"]["chunk"],
+        compute_dtype=decode_dtype("auto", cfg.model.use_bf16))
+    with torch.no_grad():
+        want = decoder(res["lres0"])
+    torch.cuda.synchronize()
+    same = torch.equal(res["window0"], want)
+    diff = "" if same else (f" (max |diff| "
+                            f"{(res['window0'] - want).abs().max():.3e})")
+    say(f"{name}: window 0 {tuple(want.shape)} equals the decode of models "
+        f"built at the eval grid {igres} from the run's weights bit for "
+        f"bit: {same}{diff}; phase O2 run {time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise SystemExit(f"{name}: --ckpt decoded otherwise than the run's "
+                         "own weights")
+    return {name: launches}
+
+
+def ckpt_vs_params(card):
+    """Phase O1: port checkpoint directories holding the committed JAX
+    exports' weights, evaluated with ``--ckpt`` and, beside, the exports
+    with ``--params`` on phase 5's three Taylor–Green windows (rb2d) and
+    phase 12's four val windows (turb3d): window 0, the per-window
+    rel-L2 and the saved predictions equal bit for bit. Returns each
+    run's launches."""
+    from space_time_pde_torch.bridge import load_exported, load_flax_params
+    from space_time_pde_torch.data import save_npz, taylor_green_fields
+    from space_time_pde_torch.train import (
+        build_models, init_state, make_optimizer)
+    from space_time_pde_torch.utils.checkpoint import (
+        CheckpointManager, restore_exported)
+    from space_time_pde_torch.utils.config import Config
+
+    device = torch.device("cuda")
+    paths = {}
+
+    def anchor(family, ckpt_dir, export, data_flags, tmp):
+        runs = {}
+        for flag, src in (("--ckpt", ckpt_dir), ("--params", export)):
+            name = f"{family}_{flag[2:]}_anchor_eval"
+            save = os.path.join(tmp, f"{name}.npz")
+            runs[flag], paths[name] = o_eval(
+                card, name, family, [flag, src, *data_flags, "--save_path",
+                                     save], "float32")
+            with np.load(save) as z:
+                runs[flag]["saved"] = {k: z[k] for k in z.files}
+        got, want = runs["--ckpt"], runs["--params"]
+        same = {
+            "window0": torch.equal(got["window0"], want["window0"]),
+            "rel_l2": got["rel_l2"] == want["rel_l2"],
+            "t0s": got["t0s"] == want["t0s"],
+            "saved": sorted(got["saved"]) == sorted(want["saved"]) and all(
+                np.array_equal(v, want["saved"][k])
+                for k, v in got["saved"].items()),
+            "step": got["step"] == want["step"]}
+        say(f"{family}: --ckpt equals --params bit for bit: {same}")
+        if not all(same.values()):
+            raise SystemExit(f"{family}: --ckpt and --params disagree: "
+                             f"{[k for k, v in same.items() if not v]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exported = load_exported(OPT_ASSET)
+        cfg = Config.from_dict(exported["config"])
+        d = cfg.data
+        unet, imnet = build_models(cfg, (d.nt // d.downsamp_t,
+                                         d.nz // d.downsamp_xz,
+                                         d.nx // d.downsamp_xz), device)
+        state, extra = restore_exported(
+            init_state(cfg.train.seed, unet, imnet, make_optimizer(cfg)),
+            OPT_ASSET)
+        ckpt_dir = os.path.join(tmp, "rb2d_ckpt")
+        CheckpointManager(ckpt_dir).save(state.step, state, extra=extra)
+        del state, unet, imnet
+        with np.load(os.path.splitext(ASSET)[0] + "_ref.npz") as z:
+            tg_nt, out_shape = int(z["tg_nt"]), tuple(int(s) for s in
+                                                      z["out_shape"])
+        save_npz(os.path.join(tmp, "tg.npz"), taylor_green_fields(
+            nt=tg_nt, nz=out_shape[1], nx=out_shape[2]))
+        anchor("rb2d", ckpt_dir, ASSET, [
+            "--data_folder", tmp, "--eval_data", "tg.npz",
+            "--eval_windows", "3"], tmp)
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exported = load_exported(TURB3D_ASSET)
+        cfg = Config.from_dict(exported["config"])
+        targs = exported["meta"]["turb3d_args"]
+        ds_xyz = targs["downsamp_xyz"]
+        unet, imnet = build_models(
+            cfg, (targs["nt"] // targs["downsamp_t"], targs["nz"] // ds_xyz,
+                  targs["ny"] // ds_xyz, targs["nx"] // ds_xyz), device)
+        state = init_state(cfg.train.seed, unet, imnet, make_optimizer(cfg))
+        load_flax_params(state.unet, exported["params"]["unet"])
+        load_flax_params(state.imnet, exported["params"]["imnet"])
+        state.step = exported["step"]
+        ckpt_dir = os.path.join(tmp, "turb3d_ckpt")
+        CheckpointManager(ckpt_dir).save(state.step, state, extra={
+            "config": exported["config"], "turb3d_args": targs,
+            "channel_mean": exported["channel_mean"],
+            "channel_std": exported["channel_std"]})
+        del state, unet, imnet
+        beltrami_files(tmp, (7,))
+        anchor("turb3d", ckpt_dir, TURB3D_ASSET, [
+            "--data_folder", tmp, "--split", "val", "--eval_windows", "4"],
+            tmp)
+    return paths
 
 
 # ------------------------------------------------------------------------
@@ -2556,7 +2800,7 @@ def main():
         f"({os.path.relpath(STEP_REF, ROOT)}):")
     train_step_vs_jax(device, STEP_REF)
     torch.cuda.empty_cache()
-    rb2d_train = rb2d_train_path(card)
+    rb2d_train, ckpt_paths = rb2d_train_path(card)      # + phase O2
     torch.cuda.empty_cache()
 
     # Phases 10-11: kernels vs plain twins at D = 4 (turb3d widths).
@@ -2575,7 +2819,8 @@ def main():
         f"({os.path.relpath(TURB3D_STEP_REF, ROOT)}):")
     train_step_vs_jax(device, TURB3D_STEP_REF)
     torch.cuda.empty_cache()
-    turb3d_train = turb3d_train_path(card)
+    turb3d_train, o2 = turb3d_train_path(card)          # + phase O2
+    ckpt_paths.update(o2)
     torch.cuda.empty_cache()
 
     # Phase A: the rb2d eval path on real RB2D windows.
@@ -2587,8 +2832,10 @@ def main():
         f"({os.path.relpath(BN_STEP_REF, ROOT)}):")
     train_step_vs_jax(device, BN_STEP_REF)
     torch.cuda.empty_cache()
-    rb2d_bn_train = rb2d_train_path(card, "--norm", "batch",
-                                    what="rb2d BatchNorm")
+    rb2d_bn_train, o2 = rb2d_train_path(                # + phase O2
+        card, "--norm", "batch", what="rb2d BatchNorm",
+        ckpt_path="rb2d_bn_ckpt_eval")
+    ckpt_paths.update(o2)
     torch.cuda.empty_cache()
 
     # Phase C: a JAX run resumed in the port.
@@ -2596,8 +2843,14 @@ def main():
     torch.cuda.empty_cache()
 
     # Phases D-F: the parallel paths (ranks in processes of their own).
+    # Phase O2 on rank 0's checkpoint of the sharded-encoder CLI run.
     with tempfile.TemporaryDirectory() as tmp:
         parallel = parallel_phases(card, tmp)
+        log_f1 = os.path.join(tmp, "log_f1")
+        ckpt_paths.update(own_run_eval(
+            card, "rb2d_dp_sp_sharded_ckpt_eval", "rb2d", log_f1,
+            file_weights(os.path.join(log_f1, "checkpoints"))))
+    torch.cuda.empty_cache()
 
     # Phase G: the bf16 decode kernel against its twin at D = 3 and 4.
     name16 = "decode_blend_gather_bf16"
@@ -2639,9 +2892,17 @@ def main():
         f"({os.path.relpath(BF16_PDE_STEP_REF, ROOT)}):")
     bf16_step_vs_jax(device, pde_bf16=True)
     torch.cuda.empty_cache()
-    bf16_paths.update(bf16_train_clis(card, pde_bf16=True))
+    bf16_paths.update(bf16_train_clis(card, pde_bf16=True,
+                                      evaluate=True))  # + phase O2
     torch.cuda.empty_cache()
     say(f"phases K-N took {time.perf_counter() - t_kn:.1f} s")
+
+    # Phase O1: --ckpt against --params on the committed exports.
+    t_o = time.perf_counter()
+    ckpt_paths.update(ckpt_vs_params(card))
+    torch.cuda.empty_cache()
+    say(f"phase O1 took {time.perf_counter() - t_o:.1f} s; phase O ran "
+        f"{sorted(ckpt_paths)}")
 
     by_path = {"rb2d_eval": rb2d_eval, "rb2d_train": rb2d_train,
                "turb3d_eval_val": turb3d_eval["val"],
@@ -2649,7 +2910,7 @@ def main():
                "turb3d_train": turb3d_train,
                "rb2d_eval_real": rb2d_eval_real,
                "rb2d_bn_train": rb2d_bn_train, "rb2d_resume": rb2d_resume,
-               **parallel, **bf16_paths}
+               **parallel, **bf16_paths, **ckpt_paths}
     off = {"rb2d_scattered": rb2d_off, "turb3d_scattered": turb3d_off,
            "rb2d_scattered_bf16": rb2d_off16,
            "turb3d_scattered_bf16": turb3d_off16}

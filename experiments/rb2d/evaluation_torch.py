@@ -1,17 +1,25 @@
 """RB2D evaluation CLI on the PyTorch / CUDA port.
 
-Counterpart of ``experiments/rb2d/evaluation.py``: load exported
-weights, encode each eval window's low-res input once, decode the dense
+Counterpart of ``experiments/rb2d/evaluation.py``: load a trained
+model, encode each eval window's low-res input once, decode the dense
 high-res space-time lattice through the port's fused CUDA kernel, and
 report per-window rel-L2 against the ground truth, with the same
 provenance and ``rel_l2`` lines as the JAX CLI.
 
-``--params`` takes the ``.npz`` written by
-``scripts/export_torch_params.py`` (the flagship's is committed at
-``space_time_pde_torch/assets/r5_rb2d_4x_e900_230400.npz``) in place of
-``--ckpt``: orbax checkpoints need JAX to read.
+The model comes from one of two places:
+- ``--ckpt DIR``: a checkpoint directory of the port's own training run
+  (``experiments/rb2d/train_torch.py`` writes ``<log_dir>/checkpoints``,
+  ``torch.save`` files); its newest step is read, as the JAX CLI's
+  ``--ckpt`` reads an orbax directory's (neither CLI has ``--step``).
+  The run's config, latent grid and channel statistics come with it.
+- ``--params FILE``: a JAX run's ``.npz`` written by
+  ``scripts/export_torch_params.py`` (the flagship's is committed at
+  ``space_time_pde_torch/assets/r5_rb2d_4x_e900_230400.npz``); orbax
+  checkpoints need JAX to read.
 
-Example (on a machine with the card):
+Examples (on a machine with the card):
+    python experiments/rb2d/evaluation_torch.py \
+        --ckpt ./log/checkpoints --data_folder ./data --split test
     python experiments/rb2d/evaluation_torch.py \
         --params space_time_pde_torch/assets/r5_rb2d_4x_e900_230400.npz \
         --data_folder ./data --split test --save_path ./log/pred.npz
@@ -43,7 +51,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np
 import torch
 
-from space_time_pde_torch.bridge import load_exported, load_flax_params
 from space_time_pde_torch.data import RB2EvalData
 from space_time_pde_torch.data.splits import SplitSpec, window_starts
 from space_time_pde_torch.inference import (
@@ -51,13 +58,14 @@ from space_time_pde_torch.inference import (
     igres_mismatch_note, make_dense_decoder, stitched_decode)
 from space_time_pde_torch.models import ImNet, UNet3d
 from space_time_pde_torch.models.policy import policy_dtype
+from space_time_pde_torch.utils.checkpoint import EvalWeights, eval_weights
 from space_time_pde_torch.utils.config import Config, add_args
 
 
-def build_models(cfg: Config, igres, exported, device):
-    """UNet3d at ``igres`` + ImNet from the config, in the checkpoint's
-    compute policy, weights from the exported params, in eval mode on
-    ``device``."""
+def build_models(cfg: Config, igres, weights: EvalWeights, device):
+    """UNet3d at ``igres`` + ImNet from the config, in the run's compute
+    policy, given the weights of ``weights`` (a ``--ckpt`` checkpoint or
+    a ``--params`` export), in eval mode on ``device``."""
     m = cfg.model
     dtype = policy_dtype(m.use_bf16)
     unet = UNet3d(in_features=m.in_channels, out_features=m.lat_dims,
@@ -67,9 +75,7 @@ def build_models(cfg: Config, igres, exported, device):
     imnet = ImNet(dim=3, in_features=m.lat_dims, out_features=m.out_channels,
                   nf=m.imnet_nf, activation=m.activation,
                   negative_slope=m.negative_slope, dtype=dtype)
-    params = exported["params"]
-    load_flax_params(unet, params["unet"], exported["batch_stats"])
-    load_flax_params(imnet, params["imnet"])
+    weights.load(unet, imnet)
     return unet.to(device).eval(), imnet.to(device).eval()
 
 
@@ -146,12 +152,20 @@ def main(argv=None):
     ``rel_l2`` per window, ``t0s``, ``decode_seconds`` per window,
     ``points_per_window``, ``provenance``, the first window's low-res
     input ``lres0`` and decoder output ``window0`` (normalised units, on
-    the device) and the ``models``."""
-    parser = argparse.ArgumentParser(description=__doc__)
+    the device), the ``models``, and the model's ``step`` and
+    ``source`` (``ckpt=<abs dir>`` or ``params=<path>``)."""
+    parser = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     add_args(parser)
-    parser.add_argument("--params", type=str, required=True,
-                        help="exported weights .npz "
-                             "(scripts/export_torch_params.py)")
+    src = parser.add_mutually_exclusive_group(required=True)
+    src.add_argument("--ckpt", type=str,
+                     help="checkpoint directory of a port training run "
+                          "(experiments/rb2d/train_torch.py writes "
+                          "<log_dir>/checkpoints); its newest step")
+    src.add_argument("--params", type=str,
+                     help="exported weights .npz of a JAX run "
+                          "(scripts/export_torch_params.py)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain "
                              "PyTorch twins (tests, tiny models)")
@@ -194,9 +208,9 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device here; --device cpu runs the plain "
                          "PyTorch path")
-    exported = load_exported(args.params)
-    cfg = Config.from_dict(exported["config"])
-    step = exported["step"]
+    weights = eval_weights(ckpt=args.ckpt, params=args.params)
+    cfg = Config.from_dict(weights.extra["config"])
+    step = weights.step
     train_igres = (cfg.data.nt // cfg.data.downsamp_t,
                    cfg.data.nz // cfg.data.downsamp_xz,
                    cfg.data.nx // cfg.data.downsamp_xz)
@@ -215,8 +229,10 @@ def main(argv=None):
         downsamp_t=cfg.data.downsamp_t, downsamp_xz=cfg.data.downsamp_xz,
         normalize_output=cfg.data.normalize_channels,
         lres_filter=cfg.data.lres_filter, lres_interp=cfg.data.lres_interp)
-    ds.channel_mean = np.asarray(exported["channel_mean"], np.float32)
-    ds.channel_std = np.asarray(exported["channel_std"], np.float32)
+    if "channel_mean" in weights.extra:
+        ds.channel_mean = np.asarray(weights.extra["channel_mean"],
+                                     np.float32)
+        ds.channel_std = np.asarray(weights.extra["channel_std"], np.float32)
 
     eval_nt = args.eval_nt or cfg.data.nt
     lres0 = ds.full_lres_sequence(args.eval_t0, eval_nt)
@@ -224,8 +240,8 @@ def main(argv=None):
                                homogeneous_axes=(2,))
     if note:
         print(note, flush=True)
-    unet, imnet = build_models(cfg, lres0.shape[:3], exported, device)
-    print(f"restored step {step}; lres {lres0.shape}")
+    unet, imnet = build_models(cfg, lres0.shape[:3], weights, device)
+    print(f"restored step {step} from {weights.source}; lres {lres0.shape}")
 
     T_total, Z_hi, X_hi = ds.data.shape[:3]
     if args.split != "custom":
@@ -256,12 +272,13 @@ def main(argv=None):
           f"tf32_matmul={prov['tf32_matmul']} "
           f"tf32_cudnn={prov['tf32_cudnn']} "
           f"chunk={prov['chunk']} block_pts={prov['block_pts']} "
-          f"eval_data={cfg.data.eval_data} step={step} "
+          f"eval_data={cfg.data.eval_data} {weights.source} step={step} "
           f"windows={'full_sequence' if args.full_sequence else t0s}",
           flush=True)
     n_q = eval_nt * Z_hi * X_hi
     results = {"provenance": prov, "points_per_window": n_q,
-               "models": (unet, imnet), "t0s": t0s, "lres0": probe_lres}
+               "models": (unet, imnet), "t0s": t0s, "lres0": probe_lres,
+               "step": step, "source": weights.source}
 
     if args.full_sequence:
         stride = args.stitch_stride or max(1, eval_nt // 2)

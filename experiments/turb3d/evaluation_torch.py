@@ -1,8 +1,8 @@
 """turb3d evaluation CLI on the PyTorch / CUDA port: dense 4-D
 super-resolution.
 
-Counterpart of ``experiments/turb3d/evaluation.py``: load exported
-weights, encode each eval window's low-res (t, z, y, x) input once with
+Counterpart of ``experiments/turb3d/evaluation.py``: load a trained
+model, encode each eval window's low-res (t, z, y, x) input once with
 UNet4d, decode the implicit field on the dense high-res lattice in
 chunks through the port's decode kernel at 16 corners
 (``csrc/fused_query.cu``, ``csrc/fused_query_bf16.cu`` under
@@ -11,14 +11,23 @@ per-window rel-L2 against the ground truth with the same lines as the
 JAX CLI (per window, mean and per channel), or with ``--full_sequence``
 one stitched decode of the whole simulation.
 
-``--params`` takes the ``.npz`` written by
-``scripts/export_torch_turb3d.py`` (the ``r5_turb3d_200x_big`` step
-76,800 one is committed at
-``space_time_pde_torch/assets/r5_turb3d_200x_big_76800.npz``) in place
-of ``--ckpt``: orbax checkpoints need JAX to read.
+The model comes from one of two places:
+- ``--ckpt DIR``: a checkpoint directory of the port's own training run
+  (``experiments/turb3d/train_torch.py`` writes
+  ``<log_dir>/checkpoints``, ``torch.save`` files); its newest step is
+  read, as the JAX CLI's ``--ckpt`` reads an orbax directory's (neither
+  CLI has ``--step``). The run's config, ``turb3d_args`` and channel
+  statistics come with it.
+- ``--params FILE``: a JAX run's ``.npz`` written by
+  ``scripts/export_torch_turb3d.py`` (the ``r5_turb3d_200x_big`` step
+  76,800 one is committed at
+  ``space_time_pde_torch/assets/r5_turb3d_200x_big_76800.npz``); orbax
+  checkpoints need JAX to read.
 
-Example (on a machine with the card; the val split's file is made by
+Examples (on a machine with the card; the val split's file is made by
 ``experiments/turb3d/generate_data.py --seed 7 --out data/beltrami_s7.npz``):
+    python experiments/turb3d/evaluation_torch.py \
+        --ckpt ./log/checkpoints --data_folder data --split val
     python experiments/turb3d/evaluation_torch.py \
         --params space_time_pde_torch/assets/r5_turb3d_200x_big_76800.npz \
         --data_folder data --split val --eval_windows 4
@@ -49,7 +58,6 @@ import numpy as np
 import torch
 from scipy.interpolate import RegularGridInterpolator
 
-from space_time_pde_torch.bridge import load_exported, load_flax_params
 from space_time_pde_torch.data.dataset4d import Field4DDataset
 from space_time_pde_torch.data.splits import (
     CANONICAL_SEEDS, test_windows, val_windows)
@@ -58,21 +66,21 @@ from space_time_pde_torch.inference import (
     igres_mismatch_note, make_dense_decoder, stitched_decode)
 from space_time_pde_torch.models import ImNet, UNet4d
 from space_time_pde_torch.models.policy import policy_dtype
+from space_time_pde_torch.utils.checkpoint import EvalWeights, eval_weights
 from space_time_pde_torch.utils.config import Config
 
 
-def build_models(cfg: Config, targs, igres, exported, device):
-    """UNet4d at ``igres`` + ImNet(dim=4) in the checkpoint's compute
-    policy, weights from the exported params, in eval mode on
-    ``device``."""
+def build_models(cfg: Config, targs, igres, weights: EvalWeights, device):
+    """UNet4d at ``igres`` + ImNet(dim=4) in the run's compute policy,
+    given the weights of ``weights`` (a ``--ckpt`` checkpoint or a
+    ``--params`` export), in eval mode on ``device``."""
     dtype = policy_dtype(cfg.model.use_bf16)
     unet = UNet4d(in_features=4, out_features=targs["lat_dims"],
                   igres=tuple(igres), nf=targs["unet_nf"],
                   mf=targs["unet_mf"], dtype=dtype)
     imnet = ImNet(dim=4, in_features=targs["lat_dims"], out_features=4,
                   nf=targs["imnet_nf"], dtype=dtype)
-    load_flax_params(unet, exported["params"]["unet"])
-    load_flax_params(imnet, exported["params"]["imnet"])
+    weights.load(unet, imnet)
     return unet.to(device).eval(), imnet.to(device).eval()
 
 
@@ -85,12 +93,20 @@ def main(argv=None):
     ``rel_l2`` per window, ``t0s``, ``decode_seconds`` per window,
     ``points_per_window``, ``provenance``, the first window's low-res
     input ``lres0`` and decoder output ``window0`` (normalised units, on
-    the device), the ``models`` and, over two or more windows,
-    ``steady_pts_per_s``."""
-    parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--params", type=str, required=True,
-                        help="exported weights .npz "
-                             "(scripts/export_torch_turb3d.py)")
+    the device), the ``models``, the model's ``step`` and ``source``
+    (``ckpt=<abs dir>`` or ``params=<path>``) and, over two or more
+    windows, ``steady_pts_per_s``."""
+    parser = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    src = parser.add_mutually_exclusive_group(required=True)
+    src.add_argument("--ckpt", type=str,
+                     help="checkpoint directory of a port training run "
+                          "(experiments/turb3d/train_torch.py writes "
+                          "<log_dir>/checkpoints); its newest step")
+    src.add_argument("--params", type=str,
+                     help="exported weights .npz of a JAX run "
+                          "(scripts/export_torch_turb3d.py)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain "
                              "PyTorch twins (tests, tiny models)")
@@ -122,9 +138,12 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device here; --device cpu runs the plain "
                          "PyTorch path")
-    exported = load_exported(args.params)
-    cfg = Config.from_dict(exported["config"])
-    targs = exported["meta"]["turb3d_args"]
+    weights = eval_weights(ckpt=args.ckpt, params=args.params)
+    if "turb3d_args" not in weights.extra:
+        raise SystemExit(f"{weights.source} holds no turb3d_args: not a "
+                         "turb3d run")
+    cfg = Config.from_dict(weights.extra["config"])
+    targs = weights.extra["turb3d_args"]
     nt = int(targs["nt"])
 
     eval_data = args.eval_data or cfg.data.eval_data
@@ -136,8 +155,10 @@ def main(argv=None):
         data_filename=eval_data, nt=nt, nz=targs["nz"], ny=targs["ny"],
         nx=targs["nx"], downsamp_t=targs["downsamp_t"],
         downsamp_xyz=targs["downsamp_xyz"])
-    ds.channel_mean = np.asarray(exported["channel_mean"], np.float32)
-    ds.channel_std = np.asarray(exported["channel_std"], np.float32)
+    if "channel_mean" in weights.extra:
+        ds.channel_mean = np.asarray(weights.extra["channel_mean"],
+                                     np.float32)
+        ds.channel_std = np.asarray(weights.extra["channel_std"], np.float32)
 
     n_frames = ds.data.shape[0]
     if args.split != "custom":
@@ -158,8 +179,8 @@ def main(argv=None):
     note = igres_mismatch_note(lres_sizes, ds.lres_shape)
     if note:
         print(note, flush=True)
-    unet, imnet = build_models(cfg, targs, lres_sizes, exported, device)
-    print(f"restored step {exported['step']}")
+    unet, imnet = build_models(cfg, targs, lres_sizes, weights, device)
+    print(f"restored step {weights.step} from {weights.source}")
     axes = [np.linspace(0, s - 1, n) for s, n in zip(hi_shape, lres_sizes)]
     lat_pts = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 4)
 
@@ -189,12 +210,13 @@ def main(argv=None):
           f"tf32_matmul={prov['tf32_matmul']} "
           f"tf32_cudnn={prov['tf32_cudnn']} cudnn={prov['cudnn']} "
           f"chunk={prov['chunk']} block_pts={prov['block_pts']} "
-          f"eval_data={eval_data} step={exported['step']} "
+          f"eval_data={eval_data} {weights.source} step={weights.step} "
           f"windows={'full_sequence' if args.full_sequence else t0s}",
           flush=True)
     n_q = int(np.prod(hi_shape))
     results = {"provenance": prov, "points_per_window": n_q,
-               "models": (unet, imnet), "t0s": t0s, "lres0": probe_lres}
+               "models": (unet, imnet), "t0s": t0s, "lres0": probe_lres,
+               "step": weights.step, "source": weights.source}
 
     if args.full_sequence:
         stride = args.stitch_stride or max(1, nt // 2)

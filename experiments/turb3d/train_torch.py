@@ -187,7 +187,7 @@ def _provenance(cfg, device, sampler, layout) -> str:
 
 def main(argv=None):
     """Train; returns ``{"epochs": [per-epoch metrics], "start_epoch",
-    "step", "provenance"}``."""
+    "step", "provenance", "state"}`` (the final ``TrainState``)."""
     parser = argparse.ArgumentParser(description=__doc__)
     add_turb3d_args(parser)
     args = parser.parse_args(argv)
@@ -364,7 +364,7 @@ def main(argv=None):
         if logger is not None:
             logger.close()
     return {"epochs": history, "start_epoch": start_epoch,
-            "step": state.step, "provenance": provenance}
+            "step": state.step, "provenance": provenance, "state": state}
 
 
 if __name__ == "__main__":

@@ -58,7 +58,8 @@ from space_time_pde_torch.train.optim import Optimizer
 
 __all__ = ["TrainState", "build_models", "flax_init_", "init_state",
            "jet_compute_dtype", "make_loss_fn", "make_train_step",
-           "make_multi_step", "make_eval_fn"]
+           "make_multi_step", "make_eval_fn", "model_buffers",
+           "model_params"]
 
 PDE_DERIVS = ("jet", "jet_jnp", "tower")
 
@@ -74,18 +75,28 @@ class TrainState:
     generator: torch.Generator
 
     def params(self) -> Dict[str, nn.Parameter]:
-        """``{"unet.<name>" | "imnet.<name>": parameter}``."""
-        out = {f"unet.{k}": p for k, p in self.unet.named_parameters()}
-        out.update({f"imnet.{k}": p
-                    for k, p in self.imnet.named_parameters()})
-        return out
+        return model_params(self.unet, self.imnet)
 
     def buffers(self) -> Dict[str, torch.Tensor]:
-        """``{"unet.<name>" | "imnet.<name>": buffer}``: BatchNorm's
-        running statistics and batch counters (none with GroupNorm)."""
-        out = {f"unet.{k}": b for k, b in self.unet.named_buffers()}
-        out.update({f"imnet.{k}": b for k, b in self.imnet.named_buffers()})
-        return out
+        return model_buffers(self.unet, self.imnet)
+
+
+def model_params(unet: nn.Module, imnet: nn.Module
+                 ) -> Dict[str, nn.Parameter]:
+    """``{"unet.<name>" | "imnet.<name>": parameter}``: the names a
+    checkpoint keeps them under."""
+    out = {f"unet.{k}": p for k, p in unet.named_parameters()}
+    out.update({f"imnet.{k}": p for k, p in imnet.named_parameters()})
+    return out
+
+
+def model_buffers(unet: nn.Module, imnet: nn.Module
+                  ) -> Dict[str, torch.Tensor]:
+    """``{"unet.<name>" | "imnet.<name>": buffer}``: BatchNorm's running
+    statistics and batch counters (none with GroupNorm)."""
+    out = {f"unet.{k}": b for k, b in unet.named_buffers()}
+    out.update({f"imnet.{k}": b for k, b in imnet.named_buffers()})
+    return out
 
 
 def build_models(cfg, lres_shape: Tuple[int, ...],

@@ -10,6 +10,11 @@ epoch, channel stats, coordinate extents, best eval), with the newest
 resumed run continues step-exact. Files load with ``weights_only=True``:
 plain tensors, numbers, strings, lists and dicts only.
 
+The eval CLIs read a run's directory with :func:`latest_checkpoint` and
+:func:`load_models` instead: the newest step's models alone, no
+optimizer, and nothing is created on the way (the JAX eval CLIs also
+read the newest step only).
+
 :func:`restore_exported` resumes from a JAX run instead: an ``.npz`` of
 ``scripts/export_torch_params.py`` with the optimizer state
 (``bridge.py``). Parameters, BatchNorm statistics, Adam's moments and
@@ -21,18 +26,32 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from space_time_pde_torch.bridge import (
     OPT_COUNTERS, load_exported, load_flax_params, optimizer_state_from_flax)
-from space_time_pde_torch.train.trainer import TrainState
+from space_time_pde_torch.train.trainer import (
+    TrainState, model_buffers, model_params)
 
-__all__ = ["CheckpointManager", "restore_exported", "resume"]
+__all__ = ["CheckpointManager", "EvalWeights", "eval_weights",
+           "latest_checkpoint", "load_models", "restore_exported", "resume"]
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
+
+
+def _steps(directory: str):
+    found = (_NAME.match(n) for n in os.listdir(directory))
+    return sorted(int(m.group(1)) for m in found if m)
+
+
+def _check_names(what: str, want, got) -> None:
+    if set(want) != set(got):
+        raise ValueError(f"checkpoint {what} do not match the model: "
+                         f"{sorted(set(want) ^ set(got))}")
 
 
 def _plain(v):
@@ -58,8 +77,7 @@ class CheckpointManager:
         return os.path.join(self.directory, f"ckpt_{step}.pt")
 
     def steps(self):
-        found = (_NAME.match(n) for n in os.listdir(self.directory))
-        return sorted(int(m.group(1)) for m in found if m)
+        return _steps(self.directory)
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()
@@ -96,16 +114,11 @@ class CheckpointManager:
         payload = torch.load(self._path(step), map_location="cpu",
                              weights_only=True)
         params = state.params()
-        if set(params) != set(payload["params"]):
-            raise ValueError(
-                "checkpoint parameters do not match the model: "
-                f"{sorted(set(params) ^ set(payload['params']))}")
+        _check_names("parameters", params, payload["params"])
         buffers = state.buffers()
         saved_buffers = payload.get("buffers", {})
-        if saved_buffers and set(buffers) != set(saved_buffers):
-            raise ValueError(
-                "checkpoint buffers do not match the model: "
-                f"{sorted(set(buffers) ^ set(saved_buffers))}")
+        if saved_buffers:
+            _check_names("buffers", buffers, saved_buffers)
         with torch.no_grad():
             for k, p in params.items():
                 p.copy_(payload["params"][k])
@@ -122,6 +135,78 @@ class CheckpointManager:
         state.step = int(payload["step"])
         state.generator.set_state(payload["generator"])
         return state, payload["extra"]
+
+
+def latest_checkpoint(directory: str) -> Dict[str, Any]:
+    """The newest ``ckpt_<step>.pt`` of ``directory`` as saved (tensors
+    on the CPU). Reads only: a missing directory, or one that holds no
+    checkpoint, raises ``FileNotFoundError`` naming it and is left as it
+    was."""
+    path = os.path.abspath(directory)
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"no checkpoint directory {path}")
+    steps = _steps(path)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint found in {path}")
+    return torch.load(os.path.join(path, f"ckpt_{steps[-1]}.pt"),
+                      map_location="cpu", weights_only=True)
+
+
+def load_models(payload: Dict[str, Any], unet: torch.nn.Module,
+                imnet: torch.nn.Module) -> Tuple[int, Dict[str, Any]]:
+    """Copy the parameters and buffers (BatchNorm's running statistics
+    and counters) of a checkpoint that :func:`latest_checkpoint` read
+    into ``unet`` and ``imnet``, wherever they live. Names and shapes
+    must match the models' exactly (``ValueError`` naming the keys
+    otherwise). Returns (step, extras)."""
+    params, buffers = model_params(unet, imnet), model_buffers(unet, imnet)
+    saved = {**payload["params"], **payload.get("buffers", {})}
+    _check_names("parameters", params, payload["params"])
+    _check_names("buffers", buffers, payload.get("buffers", {}))
+    bad = sorted(k for k, t in {**params, **buffers}.items()
+                 if tuple(t.shape) != tuple(saved[k].shape))
+    if bad:
+        raise ValueError(f"checkpoint shapes do not match the model: {bad}")
+    with torch.no_grad():
+        for k, t in {**params, **buffers}.items():
+            t.copy_(saved[k])
+    return int(payload["step"]), payload["extra"]
+
+
+@dataclass
+class EvalWeights:
+    """An eval CLI's model: its ``step``, its ``source`` (``ckpt=<abs
+    dir>`` or ``params=<path>``), the run's ``extra`` (``config``, the
+    channel statistics where saved, ``turb3d_args`` of a turb3d run) and
+    ``load(unet, imnet)``, which copies the weights in."""
+    step: int
+    source: str
+    extra: Dict[str, Any]
+    load: Callable[[torch.nn.Module, torch.nn.Module], Any]
+
+
+def eval_weights(ckpt: Optional[str] = None,
+                 params: Optional[str] = None) -> EvalWeights:
+    """The eval CLIs' ``--ckpt`` (a port run's checkpoint directory, its
+    newest step) or ``--params`` (a JAX run's ``.npz`` of
+    ``scripts/export_torch_params.py`` / ``export_torch_turb3d.py``)."""
+    if ckpt is not None:
+        payload = latest_checkpoint(ckpt)
+        return EvalWeights(
+            int(payload["step"]), f"ckpt={os.path.abspath(ckpt)}",
+            payload["extra"], lambda u, i: load_models(payload, u, i))
+    exported = load_exported(params)
+
+    def load(unet, imnet):
+        load_flax_params(unet, exported["params"]["unet"],
+                         exported["batch_stats"])
+        load_flax_params(imnet, exported["params"]["imnet"])
+
+    extra = {k: exported[k] for k in ("config", "channel_mean",
+                                      "channel_std")}
+    if "turb3d_args" in exported["meta"]:
+        extra["turb3d_args"] = exported["meta"]["turb3d_args"]
+    return EvalWeights(exported["step"], f"params={params}", extra, load)
 
 
 def restore_exported(state: TrainState, path: str

@@ -52,14 +52,22 @@ Phases (any failure raises and exits non-zero):
    max|ref|`` (see below for why the absolute part scales);
 8. one flagship training step against the JAX-CPU reference of
    ``scripts/export_torch_train_ref.py`` (same seeded weights, same
-   batch): the loss terms within LOSS_RTOL of JAX's float32, and every
-   gradient leaf against the float64 recomputation, point by point, at
-   most STEP_SLACK times as far as JAX's own float32 gradients (below);
+   batch), run as the train CLIs run it on a card: through the CUDA
+   graph of ``CapturedStep`` (its eager warm-up dispatch, the state put
+   back, then the capture's replay under a device trace, which must show
+   each jet kernel launched once; ``captured_step_once``, as phases 14,
+   B, I and M): the loss terms within LOSS_RTOL of JAX's float32, and
+   every gradient leaf against the float64 recomputation, point by
+   point, at most STEP_SLACK times as far as JAX's own float32 gradients
+   (below);
 9. the training path end to end: ``train_torch.main`` with the flagship's
    model and loss flags on a Taylor–Green field made here, 2 epochs x
-   8 steps (``--inner_steps 8``), then a resume that continues at epoch
-   2; the jet kernels' launch counts of the first run alone, finite
-   losses, the resumed step count, s/step and points/s;
+   8 steps (``--inner_steps 8``; the captured step, its first dispatch
+   the eager warm-up), then a resume that continues at epoch 2; the
+   launch counts of the first run alone, from a device trace of it
+   (``traced_path``: the wrappers count the launches made from Python,
+   and a graph replay makes none), finite losses, the resumed step
+   count, s/step and points/s (traced);
 
 and the turb3d stack (the ``r5_turb3d_200x_big`` recipe: UNet4d, 16
 corners):
@@ -214,11 +222,24 @@ O. the eval CLIs on checkpoint directories (``--ckpt``), each run's
    window 0 bit for bit against ``make_dense_decoder`` over models built
    at the eval grid and given the run's weights (the live state; phase
    F's rank 0 file through a plain ``torch.load``);
+P. the captured step (``CapturedStep``: one CUDA graph a dispatch, the
+   train CLIs' step on a card) against the eager step, for rb2d and
+   turb3d under f32 and ``--use_bf16 --pde_bf16``, at 1 and 8 steps a
+   dispatch: 4 dispatches (3 at 8 steps) from the same seeded state on
+   the same seeded batches; two eager runs agree bit for bit (checked at
+   1 step a dispatch), so every parameter, moment, counter and metric
+   must too; one dispatch of non-finite batches leaves the parameters
+   and moments untouched and advances ``notfinite_count`` on the device;
+   s/step of both, untraced; then one traced dispatch of each (of the
+   captured step alone at 8 steps a dispatch): its jet launches (graph
+   replays included) and the idle share, 1 - the device's busy time /
+   the wall time, both of that traced dispatch;
 
 and last, one JSON line of the eight kernels (the four f32 kernels and
 the four bf16 instantiations; ``path``: eval, train or off_path;
 ``math``: tf32x3 for the f32 kernels (3xTF32 on the tensor cores), bf16
-for the bf16 ones; launches per path and per D; times, plain times and
+for the bf16 ones; launches per path and per D (on the train paths,
+the device trace's count); times, plain times and
 bounds at D = 4, and at D = 3 under ``d3``: ``bound_ms`` against the
 kernel's own arithmetic, ``bound_f32_ms`` against f32 FFMA), then the
 status line.
@@ -230,6 +251,7 @@ import ctypes
 import hashlib
 import importlib.util
 import json
+import math
 import os
 import re
 import subprocess
@@ -383,6 +405,93 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# The kernel that each wrapper launches once a call, as a device trace
+# names it: the jets' head kernels; the decodes' one kernel, whose
+# template argument tells the entries apart.
+TRACE_MARKERS = {
+    "jet_fwd": r"jet_head_fwd_kernel<\d, float>",
+    "jet_bwd": r"jet_head_bwd_kernel<\d, float>",
+    "jet_fwd_bf16": r"jet_head_fwd_kernel<\d, __nv_bfloat16>",
+    "jet_bwd_bf16": r"jet_head_bwd_kernel<\d, __nv_bfloat16>",
+    "decode_blend_gather": r"decode_blend_kernel<true>",
+    "decode_blend": r"decode_blend_kernel<false>",
+    "decode_blend_gather_bf16": r"decode_bf16_kernel<false>",
+    "decode_blend_bf16": r"decode_bf16_kernel<true>",
+}
+_MARKED = r"jet_head_(fwd|bwd)_kernel|decode_(blend|bf16)_kernel"
+
+
+def traced(fn):
+    """``fn()`` under a device trace (``torch.profiler``, device activity
+    alone), ended by a synchronise: (its result, the launches of each
+    wrapper's kernel that the card ran, graph replays included, by
+    ``LAUNCHES`` key, the device's busy ms (the union of the intervals
+    of its kernels, copies and fills), the host's wall ms of the traced
+    call). A graph replay launches nothing from Python, so the wrappers'
+    own counts miss it; the trace does not."""
+    import warnings
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    # The raw events: building the profiler's Python events for the
+    # ~10^5 launches of a train CLI's run costs tens of seconds.
+    cuda = torch.autograd.DeviceType.CUDA
+    counts = dict.fromkeys(TRACE_MARKERS, 0)
+    spans, names = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        spans.append((e.start_ns(), e.end_ns()))
+        name = e.name()
+        names[name] = names.get(name, 0) + 1
+    for name, n in names.items():
+        hits = [k for k, pat in TRACE_MARKERS.items() if re.search(pat, name)]
+        if not hits and re.search(_MARKED, name):
+            raise SystemExit(f"the device trace names a wrapper's kernel "
+                             f"{name[:160]!r} that no marker reads")
+        for k in hits:
+            counts[k] += n
+    if not spans:
+        raise SystemExit("the device trace saw no kernel")
+    busy, end = 0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return out, counts, busy / 1e6, wall
+
+
+def traced_path(fn, what, keys):
+    """A main path's run under :func:`traced`: (its result, its launches
+    as the trace counts them). The wrappers' counts, set to 0 first, must
+    show every kernel of ``keys`` launched from Python at least once, and
+    the trace at least as many launches of each kernel as the wrappers
+    count."""
+    from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.ops import fused_query as fq
+
+    fj.reset_launches()
+    fq.reset_launches()
+    out, counts, _, _ = traced(fn)
+    wrapped = {**fj.LAUNCHES, **fq.LAUNCHES}
+    short = sorted(k for k in wrapped if counts[k] < wrapped[k])
+    unlaunched = sorted(k for k in keys if wrapped[k] < 1)
+    say(f"{what}: launches in the device trace {counts}; from Python "
+        f"(the wrappers' counts, no graph replay) {wrapped}")
+    if short or unlaunched:
+        raise SystemExit(f"{what}: the trace counts fewer launches than the "
+                         f"wrappers of {short}, or no wrapper launched "
+                         f"{unlaunched}")
+    return out, counts
 
 
 def check_points(rng, spatial, n):
@@ -837,23 +946,55 @@ def reference_step(step_ref, device, use_bf16=False, pde_bf16=False):
     return cfg, pde, opt, state, batch, ref, spec
 
 
-def train_step_vs_jax(device, step_ref):
-    """Phases 8, 14 and B: one training step against the JAX reference."""
-    from space_time_pde_torch.ops import fused_jet as fj
-    from space_time_pde_torch.train import make_loss_fn, make_train_step
+def written_tensors(state):
+    """{name: tensor} of everything a training step writes in place: the
+    parameters, the buffers, Adam's moments and the counters."""
+    from space_time_pde_torch.train import COUNTERS
 
-    cfg, pde, opt, state, batch, ref, spec = reference_step(step_ref, device)
-    step_fn = make_train_step(
-        make_loss_fn(cfg, state.unet, state.imnet, pde), opt)
-    fj.reset_launches()
-    # One optimizer step; its gradients stay in the parameters' .grad.
-    state, metrics = step_fn(state, batch)
+    out = {f"param/{k}": p.data for k, p in state.params().items()}
+    out.update({f"buffer/{k}": b for k, b in state.buffers().items()})
+    for m in ("mu", "nu"):
+        out.update({f"{m}/{k}": v for k, v in state.opt_state[m].items()})
+    out.update({f"counter/{k}": state.opt_state[k] for k in COUNTERS})
+    return out
+
+
+def captured_step_once(cfg, pde, opt, state, batch):
+    """One step of ``state`` on ``batch`` through the CUDA graph of the
+    train CLIs' step (``CapturedStep``): its first dispatch (the eager
+    warm-up) runs, the state is put back in place, and the next dispatch
+    captures and replays, under a device trace. Returns (state, metrics,
+    the replay's launches as the trace counts them); the gradients are
+    the replay's (``.grad``, in the graph's pool)."""
+    from space_time_pde_torch.train import CapturedStep, make_loss_fn
+
+    before = {k: t.clone() for k, t in written_tensors(state).items()}
+    step = CapturedStep(make_loss_fn(cfg, state.unet, state.imnet, pde),
+                        opt, 1, batch["lres"].device)
+    state, _ = step(state, batch)
     torch.cuda.synchronize()
-    if fj.LAUNCHES["jet_fwd"] < 1 or fj.LAUNCHES["jet_bwd"] < 1:
-        raise SystemExit(f"the training step did not run the jet kernels: "
-                         f"{fj.LAUNCHES}")
-    bad = check_step(state, metrics, ref, spec, f"jet launches "
-                     f"{dict(fj.LAUNCHES)}")
+    with torch.no_grad():
+        for k, t in written_tensors(state).items():
+            t.copy_(before[k])
+    state.step -= 1
+    (state, metrics), launches, _, _ = traced(lambda: step(state, batch))
+    if step.graph is None:
+        raise SystemExit("the reference step was not captured")
+    return state, metrics, {k: n for k, n in launches.items() if n}
+
+
+def train_step_vs_jax(device, step_ref):
+    """Phases 8, 14 and B: one training step against the JAX reference,
+    through the captured step (the train CLIs' on a card)."""
+    cfg, pde, opt, state, batch, ref, spec = reference_step(step_ref, device)
+    # One optimizer step; its gradients stay in the parameters' .grad.
+    state, metrics, launches = captured_step_once(cfg, pde, opt, state,
+                                                  batch)
+    if launches != {"jet_fwd": 1, "jet_bwd": 1}:
+        raise SystemExit(f"the replayed training step did not run the jet "
+                         f"kernels once each: {launches}")
+    bad = check_step(state, metrics, ref, spec, f"jet launches in the "
+                     f"replay's device trace {launches}")
     if bad:
         raise SystemExit(f"training step disagrees with JAX: {bad}")
 
@@ -970,14 +1111,9 @@ def train_path(card, driver, flags, log_dir, batch_points, what,
     the checkpoints against them). ``buffers``: between the two, a
     resume that trains no epoch must restore the first run's BatchNorm
     statistics bit for bit."""
-    from space_time_pde_torch.ops import fused_jet as fj
-    from space_time_pde_torch.ops import fused_query as fq
-
-    fj.reset_launches()
-    fq.reset_launches()
-    first = driver.main(flags + ["--epochs", "2"])
-    torch.cuda.synchronize()
-    launches = {**fj.LAUNCHES, **fq.LAUNCHES}
+    first, launches = traced_path(
+        lambda: driver.main(flags + ["--epochs", "2"]),
+        f"{what} train path (2 epochs x 8 steps)", ("jet_fwd", "jet_bwd"))
     runs = [first]
     if buffers:
         held = driver.main(flags + [
@@ -996,7 +1132,6 @@ def train_path(card, driver, flags, log_dir, batch_points, what,
         "--epochs", "3", "--resume", os.path.join(log_dir, "checkpoints")])
     torch.cuda.synchronize()
     runs.append(resumed)
-    say(f"{what} train path launches (2 epochs x 8 steps): {launches}")
     for name in ("jet_fwd", "jet_bwd"):
         if launches[name] < 1:
             raise SystemExit(f"{name} was not launched by the {what} train "
@@ -1515,28 +1650,17 @@ def bf16_step_vs_jax(device, pde_bf16=False):
     distances from phase 8's float64 leaves), and every leaf's rel-L2
     distance from float64 within STEP_SLACK times JAX bf16's for that
     leaf."""
-    from space_time_pde_torch.ops import fused_jet as fj
-    from space_time_pde_torch.ops import fused_query as fq
-    from space_time_pde_torch.train import make_loss_fn, make_train_step
-
     cfg, pde, opt, state, batch, ref, _ = reference_step(
         STEP_REF, device, use_bf16=True, pde_bf16=pde_bf16)
     with np.load(BF16_PDE_STEP_REF if pde_bf16 else BF16_STEP_REF,
                  allow_pickle=False) as z:
         ref16 = {k: z[k] for k in z.files}
     spec16 = json.loads(str(ref16["spec"]))
-    step_fn = make_train_step(
-        make_loss_fn(cfg, state.unet, state.imnet, pde), opt)
-    fj.reset_launches()
-    fq.reset_launches()
-    state, metrics = step_fn(state, batch)
-    torch.cuda.synchronize()
-    launches = {**fj.LAUNCHES, **fq.LAUNCHES}
-    jets, other = ("jet_fwd", "jet_bwd"), ("jet_fwd_bf16", "jet_bwd_bf16")
-    if pde_bf16:
-        jets, other = other, jets
-    if min(launches[k] for k in jets) < 1 or max(launches[k]
-                                                 for k in other):
+    state, metrics, launches = captured_step_once(cfg, pde, opt, state,
+                                                  batch)
+    jets = (("jet_fwd_bf16", "jet_bwd_bf16") if pde_bf16
+            else ("jet_fwd", "jet_bwd"))
+    if launches != dict.fromkeys(jets, 1):
         raise SystemExit(f"the bf16 step did not run the {jets} kernels "
                          f"alone: {launches}")
     # Phase 8's float64 leaves and scales, JAX bf16's terms and needs.
@@ -1561,9 +1685,6 @@ def bf16_train_clis(card, pde_bf16=False, evaluate=False):
     (f32 under ``--use_bf16`` alone, bf16 with ``--pde_bf16``) and the
     bf16 gather decode (the epoch eval). ``evaluate``: phase O2 on each
     run's checkpoints, its launches under ``<family>_<tag>_ckpt_eval``."""
-    from space_time_pde_torch.ops import fused_jet as fj
-    from space_time_pde_torch.ops import fused_query as fq
-
     paths = {}
     extra = ["--use_bf16", "true"] + ["--pde_bf16", "true"] * pde_bf16
     jets, other = ("jet_fwd", "jet_bwd"), ("jet_fwd_bf16", "jet_bwd_bf16")
@@ -1572,11 +1693,9 @@ def bf16_train_clis(card, pde_bf16=False, evaluate=False):
     policy = f"policy=bf16 (jet {'bf16' if pde_bf16 else 'f32'})"
 
     def train(name, driver, flags, points):
-        fj.reset_launches()
-        fq.reset_launches()
-        res = driver.main(flags + extra + ["--epochs", "2"])
-        torch.cuda.synchronize()
-        paths[name] = {**fj.LAUNCHES, **fq.LAUNCHES}
+        res, paths[name] = traced_path(
+            lambda: driver.main(flags + extra + ["--epochs", "2"]), name,
+            jets + ("decode_blend_gather_bf16",))
         losses = [e[k] for e in res["epochs"] for k in e
                   if k.endswith("loss")]
         sps = res["epochs"][1]["sec_per_step"]
@@ -1840,12 +1959,11 @@ def resume_from_jax(device, card):
     from space_time_pde_torch.bridge import (
         OPT_COUNTERS, load_exported, optimizer_state_from_flax,
         state_dict_from_flax)
-    from space_time_pde_torch.ops import fused_jet as fj
-    from space_time_pde_torch.ops import fused_query as fq
     from space_time_pde_torch.physics import get_pde_layer
     from space_time_pde_torch.train import (
         build_models, init_state, make_loss_fn, make_optimizer,
         make_train_step)
+    from space_time_pde_torch.train.optim import counter_values
     from space_time_pde_torch.utils.checkpoint import restore_exported
     from space_time_pde_torch.utils.config import Config
 
@@ -1864,7 +1982,7 @@ def resume_from_jax(device, card):
     modules = {"unet": unet, "imnet": imnet}
     want_opt = optimizer_state_from_flax(exported["opt_state"], modules)
     mismatched = [k for k in OPT_COUNTERS
-                  if state.opt_state[k] != want_opt[k]]
+                  if counter_values(state.opt_state)[k] != want_opt[k]]
     n_tensors = 0
     for name, module in modules.items():
         sd = state_dict_from_flax(module, exported["params"][name],
@@ -1878,11 +1996,11 @@ def resume_from_jax(device, card):
             n_tensors += 1
             if not torch.equal(v.cpu(), want_opt[m][k]):
                 mismatched.append(f"{m} {k}")
-    counters = {k: state.opt_state[k] for k in OPT_COUNTERS}
+    counters = counter_values(state.opt_state)
     say(f"resumed the exported JAX run at step {state.step}: {n_tensors} "
         f"tensors and the counters {counters} equal the export bit for "
         f"bit: {not mismatched}; lr at count "
-        f"{state.opt_state['count']} with --epochs {RESUME_EPOCHS}: "
+        f"{counters['count']} with --epochs {RESUME_EPOCHS}: "
         f"{float(opt.learning_rate(state.opt_state['count'])):.6g} (JAX "
         f"{spec['lr']:.6g})")
     if mismatched or state.step != spec["step"]:
@@ -1955,13 +2073,11 @@ def resume_from_jax(device, card):
     train_torch = load_driver("rb2d", "train_torch.py")
     with tempfile.TemporaryDirectory() as tmp:
         taylor_green_folder(tmp)
-        fj.reset_launches()
-        fq.reset_launches()
-        res = train_torch.main(rb2d_flags(tmp, os.path.join(tmp, "log")) + [
-            "--resume", OPT_ASSET, "--epochs", str(RESUME_EPOCHS),
-            "--run_epochs", "1", "--cliff_recovery", "false"])
-        torch.cuda.synchronize()
-        launches = {**fj.LAUNCHES, **fq.LAUNCHES}
+        res, launches = traced_path(lambda: train_torch.main(
+            rb2d_flags(tmp, os.path.join(tmp, "log")) + [
+                "--resume", OPT_ASSET, "--epochs", str(RESUME_EPOCHS),
+                "--run_epochs", "1", "--cliff_recovery", "false"]),
+            "the train CLI resumed from the export", ("jet_fwd", "jet_bwd"))
     epochs = res["epochs"]
     say(f"train CLI resumed from the export: started at step "
         f"{spec['step']} (epoch {res['start_epoch']}), ended at step "
@@ -1976,6 +2092,169 @@ def resume_from_jax(device, card):
         if launches[name] < 1:
             raise SystemExit(f"{name} was not launched by the resumed run")
     return launches
+
+
+# ------------------------------------------------------------------------
+# Phase P: the captured step (one CUDA graph a dispatch, the train CLIs'
+# step on a card) against the eager step, from the same state on the same
+# batches. Two eager runs agree bit for bit on the card (checked here at
+# one step a dispatch), so the captured step must too.
+
+def p_batches(batch, inner, n, seed):
+    """``n`` dispatches of host batches (``inner`` steps each, stacked
+    when ``inner`` > 1) around the reference batch: seeded points, the
+    low-res input moved by a seeded 1% of its largest value."""
+    rng = np.random.RandomState(seed)
+    ref = {k: v.cpu().numpy() for k, v in batch.items()}
+    scale = 0.01 * float(np.abs(ref["lres"]).max())
+    out = []
+    for _ in range(n):
+        steps = [{"lres": (ref["lres"] + scale * rng.randn(
+                      *ref["lres"].shape)).astype(np.float32),
+                  "point_coord": rng.rand(
+                      *ref["point_coord"].shape).astype(np.float32),
+                  "point_value": ref["point_value"]} for _ in range(inner)]
+        out.append(steps[0] if inner == 1 else
+                   {k: np.stack([s[k] for s in steps]) for k in steps[0]})
+    return out
+
+
+def p_run(state, start, step, batches):
+    """``step`` over ``batches`` from the state ``start`` (put back in
+    place first): (the written tensors' copies, the last metrics, the
+    wrappers' launch counts, the step count, the last dispatch's
+    seconds)."""
+    from space_time_pde_torch.ops import fused_jet as fj
+
+    with torch.no_grad():
+        for k, t in written_tensors(state).items():
+            t.copy_(start[k])
+    state.step = 0
+    fj.reset_launches()
+    for b in batches:
+        t = time.perf_counter()
+        state, metrics = step(state, b)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    return ({k: t.clone() for k, t in written_tensors(state).items()},
+            {k: v.clone() for k, v in metrics.items()}, dict(fj.LAUNCHES),
+            state.step, seconds)
+
+
+def captured_vs_eager(device, card):
+    """Phase P: for rb2d and turb3d, under f32 and ``--use_bf16
+    --pde_bf16``, 1 and 8 steps a dispatch: ``CapturedStep`` (its first
+    dispatch the eager warm-up, its second the capture) against the eager
+    steps from the same seeded state on the same seeded batches (4
+    dispatches at 1 step, 3 at 8), every parameter, buffer, moment,
+    counter and metric bit for bit, with the same step count; at 1 step a
+    dispatch two eager runs too. The jet wrappers count the eager steps'
+    launches and the captured step's warm-up alone. One dispatch of
+    non-finite batches leaves the parameters, buffers and moments
+    untouched and advances ``notfinite_count`` on the device. s/step of
+    the last dispatch of each (no trace); then one more dispatch of each
+    (of the captured step alone at 8 steps a dispatch) under a device
+    trace: its jet launches, graph replays included, and the idle share,
+    1 - the device's busy time / the wall time of that traced dispatch
+    (the tracer's own cost included), beside 1 - busy / the untraced
+    s/step."""
+    from space_time_pde_torch.train import (
+        CapturedStep, make_loss_fn, make_multi_step, make_train_step)
+
+    t_p = time.perf_counter()
+    upload = lambda b: {k: torch.from_numpy(v).to(device)
+                        for k, v in b.items()}
+    for recipe, ref_path in (("rb2d", STEP_REF),
+                             ("turb3d", TURB3D_STEP_REF)):
+        for policy in ("f32", "bf16_pde"):
+            bf16 = policy != "f32"
+            jets = (("jet_fwd_bf16", "jet_bwd_bf16") if bf16
+                    else ("jet_fwd", "jet_bwd"))
+            cfg, pde, opt, state, batch, _, _ = reference_step(
+                ref_path, device, use_bf16=bf16, pde_bf16=bf16)
+            start = {k: t.clone() for k, t in
+                     written_tensors(state).items()}
+            loss_fn = make_loss_fn(cfg, state.unet, state.imnet, pde)
+            for inner in (1, 8):
+                what = f"{recipe} {policy} at {inner} step(s) a dispatch"
+                host = p_batches(batch, inner, 4 if inner == 1 else 3,
+                                 seed=inner)
+                batches = [upload(b) for b in host]
+                eager = (make_train_step(loss_fn, opt) if inner == 1
+                         else make_multi_step(loss_fn, opt, inner))
+                runs = {"eager": p_run(state, start, eager, batches)}
+                if inner == 1:
+                    runs["eager twin"] = p_run(state, start, eager,
+                                               batches)
+                step = CapturedStep(loss_fn, opt, inner, device)
+                runs["captured"] = p_run(state, start, step, batches)
+                want, wm, _, ws, _ = runs["eager"]
+                for mode, (got, gm, gl, gs, _) in runs.items():
+                    moved = [k for k in want
+                             if not torch.equal(got[k], want[k])]
+                    moved += [f"metric {k}" for k in wm
+                              if not torch.equal(gm[k], wm[k])]
+                    wrapped = inner * (1 if mode == "captured"
+                                       else len(batches))
+                    if moved or gs != ws or any(gl[k] != wrapped
+                                                for k in jets):
+                        raise SystemExit(
+                            f"phase P, {what}: {mode} differs from eager: "
+                            f"{len(moved)} moved {moved[:6]}; wrapper "
+                            f"launches {gl} (want {wrapped} of {jets}); "
+                            f"step {gs} vs {ws}")
+                # One dispatch of non-finite batches through the graph.
+                held = {k: t.clone() for k, t in
+                        written_tensors(state).items()}
+                bad = {k: v.copy() for k, v in host[0].items()}
+                bad["lres"][...] = np.nan
+                state, _ = step(state, upload(bad))
+                torch.cuda.synchronize()
+                after = written_tensors(state)
+                changed = sorted(k for k in held
+                                 if not torch.equal(after[k], held[k]))
+                nf = int(after["counter/notfinite_count"]) - int(
+                    held["counter/notfinite_count"])
+                skipped = ["counter/last_finite", "counter/notfinite_count",
+                           "counter/total_notfinite"]
+                if not bool(held["counter/last_finite"]):
+                    skipped = skipped[1:]
+                if changed != skipped or nf != inner or \
+                        bool(after["counter/last_finite"]):
+                    raise SystemExit(
+                        f"phase P, {what}: a non-finite dispatch changed "
+                        f"{changed[:6]}, notfinite_count +{nf}")
+                # One traced dispatch of each (eager at 1 step a dispatch
+                # only: 8 eager steps under the tracer cost ~4 s): launches
+                # and idle share.
+                sec = {m: runs[m][4] / inner for m in ("eager", "captured")}
+                idle = []
+                for mode, fn in (("eager", eager), ("captured", step))[
+                        inner > 1:]:
+                    _, counts, busy, wall = traced(
+                        lambda: fn(state, batches[-1]))
+                    if [counts[k] for k in jets] != [inner] * 2:
+                        raise SystemExit(
+                            f"phase P, {what}: the {mode} dispatch's trace "
+                            f"shows jet launches {counts}, not {inner} "
+                            f"of {jets}")
+                    idle.append(
+                        f"{mode} {1 - busy / wall:.3f} (busy "
+                        f"{busy / inner:.3f} ms a step; 1 - busy / untraced "
+                        f"s/step {1 - busy / inner / (sec[mode] * 1e3):.3f})")
+                say(f"phase P {what}: captured == eager bit for bit "
+                    f"({len(want)} tensors, {len(wm)} metrics, step {ws}"
+                    + (", two eager runs equal" if inner == 1 else "")
+                    + f"; jet launches a dispatch in the device trace "
+                    f"{inner} each); non-finite dispatch: notfinite_count "
+                    f"+{nf}, the state otherwise untouched; s/step eager "
+                    f"{sec['eager']:.6f}, captured {sec['captured']:.6f} "
+                    f"(untraced); idle share of a traced dispatch "
+                    + ", ".join(idle) + f"; {card}")
+                del step, runs
+            del state
+            torch.cuda.empty_cache()
+    say(f"phase P took {time.perf_counter() - t_p:.1f} s")
 
 
 # ------------------------------------------------------------------------
@@ -2896,6 +3175,10 @@ def main():
                                       evaluate=True))  # + phase O2
     torch.cuda.empty_cache()
     say(f"phases K-N took {time.perf_counter() - t_kn:.1f} s")
+
+    # Phase P: the captured step against the eager step.
+    captured_vs_eager(device, card)
+    torch.cuda.empty_cache()
 
     # Phase O1: --ckpt against --params on the committed exports.
     t_o = time.perf_counter()

@@ -40,6 +40,13 @@ dtype.
 loss terms and the gradients of every step and raises
 ``FloatingPointError`` naming the first non-finite one.
 
+On a card a single-process run dispatches its ``--inner_steps`` steps as
+one CUDA graph (``train/trainer.py::CapturedStep``, the counterpart of
+the JAX driver's jitted ``lax.scan``): the first dispatch runs eagerly,
+the second captures, every later one replays. The step stays eager on
+the CPU, under ``--debug_nans`` and in launched worlds; the provenance
+line's ``step=`` says which.
+
 Several ranks (``space_time_pde_torch/parallel/layout.py``): under
 ``torchrun --nproc_per_node N`` the run is data-parallel over N ranks
 (``batch_size_per_gpu`` crops each, gradients averaged);
@@ -69,7 +76,7 @@ from space_time_pde_torch.data.dataset import RB2DataLoader
 from space_time_pde_torch.data.device_pipeline import DeviceSampler
 from space_time_pde_torch.data.prefetch import BatchPrefetcher
 from space_time_pde_torch.data.splits import check_train_files
-from space_time_pde_torch.parallel.layout import Layout
+from space_time_pde_torch.parallel.layout import Layout, step_text
 from space_time_pde_torch.physics.systems import (
     available_systems, get_pde_layer)
 from space_time_pde_torch.train import (
@@ -90,7 +97,7 @@ def _loader(cfg, filename):
         lres_interp=d.lres_interp, velonly=d.velonly)
 
 
-def _provenance(cfg, device, sampler, layout) -> str:
+def _provenance(cfg, device, sampler, layout, step_kind, inner) -> str:
     derivs = cfg.train.pde_derivs
     jet16 = (jet_compute_dtype(cfg) == torch.bfloat16
              and layout.n_space == 1)
@@ -116,7 +123,7 @@ def _provenance(cfg, device, sampler, layout) -> str:
             f"tf32_cudnn={torch.backends.cudnn.allow_tf32} jet={jet} "
             f"eval_decode={decode} batch_assembly="
             f"{'device' if sampler is not None else 'host'} "
-            f"{layout.describe()}")
+            f"step={step_text(step_kind, inner)} {layout.describe()}")
 
 
 @contextlib.contextmanager
@@ -234,14 +241,18 @@ def main(argv=None):
         sampler = DeviceSampler(ds, device)
         loss_fn = sampler.wrap_loss(loss_fn)
 
+    step_kind = layout.step_kind(args.debug_nans)
+
     def build_step(opt):
+        # Captured: a new graph (the next dispatch warms up and captures).
         return layout.make_step(cfg, imnet, pde_layer, loss_fn, opt, inner,
                                 args.debug_nans)
 
     step_fn = build_step(opt)
     # The eval runs the plain module (the same parameters either way).
     eval_fn = make_eval_fn(cfg, unet, imnet)
-    provenance = _provenance(cfg, device, sampler, layout)
+    provenance = _provenance(cfg, device, sampler, layout, step_kind,
+                             inner)
     if layout.is_main:
         print(provenance, flush=True)
 

@@ -42,6 +42,11 @@ runs the jet in bf16 too (the bf16 jet kernels at D = 4), except under
 ``--space_devices`` (the sharded jet is f32, as in JAX). The provenance
 line names the policy and the jet's dtype.
 
+On a card a single-process run dispatches its ``--inner_steps`` steps as
+one CUDA graph (``train/trainer.py::CapturedStep``): the first dispatch
+runs eagerly, the second captures, every later one replays; eager on the
+CPU and in launched worlds (the provenance line's ``step=``).
+
 Not carried over: the ``maybe_force_platform`` call and the 16-corner
 XLA:TPU compiler guard of the eval query (TPU workarounds).
 """
@@ -61,7 +66,7 @@ from space_time_pde_torch.data.dataset4d import Field4DDataset
 from space_time_pde_torch.data.device_pipeline import DeviceSampler
 from space_time_pde_torch.data.prefetch import BatchPrefetcher
 from space_time_pde_torch.data.splits import check_train_files
-from space_time_pde_torch.parallel.layout import Layout
+from space_time_pde_torch.parallel.layout import Layout, step_text
 from space_time_pde_torch.physics.systems import get_ns3d_pde_layer
 from space_time_pde_torch.train import (
     CliffDetector, build_models, init_state, jet_compute_dtype, make_eval_fn,
@@ -157,7 +162,7 @@ def make_config(args) -> Config:
     return cfg
 
 
-def _provenance(cfg, device, sampler, layout) -> str:
+def _provenance(cfg, device, sampler, layout, step_kind, inner) -> str:
     alpha_pde, pde_derivs = cfg.train.alpha_pde, cfg.train.pde_derivs
     bf16 = cfg.model.use_bf16
     jet16 = (jet_compute_dtype(cfg) == torch.bfloat16
@@ -182,6 +187,7 @@ def _provenance(cfg, device, sampler, layout) -> str:
             f"tf32_cudnn={torch.backends.cudnn.allow_tf32} "
             f"cudnn_in_step=False jet={jet} eval_decode={decode} "
             f"batch_assembly={'device' if sampler is not None else 'host'} "
+            f"step={step_text(step_kind, inner)} "
             f"{layout.describe()}")
 
 
@@ -237,13 +243,17 @@ def main(argv=None):
         sampler = DeviceSampler(ds, device)
         loss_fn = sampler.wrap_loss(loss_fn)
 
+    step_kind = layout.step_kind()
+
     def build_step(opt):
+        # Captured: a new graph (the next dispatch warms up and captures).
         return layout.make_step(cfg, imnet, pde_layer, loss_fn, opt, inner)
 
     step_fn = build_step(opt)
     # The eval runs the plain module (the same parameters either way).
     eval_fn = make_eval_fn(cfg, unet, imnet)
-    provenance = _provenance(cfg, device, sampler, layout)
+    provenance = _provenance(cfg, device, sampler, layout, step_kind,
+                             inner)
     if layout.is_main:
         print(provenance, flush=True)
 

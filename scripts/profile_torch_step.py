@@ -3,14 +3,25 @@
 Builds the step of ``space_time_pde_torch/assets/<recipe>_train_step_ref
 .npz`` as ``chip_smoke.py`` does (the seeded weights and batch that it
 holds against JAX: the rb2d flagship or the ``r5_turb3d_200x_big``
-recipe), times
-``--steps`` steps after ``--warm`` warm ones with a host clock ended by a
-device synchronise, then runs the same number under ``torch.profiler``
-and prints the kernels by summed device time, the kernel time a step
-and the idle share (1 - kernel time / unprofiled wall time), with the
-card's name and power limit. Needs a CUDA device.
+recipe) under ``--policy`` (``f32``; ``bf16``: ``--use_bf16``;
+``bf16_pde``: ``--use_bf16 --pde_bf16``), as ``--step eager`` (the
+steps launched from Python, ``make_multi_step``) or ``--step captured``
+(``CapturedStep``: one CUDA graph a dispatch, as the train CLIs run on a
+card), ``--inner`` steps a dispatch (the CLIs' ``--inner_steps``; 8 in
+the flagship recipe). It times ``--steps`` dispatches after ``--warm``
+warm ones (the captured step warms up and captures in those) with a
+host clock ended by a device synchronise, then runs ``--prof``
+dispatches under a device trace (``chip_smoke.traced``) and ``--prof``
+more under ``torch.profiler``, and prints the untraced s/step, the
+kernels' summed device time a step, the idle share of the traced
+dispatches (1 - the device's busy time, the union of its kernels',
+copies' and fills' intervals / their wall time, both from that trace)
+and the kernels by device time, with the card's name and power limit,
+and one JSON line. ``--all`` runs both families, the three
+policies and both step modes in one process. Needs a CUDA device.
 
-    python scripts/profile_torch_step.py --recipe turb3d
+    python scripts/profile_torch_step.py --recipe turb3d --step captured
+    python scripts/profile_torch_step.py --all
 
 ``--jets`` profiles the jet kernels alone instead: ``--steps`` calls of
 ``jet_fwd`` and then of ``jet_bwd`` on ``chip_smoke.py``'s phase 4 and 11
@@ -44,6 +55,7 @@ accumulator, and one (plain TF32).
 """
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -55,7 +67,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import torch
 
 from chip_smoke import (ASSET, ASSETS, N_JET, N_JET4, TURB3D_ASSET,
-                        cuda_ms, jet_inputs, load_imnet, reference_step)
+                        cuda_ms, jet_inputs, load_imnet, reference_step,
+                        traced)
 
 
 def device_rows(fn, reps):
@@ -308,6 +321,14 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--recipe", choices=("rb2d", "turb3d"),
                         default="turb3d")
+    parser.add_argument("--policy", choices=("f32", "bf16", "bf16_pde"),
+                        default="f32")
+    parser.add_argument("--step", choices=("eager", "captured"),
+                        default="captured")
+    parser.add_argument("--inner", type=int, default=8,
+                        help="steps a dispatch (--inner_steps)")
+    parser.add_argument("--all", action="store_true",
+                        help="both recipes x three policies x both steps")
     parser.add_argument("--jets", action="store_true",
                         help="profile jet_fwd / jet_bwd alone at D = 3, 4")
     parser.add_argument("--each", action="store_true",
@@ -321,8 +342,12 @@ def main(argv=None):
                         help="time these versions of csrc/fused_jet.cu")
     parser.add_argument("--mma-ceiling", action="store_true",
                         help="the tensor cores' mma.sync TF32 rate")
-    parser.add_argument("--warm", type=int, default=5)
-    parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--warm", type=int, default=3,
+                        help="warm dispatches (jets: calls)")
+    parser.add_argument("--steps", type=int, default=5,
+                        help="timed dispatches (jets: calls)")
+    parser.add_argument("--prof", type=int, default=2,
+                        help="profiled dispatches")
     parser.add_argument("--top", type=int, default=20)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -344,29 +369,72 @@ def main(argv=None):
         profile_jets(card, args.steps, args.top, args.each, args.dtype,
                      args.source)
         return
-    step, state, batch, _, _ = reference_step(
-        os.path.join(ASSETS, f"{args.recipe}_train_step_ref.npz"), device)
-    for _ in range(args.warm):
-        state, _ = step(state, batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        state, _ = step(state, batch)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / args.steps
-    torch.cuda.reset_peak_memory_stats()
+    cases = ([(r, p, m) for r in ("rb2d", "turb3d")
+              for p in ("f32", "bf16", "bf16_pde")
+              for m in ("eager", "captured")] if args.all
+             else [(args.recipe, args.policy, args.step)])
+    for recipe, policy, mode in cases:
+        profile_step(card, device, recipe, policy, mode, args.inner,
+                     args.warm, args.steps, args.prof, args.top)
+        torch.cuda.empty_cache()
 
-    def one_step():
+
+def profile_step(card, device, recipe, policy, mode, inner, warm, steps,
+                 prof, top):
+    """One (recipe, policy, step mode): s/step, kernel time a step and
+    the idle share, printed, and as one JSON line."""
+    from space_time_pde_torch.train import (
+        CapturedStep, make_loss_fn, make_multi_step, make_train_step)
+
+    cfg, pde, opt, state, batch, _, _ = reference_step(
+        os.path.join(ASSETS, f"{recipe}_train_step_ref.npz"), device,
+        use_bf16=policy != "f32", pde_bf16=policy == "bf16_pde")
+    loss_fn = make_loss_fn(cfg, state.unet, state.imnet, pde)
+    if inner > 1:
+        batch = {k: torch.stack([v] * inner) for k, v in batch.items()}
+    if mode == "captured":
+        step = CapturedStep(loss_fn, opt, inner, device)
+    else:
+        step = (make_multi_step(loss_fn, opt, inner) if inner > 1
+                else make_train_step(loss_fn, opt))
+
+    def dispatch():
         nonlocal state
         state, _ = step(state, batch)
 
-    rows, total = device_rows(one_step, args.steps)
-    print(f"{args.recipe} step on {card}: {wall * 1e3:.2f} ms/step "
-          f"unprofiled; {total:.2f} ms of kernel time a step; idle share "
-          f"{1 - total / (wall * 1e3):.3f}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    print_rows(rows, total, args.top, "step")
-
+    for _ in range(max(warm, 2)):
+        dispatch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        dispatch()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / (steps * inner)
+    torch.cuda.reset_peak_memory_stats()
+    _, _, busy, traced_wall = traced(
+        lambda: [dispatch() for _ in range(prof)])
+    rows, total = device_rows(dispatch, prof)
+    total /= inner
+    line = {"recipe": recipe, "policy": policy, "step": mode,
+            "inner": inner, "s_per_step": wall,
+            "kernel_ms_per_step": total,
+            "busy_ms_per_step": busy / (prof * inner),
+            "traced_ms_per_step": traced_wall / (prof * inner),
+            "idle_share": 1 - busy / traced_wall,
+            "launches_per_step": sum(r[1] for r in rows) / inner,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "card": card}
+    print(f"{recipe} {policy} {mode} step ({inner} a dispatch) on {card}: "
+          f"{wall:.6f} s/step untraced; {total:.3f} ms of kernel time a "
+          f"step; traced: {line['traced_ms_per_step']:.3f} ms a step, the "
+          f"device busy {line['busy_ms_per_step']:.3f} ms of it, idle share "
+          f"{line['idle_share']:.3f} (1 - busy / untraced s/step "
+          f"{1 - line['busy_ms_per_step'] / (wall * 1e3):.3f}); "
+          f"{line['launches_per_step']:.0f} kernel launches a step; peak "
+          f"memory {line['peak_gb']:.2f} GB", flush=True)
+    print_rows([(ms / inner, n / inner, key) for ms, n, key in rows],
+               total, top, "step")
+    print(json.dumps(line), flush=True)
 
 if __name__ == "__main__":
     main()

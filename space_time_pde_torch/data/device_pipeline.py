@@ -70,19 +70,32 @@ class DeviceSampler:
         self.lattice = torch.as_tensor(
             np.stack(mesh, -1).reshape(-1, self.dim).astype(np.float32),
             device=self.device)
+        # Made once: the device-side read builds no tensor from host
+        # numbers (a synchronous copy, which a CUDA graph cannot hold).
+        kw = dict(dtype=torch.float32, device=self.device)
+        self._sizes = torch.as_tensor(self.crop_sizes, **kw)
+        self._gsizes = torch.as_tensor(self.field_spatial, **kw)
+        self._offs = torch.as_tensor(corner_offsets(self.dim),
+                                     device=self.device)
 
     @staticmethod
     def supported(ds) -> bool:
         return getattr(ds, "lres_filter", "none") == "none"
 
+    def _host_field(self) -> torch.Tensor:
+        return torch.from_numpy(
+            np.ascontiguousarray(self._host_data).reshape(-1, self.n_ch))
+
     def _upload(self) -> torch.Tensor:
-        return torch.as_tensor(self._host_data.reshape(-1, self.n_ch),
-                               device=self.device)
+        # A copy on every device (on the CPU too), so that the host field
+        # stays what refresh() restores.
+        return self._host_field().to(self.device, copy=True)
 
     def refresh(self) -> torch.Tensor:
-        """Re-upload the field to a fresh device buffer (the driver's
-        recovery after non-finite steps with healthy parameters)."""
-        self.data = self._upload()
+        """Re-upload the field into the same device buffer (the driver's
+        recovery after non-finite steps with healthy parameters; a
+        captured step keeps reading that storage)."""
+        self.data.copy_(self._host_field())
         return self.data
 
     # -------------------------------------------------------- host side
@@ -104,17 +117,14 @@ class DeviceSampler:
               method: str) -> torch.Tensor:
         """Crop-normalised points ``[B, N, D]`` of crops at ``origins``
         ``[B, D]`` -> field values ``[B, N, C]``."""
-        kw = dict(dtype=torch.float32, device=self.device)
-        sizes = torch.as_tensor(self.crop_sizes, **kw)
-        gsizes = torch.as_tensor(self.field_spatial, **kw)
         s_idx = origins.to(torch.float32)[:, None, :] + pts_crop * (
-            sizes - 1.0)
-        p_glob = s_idx / (gsizes - 1.0)
+            self._sizes - 1.0)
+        p_glob = s_idx / (self._gsizes - 1.0)
         cell, frac = _locate(p_glob, self.field_spatial, 0.0, 1.0)
         if method == "nearest":
             node = cell.to(torch.int64) + (frac > 0.5)
             return self.data[(node * self._strides).sum(-1)]
-        offs = torch.as_tensor(corner_offsets(self.dim), device=self.device)
+        offs = self._offs
         cidx = cell.to(torch.int64)[..., None, :] + offs     # [B, N, K, D]
         feats = self.data[(cidx * self._strides).sum(-1)]    # [B, N, K, C]
         per_axis = torch.where(offs.bool(), frac[..., None, :],

@@ -30,6 +30,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from space_time_pde_torch.utils.constants import device_constant
+
 __all__ = ["NONLINEARITIES", "PIECEWISE_LINEAR", "ACTIVATION_CODES",
            "get_activation"]
 
@@ -49,7 +51,7 @@ def _low(x: torch.Tensor) -> bool:
 def _const(v: float, x: torch.Tensor) -> torch.Tensor:
     """The python constant ``v`` rounded to ``x``'s type, as jax's
     weak-typed scalars are."""
-    return torch.tensor(v, dtype=x.dtype, device=x.device)
+    return device_constant(v, x.dtype, x.device)
 
 
 def _leaky_relu(x, ns):

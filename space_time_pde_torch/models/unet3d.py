@@ -56,8 +56,8 @@ from space_time_pde_torch.models.policy import (
     Conv3d, ConvTranspose3d, widen)
 from space_time_pde_torch.parallel.collectives import all_reduce_sum
 
-__all__ = ["UNet3d", "ResBlock3D", "BatchNorm", "make_norm", "same_pad",
-           "set_norm_group"]
+__all__ = ["UNet3d", "ResBlock3D", "BatchNorm", "GroupNorm", "make_norm",
+           "same_pad", "set_norm_group"]
 
 BN_MOMENTUM = 0.9          # flax's: ra <- 0.9 ra + 0.1 stat
 
@@ -110,11 +110,27 @@ def set_norm_group(module: nn.Module, group) -> None:
             m.group = group
 
 
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` that also normalises a group of one value, as
+    flax's ``GroupNorm`` does (to 0, so the output is the offset):
+    ``F.group_norm`` refuses such an input in Python ("Expected more
+    than 1 value per channel when training", in eval mode too), while
+    the ATen op it calls computes it. So this calls the op directly,
+    with ``F.group_norm``'s arguments: on every other shape the output
+    is ``nn.GroupNorm``'s, bit for bit. It shows at batch 1 where the
+    bottleneck is one voxel with one channel a group (UNet4d nf 2 / mf 8
+    at igres (4, 4, 4, 4))."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.group_norm(x, self.num_groups, self.weight, self.bias,
+                                self.eps, torch.backends.cudnn.enabled)
+
+
 def make_norm(norm: str, ch: int) -> nn.Module:
     if norm == "batch":
         return BatchNorm(ch)
     if norm == "group":
-        return nn.GroupNorm(_num_groups(ch), ch, eps=1e-6)
+        return GroupNorm(_num_groups(ch), ch, eps=1e-6)
     raise ValueError(f"unknown norm {norm!r}; available: group, batch")
 
 

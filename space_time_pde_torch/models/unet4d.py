@@ -50,13 +50,14 @@ import torch.nn.functional as F
 
 from space_time_pde_torch.models.nonlinearities import get_activation
 from space_time_pde_torch.models.policy import Conv3d, product, widen
-from space_time_pde_torch.models.unet3d import _num_groups, same_pad
+from space_time_pde_torch.models.unet3d import (
+    GroupNorm, _num_groups, same_pad)
 
 __all__ = ["UNet4d", "Conv4d", "ResBlock4D"]
 
 
-def _group_norm(ch: int) -> nn.GroupNorm:
-    return nn.GroupNorm(_num_groups(ch), ch, eps=1e-6)
+def _group_norm(ch: int) -> GroupNorm:
+    return GroupNorm(_num_groups(ch), ch, eps=1e-6)
 
 
 class Conv4d(nn.Module):

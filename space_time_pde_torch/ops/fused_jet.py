@@ -67,11 +67,12 @@ import torch
 from space_time_pde_torch.models.nonlinearities import PIECEWISE_LINEAR
 from space_time_pde_torch.ops import _build
 from space_time_pde_torch.ops.fused_query import (
-    _MULTS, _ROUNDED, _WEIGHTS, _check, _flat_cells, cell_major_features,
-    pack_imnet_params)
+    _MULTS, _ROUNDED, _WEIGHTS, _check, _count, _flat_cells,
+    cell_major_features, pack_imnet_params)
 from space_time_pde_torch.ops.grid_interp import (
     _locate, corner_offsets, locate_dfrac)
 from space_time_pde_torch.ops.jet import multilinear_weight_jet
+from space_time_pde_torch.utils.constants import device_constant
 
 __all__ = [
     "LAUNCHES",
@@ -431,7 +432,7 @@ def jet_fwd(feats2, frac, packed, *, nf: int, slope: float = 0.01,
         ws.data_ptr(), n, c, dim, nf, out_dim, slope,
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(code, "jet_fwd" + sfx)
-    LAUNCHES["jet_fwd" + sfx] += 1
+    _count(LAUNCHES, "jet_fwd" + sfx)
     return out, ws
 
 
@@ -473,7 +474,7 @@ def jet_bwd(feats2, frac, packed, workspace, ybar, *, nf: int,
         n, c, dim, nf, out_dim, slope,
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(code, "jet_bwd" + sfx)
-    LAUNCHES["jet_bwd" + sfx] += 1
+    _count(LAUNCHES, "jet_bwd" + sfx)
     return dfeats, grads
 
 
@@ -581,8 +582,11 @@ def fused_query_jet(imnet, latent_grid, pts, xmin=0.0, xmax=1.0,
     value = out[:, 0]
     jac_f = out[:, 1:1 + dim].transpose(1, 2)                 # [BN, O, D]
     pair_block = {p: 1 + dim + i for i, p in enumerate(tri_pairs(dim))}
-    idx = [pair_block[(min(a, b_), max(a, b_))]
-           for a in range(dim) for b_ in range(dim)]
+    # The index as a device constant: a Python list would be copied to
+    # the card on every call.
+    idx = device_constant([pair_block[(min(a, b_), max(a, b_))]
+                           for a in range(dim) for b_ in range(dim)],
+                          torch.int64, out.device)
     hess_f = out[:, idx].reshape(-1, dim, dim, out.shape[-1]) \
         .permute(0, 3, 1, 2)                                  # [BN, O, D, D]
     dfrac = torch.cat(dfracs).to(value.dtype)

@@ -67,6 +67,7 @@ from space_time_pde_torch.models.nonlinearities import (
 from space_time_pde_torch.ops import _build
 from space_time_pde_torch.ops.grid_interp import (
     _locate, _strides, corner_offsets)
+from space_time_pde_torch.utils.constants import device_constant
 
 __all__ = [
     "LAUNCHES",
@@ -100,7 +101,7 @@ _BF16_PASS, _BF16_STAGE = 512, 16384
 _ROUNDED = ("wx_feat", "wx_rel", "wh1", "wh2", "wh3", "wh4", "w5")
 
 # Kernel launches per entry point (each bf16 instantiation apart); only the
-# CUDA branch of a wrapper adds to them.
+# CUDA branch of a wrapper adds to them, and not under graph capture.
 LAUNCHES = {"decode_blend_gather": 0, "decode_blend": 0,
             "decode_blend_gather_bf16": 0, "decode_blend_bf16": 0}
 
@@ -108,6 +109,14 @@ LAUNCHES = {"decode_blend_gather": 0, "decode_blend": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count(table, key) -> None:
+    """One launch of ``key``'s kernel. A launch recorded into a CUDA graph
+    (under capture) runs at each replay instead, which only a device
+    trace sees: it is not counted."""
+    if not torch.cuda.is_current_stream_capturing():
+        table[key] += 1
 
 
 def pack_imnet_params(imnet,
@@ -140,8 +149,8 @@ def pack_imnet_params(imnet,
     wx_all = torch.cat(wx_parts, dim=1)
     b_all = torch.cat(bs[:5])[None]
     wx_rel = wx_all[:dim]
-    offs = torch.as_tensor(corner_offsets(dim), dtype=torch.float32,
-                           device=wx_rel.device)
+    offs = device_constant(corner_offsets(dim), torch.float32,
+                           wx_rel.device)
     packed = {
         "wx_feat": wx_all[dim:],
         "wx_rel": wx_rel,
@@ -328,7 +337,7 @@ def cell_major_features(grid: torch.Tensor) -> torch.Tensor:
 
 def _flat_cells(cell: torch.Tensor, spatial) -> torch.Tensor:
     """``[N, D]`` cell indices -> ``[N]`` int32 flat ids (row-major)."""
-    strides = torch.as_tensor(_strides([s - 1 for s in spatial]),
+    strides = device_constant(_strides([s - 1 for s in spatial]),
                               device=cell.device)
     return (cell.to(torch.int64) * strides).sum(-1).to(torch.int32)
 
@@ -513,7 +522,7 @@ def _launch_bf16(entry, rows, frac, packed, tiles, *, nf, dim, c,
         dim, nf, out.shape[-1], ACTIVATION_CODES[activation],
         negative_slope, torch.cuda.current_stream(frac.device).cuda_stream)
     _build.check(code, entry)
-    LAUNCHES[entry] += 1
+    _count(LAUNCHES, entry)
     return out
 
 
@@ -565,7 +574,7 @@ def decode_blend_gather(table, cell_flat, frac, packed, *, nf: int,
         ACTIVATION_CODES[activation], negative_slope,
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(code, "decode_blend_gather")
-    LAUNCHES["decode_blend_gather"] += 1
+    _count(LAUNCHES, "decode_blend_gather")
     return out
 
 
@@ -611,7 +620,7 @@ def decode_blend(feats2, frac, packed, *, nf: int, n_corners: int,
         n, c, dim, nf, out.shape[-1], ACTIVATION_CODES[activation],
         negative_slope, torch.cuda.current_stream(device).cuda_stream)
     _build.check(code, "decode_blend")
-    LAUNCHES["decode_blend"] += 1
+    _count(LAUNCHES, "decode_blend")
     return out
 
 

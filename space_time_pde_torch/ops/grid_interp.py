@@ -24,6 +24,8 @@ import functools
 import numpy as np
 import torch
 
+from space_time_pde_torch.utils.constants import device_constant
+
 __all__ = [
     "corner_offsets",
     "gather_corner_feats",
@@ -41,18 +43,26 @@ def corner_offsets(dim: int) -> np.ndarray:
     return np.ascontiguousarray(grid.astype(np.int32))
 
 
+def _bounds(x, dim, dtype, device):
+    """``xmin`` / ``xmax`` (a number or one per axis, or a tensor: the
+    sharded query's shard bounds) as a ``[dim]`` tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype, device=device).expand(dim)
+    return device_constant(np.broadcast_to(np.asarray(x), (dim,)), dtype,
+                           device)
+
+
 def _locate(pts, spatial, xmin, xmax):
     """Map points in ``[xmin, xmax]`` to (cell [..., D] int32, frac
     [..., D]) with cell in [0, n-2] and frac in [0, 1]; out-of-domain
     points clamp to the boundary cell."""
     dim = len(spatial)
-    kw = dict(dtype=pts.dtype, device=pts.device)
-    sizes = torch.tensor(spatial, **kw)
-    xmin = torch.as_tensor(xmin, **kw).expand(dim)
-    xmax = torch.as_tensor(xmax, **kw).expand(dim)
+    sizes = device_constant(spatial, pts.dtype, pts.device)
+    xmin = _bounds(xmin, dim, pts.dtype, pts.device)
+    xmax = _bounds(xmax, dim, pts.dtype, pts.device)
     s = (pts - xmin) / (xmax - xmin) * (sizes - 1.0)
     s = torch.minimum(torch.maximum(s, torch.zeros_like(s)), sizes - 1.0)
-    hi = torch.tensor(spatial, dtype=torch.int32, device=pts.device) - 2
+    hi = device_constant([n - 2 for n in spatial], torch.int32, pts.device)
     cell = torch.clamp(torch.floor(s).to(torch.int32),
                        torch.zeros_like(hi), hi)
     frac = s - cell.to(pts.dtype)
@@ -66,10 +76,9 @@ def locate_dfrac(pts, spatial, xmin, xmax):
     through the JAX ``_locate`` (``jnp.clip`` splits a tie 0.5/0.5), so
     that both packages' jets agree on the domain faces."""
     dim = len(spatial)
-    kw = dict(dtype=pts.dtype, device=pts.device)
-    sizes = torch.tensor(spatial, **kw)
-    xmin = torch.as_tensor(xmin, **kw).expand(dim)
-    xmax = torch.as_tensor(xmax, **kw).expand(dim)
+    sizes = device_constant(spatial, pts.dtype, pts.device)
+    xmin = _bounds(xmin, dim, pts.dtype, pts.device)
+    xmax = _bounds(xmax, dim, pts.dtype, pts.device)
     s = (pts - xmin) / (xmax - xmin) * (sizes - 1.0)
     top = sizes - 1.0
     side = torch.where((s > 0) & (s < top), 1.0,
@@ -92,10 +101,10 @@ def gather_corner_feats(grid, cell):
     (corner order of :func:`corner_offsets`)."""
     spatial = grid.shape[:-1]
     dim = len(spatial)
-    offs = torch.as_tensor(corner_offsets(dim), device=grid.device,
-                           dtype=torch.int64)               # [K, D]
+    offs = device_constant(corner_offsets(dim), torch.int64,
+                           grid.device)                     # [K, D]
     corner_idx = cell.to(torch.int64)[:, None, :] + offs[None]  # [N, K, D]
-    strides = torch.as_tensor(_strides(spatial), device=grid.device)
+    strides = device_constant(_strides(spatial), device=grid.device)
     flat_idx = (corner_idx * strides).sum(-1)               # [N, K]
     return grid.reshape(-1, grid.shape[-1])[flat_idx]       # [N, K, C]
 
@@ -111,7 +120,7 @@ def grid_interp_coefficients(grid, pts, xmin=0.0, xmax=1.0):
             f"pts last dim {pts.shape[-1]} != grid spatial rank {dim}")
     cell, frac = _locate(pts, spatial, xmin, xmax)
     corner_feats = gather_corner_feats(grid, cell)
-    offs = torch.as_tensor(corner_offsets(dim), device=pts.device)
+    offs = device_constant(corner_offsets(dim), device=pts.device)
     offs_f = offs.to(frac.dtype)
     per_axis = torch.where(offs[None].bool(), frac[:, None, :],
                            1.0 - frac[:, None, :])

@@ -34,6 +34,7 @@ from torch.func import jvp, vmap
 
 from space_time_pde_torch.ops.grid_interp import (
     _locate, corner_offsets, gather_corner_feats, locate_dfrac)
+from space_time_pde_torch.utils.constants import device_constant
 
 __all__ = [
     "multilinear_weight_jet",
@@ -49,7 +50,7 @@ def multilinear_weight_jet(frac: torch.Tensor
     frac_a), d2w ``[N, K, D, D]`` (zero diagonal: w is multilinear);
     K = 2^D in :func:`corner_offsets` order."""
     dim = frac.shape[-1]
-    offs = torch.as_tensor(corner_offsets(dim), device=frac.device)
+    offs = device_constant(corner_offsets(dim), device=frac.device)
     sign = (2 * offs - 1).to(frac.dtype)                    # [K, D]
     per_axis = torch.where(offs[None].bool(), frac[:, None, :],
                            1.0 - frac[:, None, :])          # [N, K, D]
@@ -79,8 +80,7 @@ def decode_blend_jet(decoder_fn: Callable[[torch.Tensor], torch.Tensor],
     ``[N, D]`` -> (value ``[N, O]``, jac ``[N, O, D]``, hess
     ``[N, O, D, D]``)."""
     dim = frac.shape[-1]
-    offs = torch.as_tensor(corner_offsets(dim), dtype=frac.dtype,
-                           device=frac.device)
+    offs = device_constant(corner_offsets(dim), frac.dtype, frac.device)
     rel = frac[:, None, :] - offs[None]                     # [N, K, D]
 
     def dec_rel(r):

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from space_time_pde_torch.train.optim import counter_values, set_counters
 from space_time_pde_torch.train.trainer import (
     make_multi_step, make_train_step)
 
@@ -211,7 +212,8 @@ def replicate_state(state, mesh: Mesh):
     ts = _state_tensors(state)
     device = ts[0].device
     flat = torch.cat([t.reshape(-1).float() for t in ts])
-    counters = torch.tensor([float(state.opt_state[k]) for k in _COUNTERS]
+    held = counter_values(state.opt_state)
+    counters = torch.tensor([float(held[k]) for k in _COUNTERS]
                             + [float(state.step)], dtype=torch.float64,
                             device=device)
     dist.broadcast(flat, 0)
@@ -220,8 +222,9 @@ def replicate_state(state, mesh: Mesh):
     for t in ts:
         t.copy_(flat[off:off + t.numel()].view_as(t))
         off += t.numel()
-    for k, v in zip(_COUNTERS, counters.tolist()[:-1]):
-        state.opt_state[k] = int(v)
+    held.update({k: int(v) for k, v in zip(_COUNTERS,
+                                           counters.tolist()[:-1])})
+    set_counters(state.opt_state, held)
     state.step = int(counters[-1])
     lo, hi = flat.clone(), flat.clone()
     dist.all_reduce(lo, op=dist.ReduceOp.MIN)

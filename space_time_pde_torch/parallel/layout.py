@@ -14,7 +14,13 @@ each, and :class:`Layout` applies the JAX drivers' rules to it:
   x n_data`` crops) from the seed and keeps its block, so a run of N
   ranks sees the batches of the JAX driver on N devices;
 - the space size must divide the world;
-- batches are assembled on the device only when the space size is 1.
+- batches are assembled on the device only when the space size is 1;
+- the step is one CUDA graph a dispatch (``train/trainer.py::
+  CapturedStep``) on a single-process run on a card, and eager in three
+  cases, each a rule and never a fallback: the CPU, ``--debug_nans``
+  (checks on the host after each phase, as JAX's ``jax_debug_nans`` also
+  gives up the compiled step), and a launched world (its collectives
+  run on the host).
 
 Rank 0 alone writes logs, checkpoints and the eval line; every rank
 takes the same non-finite and cliff decisions from the all-reduced
@@ -38,9 +44,18 @@ from space_time_pde_torch.parallel.dp_sp import (
     dp_sp_block, make_dp_sp_batch, make_dp_sp_loss_fn,
     make_dp_sp_train_step, stack_dp_sp_batches)
 from space_time_pde_torch.train.trainer import (
-    make_multi_step, make_train_step)
+    CapturedStep, make_multi_step, make_train_step)
 
-__all__ = ["Layout"]
+__all__ = ["Layout", "step_text"]
+
+
+def step_text(kind: str, inner: int) -> str:
+    """The train CLIs' provenance ``step=``: captured (one CUDA graph a
+    dispatch of ``inner`` steps) or eager, with the rule that keeps it
+    eager (:meth:`Layout.step_kind`)."""
+    if kind == "captured":
+        return f"captured (CUDA graph, {inner} step(s) a dispatch)"
+    return kind
 
 
 class Layout:
@@ -111,11 +126,26 @@ class Layout:
         """Rank 0's state on every rank, checked (``dp.replicate_state``)."""
         return replicate_state(state, self.mesh) if self.launched else state
 
+    def step_kind(self, debug_nans: bool = False) -> str:
+        """``"captured"`` where the step runs as one CUDA graph a
+        dispatch, else ``"eager (<the rule>)"``."""
+        if self.device.type != "cuda":
+            return "eager (cpu)"
+        if debug_nans:
+            return "eager (--debug_nans)"
+        if self.launched:
+            return "eager (launched world: host-side collectives)"
+        return "captured"
+
     def make_step(self, cfg, imnet, pde_layer, loss_fn, opt, inner: int,
                   debug_nans: bool = False) -> Callable:
         """The step for this layout: ``loss_fn`` (the single-device loss,
         possibly device-sampled) whole or data-parallel; the data x space
-        loss on :attr:`encoder` when the space size exceeds 1."""
+        loss on :attr:`encoder` when the space size exceeds 1; captured
+        (:class:`CapturedStep`) where :meth:`step_kind` says so, eager
+        otherwise; both take device batches."""
+        if self.step_kind(debug_nans) == "captured":
+            return CapturedStep(loss_fn, opt, inner, self.device)
         if self.n_space > 1:
             sp_loss = make_dp_sp_loss_fn(cfg, self.encoder, imnet, pde_layer,
                                          self.mesh, self.sharded)

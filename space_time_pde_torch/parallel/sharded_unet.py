@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 
 from space_time_pde_torch.models.policy import Conv3d
-from space_time_pde_torch.models.unet3d import BatchNorm, UNet3d
+from space_time_pde_torch.models.unet3d import BatchNorm, GroupNorm, UNet3d
 from space_time_pde_torch.parallel.halo_conv import (
     HaloConv3d, ShardedGroupNorm)
 
@@ -54,7 +54,7 @@ def shard_layers(module: nn.Module, mesh, conv4d=None) -> None:
                 setattr(module, name, conv4d(child, mesh))
         elif type(child) is Conv3d and child.kernel_size[-1] > 1:
             setattr(module, name, _halo_conv(child, mesh))
-        elif type(child) is nn.GroupNorm:
+        elif type(child) in (nn.GroupNorm, GroupNorm):
             setattr(module, name, ShardedGroupNorm(
                 child.num_groups, child.num_channels, mesh, child.eps))
         elif isinstance(child, BatchNorm):

@@ -27,6 +27,8 @@ import torch
 from sympy.core.function import AppliedUndef
 from torch.func import jvp
 
+from space_time_pde_torch.utils.constants import device_constant
+
 __all__ = ["PDELayer"]
 
 MultiIndex = Tuple[int, ...]  # sorted coordinate-axis indices, e.g. (0,), (2,2)
@@ -250,19 +252,14 @@ class PDELayer:
     def _physical_coords(self, coords):
         if self._coord_scales is None:
             return coords
-        return coords * torch.as_tensor(self._coord_scales,
-                                        dtype=coords.dtype,
-                                        device=coords.device)
+        return coords * device_constant(self._coord_scales, coords.dtype,
+                                        coords.device)
 
     def _scales(self, like):
-        kw = dict(dtype=like.dtype, device=like.device)
-        stds = (torch.as_tensor(self._out_stds, **kw)
-                if self._out_stds is not None else None)
-        means = (torch.as_tensor(self._out_means, **kw)
-                 if self._out_means is not None else None)
-        scales = (torch.as_tensor(self._coord_scales, **kw)
-                  if self._coord_scales is not None else None)
-        return stds, means, scales
+        const = lambda v: (None if v is None
+                           else device_constant(v, like.dtype, like.device))
+        return (const(self._out_stds), const(self._out_means),
+                const(self._coord_scales))
 
     def _physical(self, var, alpha, val, phys_primal, stds, scales):
         """One derivative tensor in physical units."""

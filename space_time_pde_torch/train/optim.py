@@ -22,8 +22,20 @@ sit):
   bad steps in a row have been seen, the update is applied anyway
   (optax's "give up"), and any finite step resets the streak.
 
-The state is plain tensors in a dict, so a checkpoint restores it
-exactly. Parameters are updated in place.
+The state is a dict of tensors on the parameters' device, as optax holds
+it: the moments, and the counters ``count``, ``notfinite_count`` and
+``total_notfinite`` (0-d int32) and ``last_finite`` (0-d bool). A step
+decides on the device, in optax's op order: the clip is ``where(norm <
+clip, g, (g / norm) * clip)`` (``clip_by_global_norm``), the update is
+computed whatever the gradients hold, and ``where(apply, new, old)``
+keeps the parameters, the moments and the count on a skipped step
+(``apply_if_finite``'s ``lax.cond``); the learning rate and the bias
+corrections come from the device count. So a step makes no host sync
+and reads no number that changes from step to step on the host, and a
+CUDA graph of it stays right under replay (``train/trainer.py``).
+Parameters and state are updated in place; a checkpoint reads the
+counters as Python numbers (:func:`counter_values`) and restores them in
+place (:func:`set_counters`).
 """
 
 from __future__ import annotations
@@ -32,17 +44,48 @@ import math
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-__all__ = ["Optimizer", "global_norm", "make_optimizer"]
+__all__ = ["COUNTERS", "Optimizer", "counter_values", "global_norm",
+           "make_optimizer", "set_counters"]
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 MAX_CONSECUTIVE_ERRORS = 100
+COUNTERS = ("count", "notfinite_count", "last_finite", "total_notfinite")
+# The decays as f32 values (optax's weak-typed f32 constants), read as
+# Python floats for the float64 power below.
+_B1_F32, _B2_F32 = float(np.float32(B1)), float(np.float32(B2))
 
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm)."""
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+
+
+def _decay_power(decay_f32: float, count: torch.Tensor) -> torch.Tensor:
+    """``decay ** count`` in f32 for the 0-d int ``count``: the power of
+    the f32 decay in float64, rounded to f32 once. That is XLA's f32
+    ``pow`` on the CPU at every count up to 399 (where the optax
+    reference's bias corrections run in the tests); torch's f32 ``pow``
+    of a tensor exponent misses it at some counts."""
+    return torch.pow(decay_f32, count.to(torch.float64)).to(torch.float32)
+
+
+def counter_values(state: Dict) -> Dict[str, object]:
+    """The counters that ``state`` holds, as Python numbers (one host
+    read each; for checkpoints and exports, never inside a step)."""
+    return {k: (bool if k == "last_finite" else int)(state[k])
+            for k in COUNTERS if k in state}
+
+
+@torch.no_grad()
+def set_counters(state: Dict, values) -> None:
+    """Write ``values`` (Python numbers or 0-d tensors, by counter name)
+    into ``state``'s counter tensors in place, so that a CUDA graph that
+    reads them sees the new values."""
+    for k in COUNTERS:
+        state[k].fill_(values[k])
 
 
 @dataclass
@@ -56,59 +99,64 @@ class Optimizer:
             raise ValueError(f"cosine schedule needs positive decay_steps, "
                              f"got {self.decay_steps}")
 
-    def learning_rate(self, count: int) -> torch.Tensor:
-        """The schedule at ``count`` (f32, as optax computes it)."""
-        init = torch.tensor(self.lr, dtype=torch.float32)
+    def learning_rate(self, count) -> torch.Tensor:
+        """The schedule at ``count`` (f32, as optax computes it): an int,
+        or the state's 0-d count tensor, whose device the result takes
+        (no host copy)."""
+        if not isinstance(count, torch.Tensor):
+            count = torch.tensor(count, dtype=torch.int32)
+        init = torch.full((), self.lr, dtype=torch.float32,
+                          device=count.device)
         if self.decay_steps is None:
             return init
-        c = torch.tensor(float(min(count, self.decay_steps)),
-                         dtype=torch.float32)
+        c = torch.clamp(count, max=self.decay_steps).to(torch.float32)
         cosine = 0.5 * (1 + torch.cos(math.pi * c / float(self.decay_steps)))
         return init * cosine
 
     def init(self, params: Dict[str, torch.Tensor]) -> Dict:
+        device = next(iter(params.values())).device
+        zero = lambda: torch.zeros((), dtype=torch.int32, device=device)
         return {
-            "count": 0,
+            "count": zero(),
             "mu": {k: torch.zeros_like(p) for k, p in params.items()},
             "nu": {k: torch.zeros_like(p) for k, p in params.items()},
-            "notfinite_count": 0,
-            "last_finite": True,
-            "total_notfinite": 0,
+            "notfinite_count": zero(),
+            "last_finite": torch.ones((), dtype=torch.bool, device=device),
+            "total_notfinite": zero(),
         }
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor],
              grads: Dict[str, torch.Tensor], state: Dict) -> torch.Tensor:
         """Update ``params`` and ``state`` in place from ``grads``;
-        returns the gradients' global norm (a 0-d tensor). One host sync
-        per step: the finiteness test decides whether to apply."""
+        returns the gradients' global norm (a 0-d tensor). Every decision
+        is a device-side select: no host sync."""
         norm = global_norm(grads.values())
-        finite = bool(torch.stack([torch.isfinite(g).all()
-                                   for g in grads.values()]).all())
-        state["notfinite_count"] = (0 if finite
-                                    else state["notfinite_count"] + 1)
-        state["last_finite"] = finite
-        if not finite:
-            state["total_notfinite"] += 1
-        if not finite and \
-                state["notfinite_count"] <= MAX_CONSECUTIVE_ERRORS:
-            return norm
-        clipping = self.clip > 0 and not bool(norm < self.clip)
-        lr = self.learning_rate(state["count"]).to(norm.device)
-        count = state["count"] + 1
-        bc1 = 1 - torch.tensor(B1, dtype=torch.float32) ** count
-        bc2 = 1 - torch.tensor(B2, dtype=torch.float32) ** count
-        bc1, bc2 = bc1.to(norm.device), bc2.to(norm.device)
+        finite = torch.stack([torch.isfinite(g).all()
+                              for g in grads.values()]).all()
+        bad = state["notfinite_count"]
+        bad.copy_(torch.where(finite, torch.zeros_like(bad), bad + 1))
+        state["total_notfinite"].add_((~finite).to(torch.int32))
+        state["last_finite"].copy_(finite)
+        apply = finite | (bad > MAX_CONSECUTIVE_ERRORS)
+        count = state["count"]
+        lr = self.learning_rate(count)
+        new_count = count + 1
+        bc1 = 1 - _decay_power(_B1_F32, new_count)
+        bc2 = 1 - _decay_power(_B2_F32, new_count)
+        trigger = norm < self.clip if self.clip > 0 else None
         for k, p in params.items():
             g = grads[k]
-            if clipping:
-                g = (g / norm) * self.clip
+            if trigger is not None:
+                g = torch.where(trigger, g, (g / norm) * self.clip)
             mu, nu = state["mu"][k], state["nu"][k]
-            mu.copy_((1 - B1) * g + B1 * mu)
-            nu.copy_((1 - B2) * (g * g) + B2 * nu)
-            upd = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
-            p.add_(upd * -lr)
-        state["count"] = count
+            mu_new = (1 - B1) * g + B1 * mu
+            nu_new = (1 - B2) * (g * g) + B2 * nu
+            upd = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + EPS)
+            p.copy_(torch.where(apply, p + upd * -lr, p))
+            mu.copy_(torch.where(apply, mu_new, mu))
+            nu.copy_(torch.where(apply, nu_new, nu))
+        count.copy_(torch.where(apply, new_count, count))
         return norm
 
 

@@ -15,9 +15,18 @@ nested ``torch.func.jvp`` towers through the query. The jets need a
 piecewise-linear activation and derivatives of order <= 2; otherwise
 the towers run.
 
-PyTorch runs eagerly, so there is no jit: a step is ``backward`` and an
-in-place optimizer update, and ``make_multi_step`` is a loop (the JAX
-package's ``lax.scan`` was a dispatch workaround). With
+A step is ``backward`` and an in-place optimizer update whose decisions
+are device-side selects (``train/optim.py``); ``make_multi_step`` runs
+``n_inner`` of them over batches stacked on a leading axis. Run from
+Python they are thousands of eager launches a step. The counterpart of
+the JAX package's ``jax.jit`` of the step and ``lax.scan`` of
+``make_multi_step`` is :class:`CapturedStep`: the same ``n_inner``
+steps, captured once in a ``torch.cuda.CUDAGraph`` over static batch
+buffers (forward, backward through the jet kernels, optimizer) and
+replayed as one device program a dispatch, the host never waiting
+inside it. Its first dispatch runs eagerly (the run's own steps,
+counted), the second captures; capture executes nothing, so the
+steps, batches and schedule equal the eager run's. With
 ``norm="batch"`` the loss runs the encoder in train mode (batch
 statistics; the running averages move in the forward, so a step that
 the optimizer skips keeps them, as JAX keeps ``batch_stats`` on a
@@ -56,10 +65,10 @@ from space_time_pde_torch.ops.fused_query import (
 from space_time_pde_torch.ops.jet import query_local_implicit_grid_jet
 from space_time_pde_torch.train.optim import Optimizer
 
-__all__ = ["TrainState", "build_models", "flax_init_", "init_state",
-           "jet_compute_dtype", "make_loss_fn", "make_train_step",
-           "make_multi_step", "make_eval_fn", "model_buffers",
-           "model_params"]
+__all__ = ["CapturedStep", "TrainState", "build_models", "flax_init_",
+           "init_state", "jet_compute_dtype", "make_loss_fn",
+           "make_train_step", "make_multi_step", "make_eval_fn",
+           "model_buffers", "model_params"]
 
 PDE_DERIVS = ("jet", "jet_jnp", "tower")
 
@@ -345,6 +354,94 @@ def make_multi_step(loss_fn, opt: Optimizer, n_inner: int,
         return state, metrics
 
     return step
+
+
+class CapturedStep:
+    """``n_inner`` optimizer steps as one device program a dispatch:
+    ``step(state, batch) -> (state, metrics of the last step)``, the
+    counterpart of the JAX package's jitted ``make_train_step`` /
+    ``make_multi_step`` (``lax.scan``). CUDA only.
+
+    ``batch`` is a dict of device tensors, as the eager steps take it:
+    :func:`make_train_step`'s (``n_inner`` 1) or :func:`make_multi_step`'s
+    (``[n_inner, ...]`` stacked). It is copied into static buffers made
+    at the first call, which the body, the same steps as
+    :func:`make_multi_step`'s, reads. The first dispatch runs the body
+    eagerly, on the stream the capture uses; the second captures it once
+    in a ``torch.cuda.CUDAGraph`` and replays it, and so does every later
+    one. Capture executes nothing, so the run's steps and schedule equal
+    the eager run's, and ``state.step`` moves by ``n_inner`` a replay.
+    The kernel wrappers count the warm-up's launches only
+    (``LAUNCHES``): a replay's are seen by a device trace alone.
+
+    What the graph needs, which the rest of the step provides: the
+    optimizer's state on the device and updated in place
+    (``train/optim.py``); no tensor built from host numbers in the step
+    (``utils/constants.py::device_constant``); parameters, buffers and
+    the device sampler's field written in place by restores and
+    refreshes; the gradients (``p.grad``), the metrics and every
+    temporary live in the graph's pool. A capture that fails raises."""
+
+    def __init__(self, loss_fn, opt: Optimizer, n_inner: int, device):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"CapturedStep needs a CUDA device, not "
+                             f"{self.device}; the eager steps run on the "
+                             f"CPU")
+        self.n_inner = n_inner
+        self._step = (make_train_step(loss_fn, opt) if n_inner == 1 else
+                      make_multi_step(loss_fn, opt, n_inner))
+        self.static = None
+        self.graph = None
+        self.dispatches = 0
+        self._names, self._out = None, None
+        self._stream = torch.cuda.Stream(self.device)
+
+    def _load(self, batch) -> None:
+        """Copy ``batch`` into the static buffers (device to device,
+        stream-ordered before the dispatch that reads them)."""
+        if self.static is None:
+            self.static = {k: torch.empty_like(v, device=self.device)
+                           for k, v in batch.items()}
+        shapes = lambda d: {k: (tuple(v.shape), v.dtype)
+                            for k, v in d.items()}
+        if shapes(batch) != shapes(self.static):
+            raise ValueError(f"batch {shapes(batch)} does not fit the "
+                             f"step's buffers {shapes(self.static)}")
+        for k, v in batch.items():
+            self.static[k].copy_(v, non_blocking=True)
+
+    def _capture(self, state: TrainState) -> None:
+        step = state.step
+        for p in state.params().values():
+            p.grad = None       # allocated in the graph's pool
+        graph = torch.cuda.CUDAGraph()
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.graph(graph, stream=self._stream):
+            state, metrics = self._step(state, self.static)
+            self._names = list(metrics)
+            self._out = torch.stack([metrics[k].float()
+                                     for k in self._names])
+        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        state.step = step       # capture ran nothing
+        self.graph = graph
+
+    def __call__(self, state: TrainState, batch):
+        self._load(batch)
+        self.dispatches += 1
+        if self.dispatches == 1:        # the warm-up
+            side = self._stream
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                state, metrics = self._step(state, self.static)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            return state, metrics
+        if self.graph is None:
+            self._capture(state)
+        self.graph.replay()
+        state.step += self.n_inner
+        out = self._out.clone()
+        return state, dict(zip(self._names, out.unbind(0)))
 
 
 def make_eval_fn(cfg, unet: nn.Module, imnet: ImNet):

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from space_time_pde_torch.bridge import (
-    OPT_COUNTERS, load_exported, load_flax_params, optimizer_state_from_flax)
+    load_exported, load_flax_params, optimizer_state_from_flax)
+from space_time_pde_torch.train.optim import counter_values, set_counters
 from space_time_pde_torch.train.trainer import (
     TrainState, model_buffers, model_params)
 
@@ -91,10 +92,9 @@ class CheckpointManager:
             "params": {k: p.detach().cpu()
                        for k, p in state.params().items()},
             "buffers": {k: b.cpu() for k, b in state.buffers().items()},
-            "opt_state": dict(opt, mu={k: v.cpu() for k, v in
-                                       opt["mu"].items()},
-                              nu={k: v.cpu() for k, v in
-                                  opt["nu"].items()}),
+            "opt_state": dict(opt, **counter_values(opt),
+                              mu={k: v.cpu() for k, v in opt["mu"].items()},
+                              nu={k: v.cpu() for k, v in opt["nu"].items()}),
             "generator": state.generator.get_state(),
             "extra": _plain(extra or {}),
         }
@@ -129,9 +129,7 @@ class CheckpointManager:
         for moment in ("mu", "nu"):
             for k, v in opt[moment].items():
                 v.copy_(saved[moment][k])
-        for k in ("count", "notfinite_count", "last_finite",
-                  "total_notfinite"):
-            opt[k] = saved[k]
+        set_counters(opt, saved)
         state.step = int(payload["step"])
         state.generator.set_state(payload["generator"])
         return state, payload["extra"]
@@ -233,8 +231,7 @@ def restore_exported(state: TrainState, path: str
     for moment in ("mu", "nu"):
         for k, v in state.opt_state[moment].items():
             v.copy_(opt[moment][k])
-    for k in OPT_COUNTERS:
-        state.opt_state[k] = opt[k]
+    set_counters(state.opt_state, opt)
     state.step = exported["step"]
     return state, {"epoch": int(exported["meta"].get("epoch", -1)),
                    "config": exported["config"],
@@ -256,7 +253,7 @@ def resume(state: TrainState, path: str, mngr: CheckpointManager,
             f"resumed from step {state.step} (epoch {epoch}) of the "
             f"exported JAX run {path}: parameters, BatchNorm statistics "
             f"and optimizer state exact (Adam count "
-            f"{state.opt_state['count']}); the batches are not (the JAX "
+            f"{int(state.opt_state['count'])}); the batches are not (the JAX "
             "PRNG key does not carry over; the port draws its own)")
     rmngr = (mngr if os.path.abspath(path) == mngr.directory
              else CheckpointManager(path))

@@ -709,3 +709,168 @@ def test_bf16_jet_plans_match_host_mirrors(device):
                        (1024, 512), (16384, 8192)):
             lib.stpde_jet_bf16_tn_plan(m, ka, nb, buf)
             assert tuple(buf) == fj.bf16_tn_plan(m, ka, nb), (m, ka, nb)
+
+
+# ------------------------------------------------- the captured train step
+
+def _tiny_train(device, family, policy, tmp_path=None):
+    """(loss over a tiny seeded model's modules, optimizer, state, host
+    batch maker) on ``device``: rb2d (UNet3d) or turb3d (UNet4d), f32 or
+    ``use_bf16`` with ``pde_bf16`` (the bf16 jets)."""
+    from space_time_pde_torch import physics as tphys
+    from space_time_pde_torch import train as ttrain
+    from space_time_pde_torch.utils.config import Config
+
+    cfg = Config()
+    cfg.model.lat_dims, cfg.model.unet_nf, cfg.model.imnet_nf = 8, 4, 2
+    cfg.train.alpha_pde, cfg.train.pde_loss_type = 0.1, "huber"
+    cfg.model.use_bf16 = cfg.train.pde_bf16 = policy == "bf16_pde"
+    rng = np.random.RandomState(3)
+    kw = dict(mean=rng.randn(4), std=0.5 + rng.rand(4))
+    if family == "rb2d":
+        igres = (4, 8, 8)
+        pde = tphys.get_pde_layer("rb2d", t_crop=0.75, z_crop=0.5,
+                                  x_crop=0.5, rayleigh=1e4, prandtl=1.0,
+                                  **kw)
+    else:
+        igres = (4, 4, 4, 4)
+        cfg.model.unet_mf = 8
+        pde = tphys.get_pde_layer("ns3d", t_crop=0.7, z_crop=2.0,
+                                  y_crop=2.5, x_crop=3.0, viscosity=1e-2,
+                                  **kw)
+    unet, imnet = ttrain.build_models(cfg, igres, device)
+    opt = ttrain.make_optimizer(cfg)
+    state = ttrain.init_state(0, unet, imnet, opt)
+    loss_fn = ttrain.make_loss_fn(cfg, unet, imnet, pde)
+
+    def batch(seed, inner=1, nan=False):
+        r = np.random.RandomState(seed)
+        steps = [{"lres": r.randn(2, *igres, 4).astype(np.float32),
+                  "point_coord": r.rand(2, 64, len(igres)).astype(
+                      np.float32),
+                  "point_value": r.randn(2, 64, 4).astype(np.float32)}
+                 for _ in range(inner)]
+        if nan:
+            steps[0]["lres"][0, 1, 1, 1] = np.nan
+        return steps[0] if inner == 1 else {
+            k: np.stack([s[k] for s in steps]) for k in steps[0]}
+
+    return loss_fn, opt, state, batch
+
+
+def _written(state):
+    from space_time_pde_torch.train import COUNTERS
+
+    out = {f"param/{k}": p for k, p in state.params().items()}
+    for m in ("mu", "nu"):
+        out.update({f"{m}/{k}": v for k, v in state.opt_state[m].items()})
+    out.update({k: state.opt_state[k] for k in COUNTERS})
+    return out
+
+
+@pytest.mark.parametrize("inner", [1, 3])
+@pytest.mark.parametrize("policy", ["f32", "bf16_pde"])
+@pytest.mark.parametrize("family", ["rb2d", "turb3d"])
+def test_captured_step_equals_eager_step(device, family, policy, inner):
+    """``CapturedStep`` (warm-up, capture, replays) against the eager step
+    over 4 dispatches from the same seeded state, one batch holding a
+    NaN: every parameter, moment, counter and metric bit for bit. The jet
+    wrappers count the eager launches alone: 4 dispatches' eager, the
+    captured step's warm-up (its capture and replays launch nothing from
+    Python)."""
+    from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.train import (
+        CapturedStep, make_multi_step, make_train_step)
+
+    runs = []
+    for captured in (False, True):
+        loss_fn, opt, state, batch = _tiny_train(device, family, policy)
+        step = (CapturedStep(loss_fn, opt, inner, device) if captured else
+                make_train_step(loss_fn, opt) if inner == 1 else
+                make_multi_step(loss_fn, opt, inner))
+        fj.reset_launches()
+        for i in range(4):
+            b = {k: torch.from_numpy(v).to(device)
+                 for k, v in batch(10 + i, inner, nan=i == 1).items()}
+            state, metrics = step(state, b)
+        torch.cuda.synchronize()
+        assert not captured or step.graph is not None
+        runs.append((_written(state), metrics, dict(fj.LAUNCHES), state.step))
+    (want, wm, wl, ws), (got, gm, gl, gs) = runs
+    jets = ("jet_fwd_bf16", "jet_bwd_bf16") if policy == "bf16_pde" else (
+        "jet_fwd", "jet_bwd")
+    assert gs == ws == 4 * inner
+    assert [wl[k] for k in jets] == [4 * inner] * 2
+    assert [gl[k] for k in jets] == [inner] * 2
+    assert int(got["total_notfinite"]) == 1
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for k in wm:
+        assert torch.equal(gm[k], wm[k]), k
+
+
+@pytest.mark.parametrize("policy", ["f32", "bf16_pde"])
+@pytest.mark.parametrize("family", ["rb2d", "turb3d"])
+def test_eager_step_makes_no_host_sync(device, family, policy):
+    """One eager step (after a first one) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in the step reads
+    the card from the host, so a CUDA graph can hold it."""
+    from space_time_pde_torch.train import make_train_step
+
+    loss_fn, opt, state, batch = _tiny_train(device, family, policy)
+    step = make_train_step(loss_fn, opt)
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch(1).items()}
+    state, _ = step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = step(state, b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_device_sampled_step_captures(device, tmp_path):
+    """The train CLIs' loss on a card: batches assembled by the
+    ``DeviceSampler`` inside the step. Captured equals eager bit for bit,
+    no host sync in the eager step, and a ``refresh`` of a corrupted
+    field is what the graph reads next."""
+    from space_time_pde_torch.data import save_npz, taylor_green_fields
+    from space_time_pde_torch.data.dataset import RB2DataLoader
+    from space_time_pde_torch.data.device_pipeline import DeviceSampler
+    from space_time_pde_torch.train import CapturedStep, make_train_step
+
+    save_npz(str(tmp_path / "tg.npz"), taylor_green_fields(nt=10, nz=16,
+                                                           nx=32))
+    ds = RB2DataLoader(data_folder=str(tmp_path), data_filename="tg.npz",
+                       nt=8, nz=16, nx=16, n_samp_pts_per_crop=64,
+                       downsamp_t=2, downsamp_xz=2)
+    rng = np.random.RandomState(0)
+    draws = [DeviceSampler(ds, "cpu").draw(rng, 2) for _ in range(4)]
+    runs = []
+    for captured in (False, True):
+        loss_fn, opt, state, _ = _tiny_train(device, "rb2d", "f32")
+        sampler = DeviceSampler(ds, device)
+        loss_fn = sampler.wrap_loss(loss_fn)
+        step = (CapturedStep(loss_fn, opt, 1, device) if captured
+                else make_train_step(loss_fn, opt))
+        for i, (o, p) in enumerate(draws):
+            b = {"origins": torch.from_numpy(o).to(device),
+                 "point_coord": torch.from_numpy(p).to(device)}
+            if not captured and i == 2:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                if i == 3:
+                    sampler.data.fill_(float("nan"))
+                    sampler.refresh()
+                state, metrics = step(state, b)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        runs.append((_written(state), metrics))
+    (want, wm), (got, gm) = runs
+    assert int(got["total_notfinite"]) == 0
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for k in wm:
+        assert torch.equal(gm[k], wm[k]), k

@@ -81,8 +81,11 @@ def test_wrap_loss_refresh_and_filtered(folder):
     o, p = sampler.draw(np.random.RandomState(1), 2)
     loss({"origins": torch.from_numpy(o), "point_coord": torch.from_numpy(p)})
     assert seen["lres"].shape == (2, *ds.lres_shape, 4)
-    old = sampler.data
-    assert sampler.refresh() is not old and torch.equal(sampler.data, old)
+    # refresh re-uploads the field into the same storage (a captured
+    # step keeps reading it): a corrupted buffer is repaired in place.
+    old, want = sampler.data, sampler.data.clone()
+    old.fill_(float("nan"))
+    assert sampler.refresh() is old and torch.equal(sampler.data, want)
     filtered = tdata.RB2DataLoader(**_kw(folder, lres_filter="median"))
     assert not DeviceSampler.supported(filtered)
     with pytest.raises(ValueError, match="lres_filter"):

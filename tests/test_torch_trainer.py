@@ -339,3 +339,303 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="pde_derivs"):
         ttrain.make_loss_fn(tcfg, unet, imnet, None)
     assert math.isclose(ttrain.global_norm([torch.ones(4)]).item(), 2.0)
+
+
+# ------------------------------------------- the optimizer's device state
+
+def _dyadic(rng, shape, scale):
+    """Gradients whose squares sum exactly in f32 (multiples of 1/8), so
+    that both global norms agree whatever their summation order."""
+    return (rng.randint(-16, 17, size=shape) / 8 * scale).astype(np.float32)
+
+
+def _grad_sequence():
+    """A NaN step, a norm exactly at the clip (1.0: scaled by 1), clip
+    triggers, 103 consecutive non-finite steps (optax gives up after
+    100), then finite steps again."""
+    rng = np.random.RandomState(4)
+    shapes = {"a": (3, 4), "b": (5,), "c": (2, 2, 2)}
+    seq = [{k: _dyadic(rng, s, 4.0 if i % 3 == 0 else 1 / 16)
+            for k, s in shapes.items()} for i in range(6)]
+    at_clip = {k: np.zeros(s, np.float32) for k, s in shapes.items()}
+    at_clip["c"][0] = 0.5                               # norm 1 exactly
+    nan = {k: v.copy() for k, v in seq[1].items()}
+    nan["b"][2] = np.nan
+    inf = {k: v.copy() for k, v in seq[2].items()}
+    inf["a"][1, 1] = np.inf
+    p0 = {k: _dyadic(rng, s, 1.0) for k, s in shapes.items()}
+    return p0, seq[:2] + [nan, at_clip] + seq[2:4] + [inf] * 103 + seq[4:]
+
+
+@pytest.mark.parametrize("decay", [None, 40])
+def test_device_optimizer_matches_optax_sequence(decay):
+    """The device-state optimizer against optax over ``_grad_sequence``:
+    parameters and moments at the existing optax test's tolerance; every
+    counter equal at every step, held as 0-d device tensors (int32, and
+    bool for ``last_finite``); a skipped step leaves the parameters and
+    moments bit for bit."""
+    p0, seq = _grad_sequence()
+    tx = _optax_tx(3e-2, decay, 1.0)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    js = tx.init(jp)
+    update = jax.jit(tx.update)         # as the JAX trainer runs it
+    opt = ttrain.Optimizer(lr=3e-2, decay_steps=decay, clip=1.0)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    ts = opt.init(tp)
+    assert {k: ts[k].dtype for k in ttrain.COUNTERS} == {
+        "count": torch.int32, "notfinite_count": torch.int32,
+        "last_finite": torch.bool, "total_notfinite": torch.int32}
+    applied = []
+    for g in seq:
+        before = {k: v.clone() for k, v in tp.items()}
+        mu = {k: v.clone() for k, v in ts["mu"].items()}
+        upd, js = update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
+        jp = optax.apply_updates(jp, upd)
+        opt.step(tp, {k: torch.from_numpy(v) for k, v in g.items()}, ts)
+        inner = js.inner_state[1][0]
+        assert ts["count"].ndim == 0 and ts["count"] == int(inner.count)
+        assert ts["notfinite_count"] == int(js.notfinite_count)
+        assert ts["total_notfinite"] == int(js.total_notfinite)
+        assert bool(ts["last_finite"]) == bool(js.last_finite)
+        for k in p0:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+            np.testing.assert_allclose(ts["mu"][k].numpy(),
+                                       np.asarray(inner.mu[k]), rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
+        finite = all(np.isfinite(v).all() for v in g.values())
+        gave_up = int(js.notfinite_count) > 100
+        applied.append(finite or gave_up)
+        if not (finite or gave_up):
+            assert all(torch.equal(tp[k], before[k]) for k in tp)
+            assert all(torch.equal(ts["mu"][k], mu[k]) for k in mu)
+    assert applied.count(False) == 101 and int(ts["total_notfinite"]) == 104
+    # Once optax gives up, the inf gradient turns the parameter NaN.
+    assert np.isnan(tp["a"].numpy()).any()
+
+
+def test_bias_corrections_match_xla_pow():
+    """``1 - b ** count`` as the jitted JAX step computes it (XLA's f32
+    pow), bit for bit, at every count to 399."""
+    from space_time_pde_torch.train.optim import (
+        _B1_F32, _B2_F32, _decay_power)
+
+    counts = np.arange(1, 400, dtype=np.int32)
+    for b, b32 in ((0.9, _B1_F32), (0.999, _B2_F32)):
+        want = np.asarray(jax.jit(lambda c: 1 - b ** c)(jnp.asarray(counts)))
+        got = np.array([float(1 - _decay_power(b32, torch.tensor(c)))
+                        for c in counts], np.float32)
+        np.testing.assert_array_equal(got, want)
+
+
+def _host_decided_step(opt, params, grads, state):
+    """The optimizer with its decisions taken on the host, branch by
+    branch (``bool()`` of the finiteness and of the clip, an early
+    return on a skipped step): the device selects must equal it bit for
+    bit."""
+    from space_time_pde_torch.train.optim import (
+        _B1_F32, _B2_F32, _decay_power)
+
+    norm = ttrain.global_norm(grads.values())
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    bad = 0 if finite else int(state["notfinite_count"]) + 1
+    state["notfinite_count"] = bad
+    state["total_notfinite"] = int(state["total_notfinite"]) + (not finite)
+    if not finite and bad <= 100:
+        return
+    lr = opt.learning_rate(int(state["count"]))
+    count = torch.tensor(int(state["count"]) + 1)
+    bc1 = 1 - _decay_power(_B1_F32, count)
+    bc2 = 1 - _decay_power(_B2_F32, count)
+    clipping = not bool(norm < opt.clip)
+    for k, p in params.items():
+        g = (grads[k] / norm) * opt.clip if clipping else grads[k]
+        mu, nu = state["mu"][k], state["nu"][k]
+        mu.copy_((1 - 0.9) * g + 0.9 * mu)
+        nu.copy_((1 - 0.999) * (g * g) + 0.999 * nu)
+        p.add_((mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8) * -lr)
+    state["count"] = int(count)
+
+
+@pytest.mark.parametrize("decay", [None, 40])
+def test_device_selects_equal_host_decisions(decay):
+    p0, seq = _grad_sequence()
+    opt = ttrain.Optimizer(lr=3e-2, decay_steps=decay, clip=1.0)
+    dev = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    host = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    ds, hs = opt.init(dev), opt.init(host)
+    for g in seq:
+        g = {k: torch.from_numpy(v) for k, v in g.items()}
+        opt.step(dev, g, ds)
+        _host_decided_step(opt, host, g, hs)
+        for k in p0:
+            for a, b in ((dev[k], host[k]), (ds["mu"][k], hs["mu"][k]),
+                         (ds["nu"][k], hs["nu"][k])):
+                assert torch.equal(a, b) or (
+                    torch.isnan(a).equal(torch.isnan(b))
+                    and torch.equal(a.nan_to_num(), b.nan_to_num())), k
+        for k in ("count", "notfinite_count", "total_notfinite"):
+            assert int(ds[k]) == int(hs[k]), k
+
+
+def test_optimizer_step_reads_nothing_on_the_host(monkeypatch):
+    """No ``bool()``, ``item()``, ``float()``, ``int()`` of a tensor and
+    no tensor made from host numbers inside ``Optimizer.step`` or the
+    schedule read at the state's count: a CUDA graph holds it."""
+    opt = ttrain.Optimizer(lr=1e-2, decay_steps=10, clip=1.0)
+    params = {"a": torch.ones(4), "b": torch.zeros(2, 3)}
+    state = opt.init(params)
+    grads = {k: torch.full_like(v, 0.5) for k, v in params.items()}
+    grads["b"][0, 0] = float("nan")
+
+    def refuse(*a, **k):
+        raise AssertionError("host read or host-built tensor in the step")
+
+    for name in ("__bool__", "item", "__float__", "__int__", "tolist",
+                 "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    monkeypatch.setattr(torch, "tensor", refuse)
+    monkeypatch.setattr(torch, "as_tensor", refuse)
+    for g in (grads, {k: torch.full_like(v, 0.5) for k, v in
+                      params.items()}):
+        opt.step(params, g, state)
+        opt.learning_rate(state["count"])
+    monkeypatch.undo()
+    assert int(state["count"]) == 1 and int(state["total_notfinite"]) == 1
+
+
+# ------------------------------------ the step built for capture, eagerly
+
+def _family_state(family, seed=0):
+    """(state, loss over its modules, optimizer, batches) for a tiny rb2d
+    or turb3d model; batch 1 holds a NaN in its input (every gradient of
+    its step is NaN: the step is skipped)."""
+    cfg = _cfg()
+    if family == "turb3d":
+        cfg.model.lat_dims, cfg.model.unet_mf = 6, 8
+        cfg.physics.pde_system = "ns3d"
+    tcfg = TConfig.from_dict(cfg.to_dict())
+    igres = IGRES if family == "rb2d" else (4, 4, 4, 4)
+    unet, imnet = ttrain.build_models(tcfg, igres, "cpu")
+    opt = ttrain.make_optimizer(tcfg)
+    state = ttrain.init_state(seed, unet, imnet, opt)
+    rng = np.random.RandomState(3)
+    mean, std = rng.randn(4), 0.5 + rng.rand(4)
+    if family == "rb2d":
+        pde = _pde(tphys, mean, std)
+    else:
+        pde = tphys.get_pde_layer("ns3d", mean=mean, std=std, t_crop=0.7,
+                                  z_crop=2.0, y_crop=2.5, x_crop=3.0,
+                                  viscosity=1e-2)
+    loss_fn = ttrain.make_loss_fn(tcfg, state.unet, state.imnet, pde)
+    dim = len(igres)
+    batches = []
+    for i in range(6):
+        r = np.random.RandomState(20 + i)
+        b = {"lres": r.randn(2, *igres, 4).astype(np.float32),
+             "point_coord": r.rand(2, 16, dim).astype(np.float32),
+             "point_value": r.randn(2, 16, 4).astype(np.float32)}
+        if i == 1:
+            b["lres"][0, 0, 1, 1, 2] = np.nan
+        batches.append(b)
+    return state, opt, loss_fn, batches
+
+
+def _group(batches, n_inner):
+    if n_inner == 1:
+        return batches
+    return [{k: np.stack([b[k] for b in batches[i:i + n_inner]])
+             for k in batches[0]}
+            for i in range(0, len(batches), n_inner)]
+
+
+class _HostDecided:
+    """``opt`` with its decisions taken on the host
+    (:func:`_host_decided_step`): the step as it ran before the
+    optimizer's state moved to the device."""
+
+    def __init__(self, opt):
+        self.opt = opt
+
+    @torch.no_grad()
+    def step(self, params, grads, state):
+        _host_decided_step(self.opt, params, grads, state)
+        return ttrain.global_norm(grads.values())
+
+
+@pytest.mark.parametrize("family,n_inner", [("rb2d", 1), ("rb2d", 3),
+                                            ("turb3d", 1), ("turb3d", 3)])
+def test_captured_form_run_eagerly_equals_eager_step(family, n_inner):
+    """The steps that :class:`CapturedStep` captures on a card (the
+    optimizer's decisions device-side selects), run eagerly on the CPU,
+    against the same steps with those decisions taken on the host:
+    parameters, Adam moments, counters and the last metrics, bit for
+    bit, over 3 steps a side (n_inner 3: two dispatches), one of them
+    skipped (a NaN in its batch). ``CapturedStep`` itself refuses the
+    CPU, which has no graphs."""
+    state, opt, loss_fn, batches = _family_state(family)
+    twin, _, twin_loss, _ = _family_state(family)
+    steps = 3 if n_inner == 1 else 6
+    groups = [{k: torch.from_numpy(v) for k, v in g.items()}
+              for g in _group(batches[:steps], n_inner)]
+    host = _HostDecided(opt)
+    step, host_step = (
+        (ttrain.make_train_step(loss_fn, opt),
+         ttrain.make_train_step(twin_loss, host)) if n_inner == 1 else
+        (ttrain.make_multi_step(loss_fn, opt, n_inner),
+         ttrain.make_multi_step(twin_loss, host, n_inner)))
+    for g in groups:
+        state, got = step(state, g)
+        twin, want = host_step(twin, g)
+    assert state.step == twin.step == steps
+    assert int(state.opt_state["total_notfinite"]) == 1
+    assert int(state.opt_state["count"]) == steps - 1
+    for k, v in _params(state).items():
+        assert torch.equal(v, _params(twin)[k]), k
+    for m in ("mu", "nu"):
+        for k, v in state.opt_state[m].items():
+            assert torch.equal(v, twin.opt_state[m][k]), (m, k)
+    for k in ("count", "notfinite_count", "total_notfinite"):
+        assert int(state.opt_state[k]) == int(twin.opt_state[k]), k
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    with pytest.raises(ValueError, match="CUDA"):
+        ttrain.CapturedStep(loss_fn, opt, n_inner, "cpu")
+
+
+def test_tensor_counters_round_trip(tmp_path):
+    """Checkpoints and exports keep the counters as Python numbers and
+    restore them into the state's own tensors, in place."""
+    from space_time_pde_torch.bridge import load_exported, save_exported
+    from space_time_pde_torch.train.optim import (
+        counter_values, set_counters)
+
+    state, opt, _ = _tiny_state()
+    want = {"count": 5, "notfinite_count": 2, "last_finite": False,
+            "total_notfinite": 3}
+    set_counters(state.opt_state, want)
+    mngr = CheckpointManager(str(tmp_path / "ckpt"), keep=1)
+    mngr.save(5, state)
+    saved = torch.load(mngr._path(5), weights_only=True)["opt_state"]
+    assert {k: saved[k] for k in want} == want
+    assert type(saved["count"]) is int and \
+        type(saved["last_finite"]) is bool
+    fresh, _, _ = _tiny_state(seed=1)
+    tensors = {k: fresh.opt_state[k] for k in want}
+    CheckpointManager(str(tmp_path / "ckpt")).restore(fresh)
+    assert counter_values(fresh.opt_state) == want
+    assert all(fresh.opt_state[k] is tensors[k] for k in want)
+
+    cfg = _cfg()
+    zeros = {"mu": {"a": np.zeros(2, np.float32)},
+             "nu": {"a": np.zeros(2, np.float32)}}
+    path = str(tmp_path / "w.npz")
+    save_exported(path, {"unet": {"a": np.zeros(2, np.float32)}}, None,
+                  cfg.to_dict(), np.zeros(4), np.ones(4), 5,
+                  opt_state=dict(zeros, **{k: state.opt_state[k]
+                                           for k in want}))
+    back = load_exported(path)["opt_state"]
+    assert {k: back[k] for k in want} == want
+    set_counters(fresh.opt_state, dict(want, count=9))
+    assert int(fresh.opt_state["count"]) == 9

@@ -314,7 +314,7 @@ def target_dp(rank, world, arrays, spec):
     _, unet, imnet, _ = _rb2d_setup(dict(spec, config=spec["config_gn"]), {})
     opt = make_optimizer(cfg)
     state = init_state(100 + rank, unet, imnet, opt)
-    state.opt_state["count"] = 7 * (rank + 1)
+    state.opt_state["count"].fill_(7 * (rank + 1))
     state = replicate_state(state, mesh)
     out["replicated"] = torch.cat([p.detach().reshape(-1) for p in
                                    state.params().values()]).numpy()

@@ -9,14 +9,15 @@ Phases (any failure raises and exits non-zero):
    (switched off);
 2. build every kernel from ``space_time_pde_torch/csrc`` (one nvcc per
    source, in parallel); print each kernel's registers and spills from
-   ptxas, both D instantiations of the jet kernels apart, the decode
-   block's rows and dynamic shared memory at the flagship widths, the bf16
-   decode's plan there (shared memory, ring stages, cluster size, rows a
-   tile), the bf16 jets' rings, and, where the toolkit has ``cuobjdump``,
-   the count of the wgmma (``HGMMA``), bulk-copy (``UBLKCP``), TMA
-   (``UTMALDG``) and mbarrier (``SYNCS``) instructions in the SASS of the
-   bf16 decode and of the bf16 jets, and how many times ptxas noted that
-   it serialized the wgmmas of either (C7520; 0 expected);
+   ptxas, both D instantiations of the jet kernels apart, both decodes'
+   plans at the flagship widths (shared memory, ring stages, cluster
+   size, rows a tile; the f32 one's widths' base), the bf16 jets'
+   rings, and, where the toolkit has ``cuobjdump``, the count of the
+   wgmma (``HGMMA``), ``mma.sync`` (``HMMA``), bulk-copy (``UBLKCP``),
+   TMA (``UTMALDG``) and mbarrier (``SYNCS``) instructions in the SASS of
+   both decodes and of the bf16 jets, and how many times ptxas noted
+   that it serialized the wgmmas of any (C7520); the f32 decode must show
+   HGMMA, no HMMA and no C7520;
 3. both decode kernels against their plain PyTorch twins on the card,
    at the rb2d flagship widths (C = 64, nf = 64, D = 3, out = 4) on
    65,536 seeded points that include lattice faces, cell edges and
@@ -25,7 +26,9 @@ Phases (any failure raises and exits non-zero):
    order and the order of the blend-before-head rounding differ); and
    against the twin run in float64 on the card, at most DECODE_SLACK
    times as far from it as the f32 twin, ``|err| <= 1e-4 |ref| + atol
-   max|ref|`` (both distances printed); CUDA-event times of both;
+   max|ref|`` (both distances printed); CUDA-event times of both, the
+   f32 kernel's weight image built once (``decode_tiles``), and the
+   weight bytes a call streams from L2 as its plan gives them;
 4. both jet kernels against their plain twins at the flagship widths on
    8,192 such points (the flagship step's count): the forward's value,
    Jacobian and Hessian blocks against ``jet_fwd_plain``, the backward's
@@ -409,14 +412,15 @@ def cuda_ms(fn, reps):
 
 # The kernel that each wrapper launches once a call, as a device trace
 # names it: the jets' head kernels; the decodes' one kernel, whose
-# template argument tells the entries apart.
+# template argument tells the entries apart (the f32 one's first, the
+# widths' base, does not).
 TRACE_MARKERS = {
     "jet_fwd": r"jet_head_fwd_kernel<\d, float>",
     "jet_bwd": r"jet_head_bwd_kernel<\d, float>",
     "jet_fwd_bf16": r"jet_head_fwd_kernel<\d, __nv_bfloat16>",
     "jet_bwd_bf16": r"jet_head_bwd_kernel<\d, __nv_bfloat16>",
-    "decode_blend_gather": r"decode_blend_kernel<true>",
-    "decode_blend": r"decode_blend_kernel<false>",
+    "decode_blend_gather": r"decode_blend_kernel<\d+, true>",
+    "decode_blend": r"decode_blend_kernel<\d+, false>",
     "decode_blend_gather_bf16": r"decode_bf16_kernel<false>",
     "decode_blend_bf16": r"decode_bf16_kernel<true>",
 }
@@ -568,10 +572,21 @@ def bf16_plan(dim, pregathered):
                     list(buf)))
 
 
+def f32_plan(dim):
+    """The f32 decode's plan (``stpde_decode_plan``) at the flagship widths
+    (C = 64, nf = 64)."""
+    from space_time_pde_torch.ops import _build
+
+    buf = (ctypes.c_longlong * 8)()
+    _build.load().stpde_decode_plan(64, dim, 64, buf)
+    return dict(zip(("smem", "stages", "kx", "image", "cluster", "rows",
+                     "base", "slot"), list(buf)))
+
+
 def sass_counts(source="fused_query_bf16"):
-    """Counts of the wgmma, bulk-copy, TMA and mbarrier instructions in
-    the SASS of ``csrc/<source>.cu`` (``cuobjdump -sass``), or why there
-    are none."""
+    """Counts of the wgmma, mma.sync, bulk-copy, TMA and mbarrier
+    instructions in the SASS of ``csrc/<source>.cu`` (``cuobjdump
+    -sass``), or why there are none."""
     import shutil
 
     from space_time_pde_torch.ops import _build
@@ -583,7 +598,7 @@ def sass_counts(source="fused_query_bf16"):
         [tool, "-sass", str(_build.library_path(source))],
         capture_output=True, text=True, check=True).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass))
-            for op in ("HGMMA", "UBLKCP", "UTMALDG", "SYNCS")}
+            for op in ("HGMMA", "HMMA", "UBLKCP", "UTMALDG", "SYNCS")}
 
 
 def bound(kind, *, n, c, dim, nf, out, n_cells=0, math="ffma"):
@@ -690,14 +705,30 @@ def kernel_vs_plain(imnet, device, spatial):
         imnet, device, spatial)
     feats2 = table[cell_flat.long()].reshape(
         -1, imnet.in_features).contiguous()
+    # The f32 kernel's weight image, built once as a decoder builds it;
+    # each cluster of CTAs streams it from L2 once per group of tiles.
+    tiles = fq.decode_tiles(packed, nf=imnet.nf, dim=dim,
+                            compute_dtype=torch.float32)
+    # The ring streams the image's weight segments (not the rel / cb rows
+    # after them, which the consumers read per tile): the L2 bytes below
+    # follow from the plan, no counter measures them.
+    plan = f32_plan(dim)
+    segments = plan["image"] - (dim + 2 ** dim) * 31 * plan["base"]
+    tiles_a_call = -(-N_CHECK // (plan["rows"] >> dim))
+    l2_bytes = 4 * segments * -(-tiles_a_call // plan["cluster"])
+    say(f"f32 decode at D={dim}: each k8 step's products promoted "
+        f"(interval 1), weight segments {4 * segments} bytes, "
+        f"{tiles_a_call} tiles a call in clusters of {plan['cluster']}: "
+        f"{l2_bytes / 1e9:.3f} GB of weights from L2 a call (derived from "
+        f"the plan, not measured)")
     calls = {
         "decode_blend_gather": (
             lambda: fq.decode_blend_gather(table, cell_flat, frac, packed,
-                                           **kw),
+                                           tiles=tiles, **kw),
             lambda: fq.decode_blend_gather_plain(table, cell_flat, frac,
                                                  packed, **kw)),
         "decode_blend": (
-            lambda: fq.decode_blend(feats2, frac, packed,
+            lambda: fq.decode_blend(feats2, frac, packed, tiles=tiles,
                                     n_corners=2 ** dim, **kw),
             lambda: fq.decode_blend_plain(feats2, frac, packed,
                                           n_corners=2 ** dim, **kw)),
@@ -3032,11 +3063,15 @@ def main():
                 "fused_jet_bf16"):
         for line in ptxas_summary(log.get(src, "")):
             print(f"{src}.cu {line}", flush=True)
-    lib = _build.load()
-    print("fused_query.cu decode block: "
-          f"{lib.stpde_block_rows()} corner rows, dynamic shared memory "
-          f"{lib.stpde_decode_smem_bytes(64, 3, 64)} bytes at C = 64, "
-          "nf = 64", flush=True)
+    for dim in (3, 4):
+        plan = f32_plan(dim)
+        print(f"fused_query.cu plan at C = 64, nf = 64, D = {dim} (both "
+              f"entries): {plan['smem']} bytes of shared memory a CTA, "
+              f"{plan['stages']} ring slots of {plan['slot']} bytes, kx "
+              f"{plan['kx']}, weight image {plan['image']} f32 values, "
+              f"clusters of {plan['cluster']} CTAs, {plan['rows']} corner "
+              f"rows a tile, widths of nf = {plan['base']}",
+              flush=True)
     for dim, pre in ((3, 0), (4, 0), (3, 1), (4, 1)):
         plan = bf16_plan(dim, pre)
         print(f"fused_query_bf16.cu plan at C = 64, nf = 64, D = {dim}, "
@@ -3045,10 +3080,15 @@ def main():
               f"16 KB, kx {plan['kx']}, tile image {plan['image']} bf16 "
               f"values, clusters of {plan['cluster']} CTAs, "
               f"{plan['rows']} corner rows a tile", flush=True)
-    for src in ("fused_query_bf16", "fused_jet_bf16"):
-        print(f"{src}.cu SASS: {sass_counts(src)}; ptxas notes of "
-              "serialized wgmma (C7520): "
-              f"{log.get(src, '').count('C7520')}", flush=True)
+    for src in ("fused_query", "fused_query_bf16", "fused_jet_bf16"):
+        sass, c7520 = sass_counts(src), log.get(src, "").count("C7520")
+        print(f"{src}.cu SASS: {sass}; ptxas notes of serialized wgmma "
+              f"(C7520): {c7520}", flush=True)
+        if src == "fused_query" and (c7520 or isinstance(sass, dict) and (
+                sass["HGMMA"] < 1 or sass["HMMA"] > 0)):
+            raise SystemExit("fused_query.cu: the f32 decode must run on "
+                             "wgmma (HGMMA), with no mma.sync (HMMA) and "
+                             "no serialized wgmma (C7520)")
     ring = (ctypes.c_longlong * 4)()
     for what, mt, staging in (("forward layers and chain product, D = 3",
                                4, 1),

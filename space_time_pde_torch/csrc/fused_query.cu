@@ -1,154 +1,355 @@
-// Fused local-implicit-grid decode + multilinear blend for Hopper (sm_90a).
+// The f32 fused local-implicit-grid decode + multilinear blend for Hopper
+// (sm_90a): both f32 entries, stpde_decode_blend_gather and
+// stpde_decode_blend.
 //
 // Replaces the two Pallas TPU kernels of
-// space_time_pde_tpu/ops/fused_query.py:
-//   _kernel_gather (fused_decode_blend_gather) -> stpde_decode_blend_gather
-//   _kernel        (fused_decode_blend)        -> stpde_decode_blend
-// They compute the same thing and differ only in where a point's 2^D corner
-// latents come from: an indexed load of row cell_flat[p] of the cell-major
-// table [n_cells, 2^D * C], or pre-gathered rows [N * 2^D, C].
+// space_time_pde_tpu/ops/fused_query.py at f32:
+//   _kernel_gather (:244, pallas_call :389) -> stpde_decode_blend_gather
+//   _kernel        (:400, pallas_call :510) -> stpde_decode_blend
+// They compute the same function and differ only in where a point's 2^D
+// corner latents come from: row cell_flat[p] of the cell-major table
+// [n_cells, 2^D * C], or the pre-gathered rows [N * 2^D, C] (kGather false).
 //
-// Per point, per corner k (row r = p * 2^D + k of a block):
+// Per point, per corner k (row r = p * 2^D + k of a tile):
 //   layer i pre-activation = h_{i-1} @ Wh_i + feats @ Wx_feat[:, sl_i]
 //                            + frac @ Wx_rel[:, sl_i] + corner_bias[k, sl_i]
 //   h_i = act(pre), widths nf * (16, 8, 4, 2, 1)
-// The coordinate projection is factored through corner_bias
-// (rel_k = frac - offset_k, folded on the host by pack_imnet_params), the
-// multilinear weights come from frac in the kernel, and the blend runs
-// BEFORE the linear head (weights sum to 1):
+// and the rows are blended before the linear head (the weights sum to 1):
 //   out[p] = (sum_k w_k h_4[p, k]) @ W5 + b5.
 // The activation is picked by an int code in the order of
 // space_time_pde_torch/models/nonlinearities.py::NONLINEARITIES.
 //
-// What bounds it on an H100: arithmetic. At the flagship widths (C = 64,
-// nf = 64) a corner row costs ~0.83 M multiply-adds against ~2.5 KB of
-// input a point, far above the memory roofline: 12.98 ms per 65,536 points
-// at D = 3 in f32 FFMA (67 TFLOP/s), which the previous, FFMA version of
-// this kernel reached at 22% (58.1 ms).
+// Bound: arithmetic. At the flagship widths (C = 64, nf = 64) a corner row
+// needs ~0.83 M multiply-adds; in 3xTF32 (three TF32 products for each f32
+// one, at 495 TFLOP/s dense) 65,536 points take at least 5.27 ms at D = 3
+// and 10.57 ms at D = 4 (chip_smoke.py::bound). A 64-row tile needs all
+// five layers' weights as TF32 hi and lo planes, 6.8 MB at D = 3, for
+// 318 MFLOP of tensor work: the weights' path from L2 into shared memory
+// must keep up with the tensor cores.
 //
-// Route: 3xTF32 on the tensor cores (mma.sync.m16n8k8). Every operand x is
-// split in registers into hi = tf32_rna(x) and lo = x - hi (rounded to TF32
-// for activations; for weights passed as is, the tensor cores read its top
-// bits), and a product is lo_a hi_b + hi_a lo_b + hi_a hi_b. Each k8 step's
-// three products accumulate in a zeroed temporary that is added to the f32
-// accumulator with round-to-nearest (mma3). That makes the products
-// f32-grade (the flagship model's latents reach 1e6, so plain TF32, ~3e-3
-// of max |out| from float64, is not an option) at 3x the TF32 work: a bound
-// of 5.27 ms per 65,536 points at D = 3 and 10.57 ms at D = 4 (495 TFLOP/s
-// dense TF32). Shared memory holds f32 values or their split planes.
+// 3xTF32: every operand x is split into hi = tf32_rna(x) and lo =
+// tf32_rna(x - hi), and a product is lo_a hi_b + hi_a lo_b + hi_a hi_b
+// (the small ones first). The flagship model's latents reach 1e6, so plain
+// TF32 (~3e-3 of max |out| from float64) is not an option. The tensor
+// cores truncate as they accumulate: fed every product of a 1,000-deep K
+// loop, one accumulator drifted 20x farther from float64 than f32 FFMA (an
+// earlier mma.sync design of this kernel, on an H100). So each k8 step's
+// three products go into a small temporary that wgmma overwrites with its
+// first product, and the temporary is added to an f32 accumulator outside
+// the tensor cores (FADD, round to nearest): the promotion of public fp8
+// Hopper GEMMs, here every k8 step.
 //
-// Block: 64 corner rows (8 points at D = 3, 4 at D = 4), 512 threads = 16
-// warps, 2 along rows x 8 along columns, each warp a 32-row x (width / 8)
-// column accumulator tile in registers (64 floats a thread in layer 1). A
-// layer's output lives in registers until its K loop ends and then
-// overwrites the one activation buffer H [64][8 nf + 4], so only h_1 and
-// narrower are ever resident: layer 0 (16 nf wide) is fused into layer 1's
-// K loop. A 32-column chunk of h_0 is computed on the tensor cores from the
-// latents, activated, split once into hi and lo planes, and read as layer
-// 1's A operand in the next K step, while the block computes the chunk
-// after it (two chunk buffers, one barrier a step). Each layer's skip term
-// is part of its K loop: the kernel's weight matrix of layer i is
-// [Wh_i ; Wx_feat[:, sl_i]] (kernel_weights in ops/fused_query.py stacks
-// and zero-pads it), and A runs over [h_{i-1} | latents]; the coordinate
-// term and the corner bias are added in f32 in the epilogue. Weights are
-// staged in 32-row tiles by cp.async into a double buffer (no weight loads
-// from global memory in the inner loop; layer 0's chunks two steps ahead):
-// layer 1's tiles use H's space while h_1 is still in registers. Row
-// strides are padded (+4 for A, +8 for B) so every fragment load is free of
-// bank conflicts. Widths are padded to multiples of 64 and C to a multiple
-// of 32 (zero weights), which the kernel derives from nf and C. Shared
-// memory at C = 64, nf = 64: 218,368 bytes, one block per SM; ptxas: 128
-// registers a thread (65,536 a block, the whole register file), 4 bytes of
-// spill. The blend spreads the point x column products over the block and
-// the head gives one warp to each output (shuffle reduction).
+// Design:
+// - wgmma.mma_async m64nNk8 .tf32 (N = 64 where a warpgroup has 64
+//   columns or more, else its column count: 32 for h_0's chunks, down to
+//   8 for layer 4 at nf <= 16), A from registers, B from shared memory.
+//   .tf32 takes both operands K-major only. The consumers load a k8
+//   step's A fragment from f32 shared memory with one 16-byte load a
+//   thread (the activations are stored in the fragment's own order,
+//   below) and split it in registers.
+// - The weights are split once per decoder on the host
+//   (ops/fused_query.py::decode_tiles at f32) into the exact shared-memory
+//   image of wgmma's K-major, no-swizzle B operand: for every k8 step the
+//   hi plane then the lo plane, each [8-column group][2 k halves][8
+//   columns][4 k], segment after segment in the order the kernel consumes
+//   them (one contiguous run a ring slot).
+// - The widths: those of nf = base, the smallest of 16, 32 and 64 that
+//   holds nf (base * (16, 8, 4, 2, 1), zero-padded above nf), one
+//   instantiation of the kernel each, so a narrow model does no more than
+//   the next power of two's work.
+// - The latents' skip product runs in each layer's K loop through the
+//   tensor cores: a tile's X operand is its corner rows' latents, kx = C
+//   columns padded to 8, and layer i's B is [Wx_feat_i ; 0 ; Wh_i] (K: X
+//   first, then h_{i-1}). The coordinate term and the corner bias are
+//   not: the accumulator starts at frac @ Wx_rel_i + corner_bias_i
+//   computed in f32 (rel and cb follow the weight image), as the TPU
+//   kernel adds them.
+//   Through the tensor cores (a one-hot column per corner), their TF32
+//   pieces put a random-init model 2.15x the f32 twin's distance from
+//   float64 (limit 2x; an H100 run of this kernel). The epilogue is the
+//   activation and the store.
+// - The activations never need a transpose: a thread's accumulator holds
+//   columns 2t, 2t + 1 of each 8-column block, which the next layer reads
+//   as its A fragment's k = t and t + 4 (rows g and g + 8). The host
+//   permutes each 8-row block of Wh_i to match ([0, 2, 4, 6, 1, 3, 5, 7]),
+//   so a layer stores act(acc) as one float4 a thread and block, and the
+//   next loads it as one: no bank conflicts, no padding.
+// - Layer 0 (16 base: 1,024 wide, 256 KB at 64 rows in f32) is never stored
+//   whole: it is computed in 64-column chunks from X into one of two 16 KB
+//   buffers and consumed as layer 1's K steps (chunk j is computed before
+//   layer 1's products of chunk j - 1; one barrier a chunk).
+// - Thread-block clusters of kCluster = 2 CTAs: each CTA loads half of
+//   every ring slot with one cp.async.bulk...multicast::cluster, which lands
+//   in both: the weights leave L2 once per cluster, not once per tile.
+// - A ring of `stages` slots (one k8 step of layer 1's columns, hi and lo:
+//   32 KB at base 64) with full / empty mbarriers:
+//   thread 0 (warpgroup 0, 40 registers after setmaxnreg) runs ahead
+//   through the fixed sequence across slots, segments, layers and tiles; a
+//   slot is refilled once the two consumer warpgroups of every CTA in the
+//   cluster released it (remote arrives at CTA scope).
+// - Warps 1-3 of warpgroup 0 gather each tile's X (4-byte cp.async, into
+//   the fragment order) and frac once the consumers are done with the
+//   previous tile's X, while they blend it.
+// - Two consumer warpgroups (232 registers) split each layer's columns: a
+//   warpgroup holds 64 x (w_i / 2) f32 accumulators (128 a thread in layer
+//   1). Per k8 step and 64-column block the three products go into one of
+//   two 32-register temporaries: block b's wgmmas are in flight while
+//   block b - 1's temporary is waited on and added. Only wgmma writes the
+//   temporaries (the first product of a group overwrites) and only the
+//   FADD writes the accumulators; no wgmma sits on a conditional path, so
+//   ptxas serializes none (its info C7520).
+// - Persistent: one CTA per SM, each cluster walking groups of kCluster
+//   tiles with a fixed stride. Every row is computed by the same
+//   operations wherever it lands and written once: the output is the same
+//   bit for bit from launch to launch.
 //
-// On an NVIDIA H100 80GB HBM3 at 700 W, 65,536 flagship points: 29.5 ms at
-// D = 3 (the cuBLAS-backed plain twin 31.1 ms), 59.2 ms at D = 4 (twin
-// 61.7 ms): 18% of the 3xTF32 bound, the TF32 work at ~88 of 495
-// TFLOP/s, so the tensor cores are idle most of the time. What holds it
-// back: the register file. Accumulating 3 x 136
-// products into one tensor-core accumulator instead of a temporary drifted
-// 20x farther from float64 than f32 FFMA, and the temporary leaves no
-// registers to keep more than one k8 step in flight; wgmma with its
-// accumulator promoted every few steps needs a second accumulator set that
-// does not fit beside the first at this tile.
+// Budget at C = 64, nf = 64, D = 3 (both entries): H 131,072 B (h_1 as 64 x
+// 512 f32; h_0's two chunks, h_2, h_3, h_4 and the blended rows reuse it),
+// X 16,384 B (kx = 64), frac 512 B, 2 ring slots of 32,768 B, barriers:
+// 213,552 B of the 232,448 a CTA may take. The ring takes what the rest
+// leaves, at least 2 slots (more at a smaller base: 22 of 8 KB at base
+// 16); a plan past 227 KB with 2 slots is refused by the launch.
+// Limits: nf <= 64, 2^D <= 64, and the plan within 227 KB: C <= 136 at
+// base 64 (C = 137 refused), C <= 520 at base 32 and C <= 712 at base 16.
+// A shape beyond them returns the CUDA error of the refused launch
+// (cudaErrorInvalidValue), which the wrapper raises.
 //
-// Limits: 8 nf rounded up to 64 must be at most 512 and the buffers must fit
-// the card's 227 KB: at C <= 96, nf <= 64 decodes and nf = 65 does not; at
-// nf = 64, C <= 96 decodes and C = 97 does not. A shape beyond them returns
-// the CUDA error of the refused attribute (cudaErrorInvalidValue).
+// Times, float64 distances and the promotion intervals tried (every k8
+// step ships; 2 was slower, 4 does not fit): PERF.md section 6, measured
+// with scripts/time_bf16_decode.py --dtype float32 on an NVIDIA H100.
+// What holds it there, derived from the design and not measured: two ring
+// slots at base 64, so each refill's L2 latency shows; a drain every k8
+// step; the one-block products of h_0's chunks and layers 3-4, which no
+// other block's wgmma overlaps; and the skip term's loads at each chunk.
 //
 // TPU workarounds deliberately NOT carried over: the one-hot MXU gather and
 // the sorted 2 x 128-cell windows (corner_tables, window anchors, base_tile,
 // the fits-check and its lax.cond fallback) -- a Hopper thread just loads
-// the row; _augmented_xs/_augment_params and the 8-lane frac padding
-// (_FRAC_LANES); 128-lane width padding (pad_to); keeping the whole MLP and
-// the [R, 31 nf] skip buffer resident in VMEM. No wgmma or TMA yet.
+// the row; the 8-lane frac padding (_FRAC_LANES); 128-lane width padding
+// (pad_to); keeping the whole MLP and the [R, 31 nf] skip buffer resident.
 //
-// A cell id outside [0, n_cells) decodes NaN instead of reading out of
-// bounds. Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-// -Xcompiler -fPIC (space_time_pde_torch/ops/_build.py).
+// A cell id outside [0, n_cells) decodes NaN in its point's row instead of
+// reading out of bounds. Build: nvcc -gencode arch=compute_90a,code=sm_90a
+// -O3 -shared -Xcompiler -fPIC (space_time_pde_torch/ops/_build.py);
+// wgmma, setmaxnreg and the multicast bulk copy exist only on sm_90a.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
 #include "decode_common.cuh"
 
 namespace {
 
-constexpr int kRows = 64;          // corner rows per block
-constexpr int kThreads = 512;      // 16 warps: 2 along rows x 8 along columns
-constexpr int kWarpsN = 8;
-constexpr int kKc = 32;            // weight rows per staged tile
-constexpr int kMaxNt = 8;          // 8-column MMA tiles per warp
-constexpr int kWidthAlign = 8 * kWarpsN;    // 64
-constexpr int kLdH0 = kKc + 4;     // h_0 chunk [kRows][kLdH0]
-constexpr int kLdW0 = kKc + 8;     // layer 0 weight chunk [Cp][kLdW0]
+constexpr int kRows = 64;                  // corner rows a tile (wgmma m64)
+constexpr int kCluster = 2;                // CTAs a cluster
+constexpr int kConsumers = 2;              // consumer warpgroups
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kXThreads = 96;              // warps 1-3 of warpgroup 0
+constexpr int kChunk = 64;                 // h_0 columns a chunk
+constexpr int kN0 = kChunk / 2;            // a warpgroup's of a chunk
+constexpr int kMaxNf = 64;
+constexpr int kMaxDim = 6;                 // 2^D <= kRows
+constexpr int kMinStages = 2;              // ring slots a plan must have
+constexpr int kMaxSmem = 232448;           // 227 KB, a CTA's most
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
-struct Weights {
-  const float* wx0;     // [Cp, W0]: Wx_feat[:, sl_0]
-  const float* rel;     // [D, Sp]: Wx_rel, each layer's columns padded
-  const float* cb;      // [2^D, Sp]: corner_bias, likewise
-  const float* wb[4];   // layer i + 1: [W_i + Cp, W_{i+1}] = [Wh ; Wx_feat]
-  const float* w5;      // [nf, out]
-  const float* b5;      // [out]
-};
+// The widths run for nf: those of `base`, the smallest of 16, 32 and 64
+// that holds nf (zero-padded above nf).
+int nf_base(int nf) { return nf <= 16 ? 16 : nf <= 32 ? 32 : 64; }
+// Layer i's width (base * 16, 8, 4, 2, 1) and its first column in the
+// rel / cb rows (31 base columns in all).
+__host__ __device__ constexpr int width(int base, int i) {
+  return base << (4 - i);
+}
+__host__ __device__ constexpr int skip_offset(int base, int i) {
+  return base * (32 - (32 >> i));
+}
+// A ring slot: one k8 step of layer 1's columns, hi and lo planes.
+__host__ __device__ constexpr int slot_bytes(int base) {
+  return 8 * width(base, 1) * 8;
+}
+// H: h_1 (64 x width 1 f32), which the two h_0 chunks, h_2, h_3, h_4's
+// rows and the blended rows fit in.
+constexpr int h_bytes(int base) { return 4 * kRows * width(base, 1); }
+constexpr bool h_holds(int base) {
+  return 2 * 4 * kRows * kChunk <= h_bytes(base) &&
+         4 * (kRows * (base + 4) + kRows * base) <= h_bytes(base);
+}
+static_assert(h_holds(16) && h_holds(32) && h_holds(64),
+              "H holds the h_0 chunks, h_4's rows and the blend");
 
-// Padded sizes and the shared-memory plan (in floats); R1 starts at 0.
-struct Shape {
-  int c, cp, dim, nf, out_dim;
-  int w[5];     // layer widths, padded to kWidthAlign
-  int off[5];   // each layer's first column in rel / cb
-  int sp;       // sum of w
-  int ldh;      // row stride of H
-  int r2, f, fr, total;
+// Sizes and the shared-memory plan (bytes); the ring sits at 0.
+struct Plan {
+  int c, dim, nf, out_dim;
+  int base;       // nf_base(nf)
+  int kx;         // X columns: C, padded to 8
+  int stages;     // ring slots
+  int slot;       // bytes a slot
+  int x_bytes;    // the X buffer
+  int o_h, o_x, o_fr, o_bar, total;
+  long long weights;  // floats of the weight segments
+  long long image;    // and with rel [D, 31 base] and cb [2^D, 31 base]
 };
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
-int imax(int a, int b) { return a > b ? a : b; }
 
-Shape make_shape(int c, int dim, int nf, int out_dim) {
-  Shape s{};
-  s.c = c, s.cp = round_up(c, kKc), s.dim = dim, s.nf = nf;
-  s.out_dim = out_dim;
-  for (int i = 0, off = 0; i < 5; ++i) {
-    s.w[i] = round_up(nf << (4 - i), kWidthAlign);
-    s.off[i] = off;
-    off += s.w[i];
-    s.sp = off;
-  }
-  s.ldh = s.w[1] + 4;
-  // R1: H, or layer 1's two weight tiles. R2: layers 2-4's two weight
-  // tiles, or layer 0's two weight chunks and two split h_0 chunks.
-  const int r1 = imax(kRows * s.ldh, 2 * kKc * (s.w[1] + 8));
-  const int r2 = imax(2 * kKc * (s.w[2] + 8),
-                      2 * s.cp * kLdW0 + 4 * kRows * kLdH0);
-  s.r2 = r1;
-  s.f = r1 + r2;
-  s.fr = s.f + kRows * (s.cp + 4);
-  s.total = s.fr + kRows;
+Plan make_plan(int c, int dim, int nf, int out_dim) {
+  Plan s{};
+  s.c = c, s.dim = dim, s.nf = nf, s.out_dim = out_dim;
+  s.base = nf_base(nf);
+  s.kx = round_up(c, 8);
+  s.slot = slot_bytes(s.base);
+  s.weights = 0;
+  for (int i = 0; i < 5; ++i)
+    s.weights += 2LL * width(s.base, i) *
+                 (s.kx + (i ? width(s.base, i - 1) : 0));
+  s.image = s.weights + (long long)(dim + (1 << dim)) * 31 * s.base;
+  s.x_bytes = 4 * kRows * s.kx;
+  const int rest = h_bytes(s.base) + s.x_bytes + 2 * 4 * kRows;
+  const int st = (kMaxSmem - rest - 16) / (s.slot + 16);
+  // Fewer than kMinStages slots fit: the plan takes kMinStages anyway, so
+  // that its size passes 227 KB and the launch is refused.
+  s.stages = st < kMinStages ? kMinStages : st;
+  s.o_h = s.stages * s.slot;
+  s.o_x = s.o_h + h_bytes(s.base);
+  s.o_fr = s.o_x + s.x_bytes;
+  s.o_bar = s.o_fr + 2 * 4 * kRows;
+  s.total = s.o_bar + 16 * s.stages + 16;  // + X's barriers
   return s;
+}
+
+// --- PTX ---------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ int cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int n_clusters() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Arrive on the mbarrier at the same offset in CTA `cta` of the cluster
+// (release at CTA scope: what it orders, wgmma's reads of the slot, has
+// completed at wgmma.wait_group).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar,
+                                                   uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n"
+      "}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// `bytes` from global memory to the same offset in every CTA of the
+// cluster, each CTA's mbarrier at `bar` counting them.
+__device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src,
+                                               int bytes, uint32_t bar) {
+  const uint16_t mask = (uint16_t)((1u << kCluster) - 1);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// The consumer warpgroups' own barrier (the producer never waits on it).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kRegs));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int kN>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kN) : "memory");
+}
+
+// Keeps the compiler from reading a temporary before the wait that ends
+// the wgmmas writing it.
+template <int kR>
+__device__ __forceinline__ void fence_regs(float (&d)[kR]) {
+#pragma unroll
+  for (int i = 0; i < kR; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t tf32(float x) {
@@ -157,108 +358,519 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   return r;
 }
 
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
+// A K-major, no-swizzle shared-memory operand: 8-row x 16-byte core
+// matrices of 128 contiguous bytes, the two k halves of a k8 step 128
+// bytes apart (leading byte offset), 8-column groups 256 bytes apart.
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
 }
 
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+// m64nNk8, tf32 x tf32 -> f32, A from registers (its m64 x k8 fragment:
+// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) of each
+// warp's 16 rows), B from shared memory (K-major): D = A B + (scale_d ? D :
+// 0).
+__device__ __forceinline__ void wgmma_n8(float (&d)[4],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// d += a b for one k8 step in 3xTF32. The three products (the two small
-// ones first) accumulate in a zeroed temporary, which is then added to d
-// in f32 with round-to-nearest: the tensor cores' own accumulation
-// truncates, and fed d itself at every step it drifted 20x farther from
-// float64 than f32 FFMA (measured on an H100).
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  float p[4] = {0.f, 0.f, 0.f, 0.f};
-  mma(p, al, bh[0], bh[1]);
-  mma(p, ah, bl[0], bl[1]);
-  mma(p, ah, bh[0], bh[1]);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += p[e];
+__device__ __forceinline__ void wgmma_n16(float (&d)[8],
+                                          const uint32_t (&a)[4], uint64_t b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// The m16 x k8 A fragment at (row0, k0) of a row-major [*, ld] tile, split.
-__device__ __forceinline__ void load_a(const float* a, int ld, int row0,
-                                       int k0, int g, int t,
-                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  const float* p = a + (row0 + g) * ld + k0 + t;
-  split(p[0], hi[0], lo[0]);
-  split(p[8 * ld], hi[1], lo[1]);
-  split(p[4], hi[2], lo[2]);
-  split(p[8 * ld + 4], hi[3], lo[3]);
+__device__ __forceinline__ void wgmma_n32(float (&d)[16],
+                                          const uint32_t (&a)[4], uint64_t b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// The A fragment of a tile stored already split: hi and lo planes.
-__device__ __forceinline__ void load_a_split(const float* hp,
-                                             const float* lp, int ld,
-                                             int row0, int k0, int g, int t,
-                                             uint32_t (&hi)[4],
-                                             uint32_t (&lo)[4]) {
-  const int o = (row0 + g) * ld + k0 + t;
-  const int os[4] = {o, o + 8 * ld, o + 4, o + 8 * ld + 4};
+__device__ __forceinline__ void wgmma_n64(float (&d)[32],
+                                          const uint32_t (&a)[4], uint64_t b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2],
+                                      const uint32_t (&a)[4], uint64_t b,
+                                      int scale_d) {
+  if constexpr (N == 64) wgmma_n64(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_n32(d, a, b, scale_d);
+  else if constexpr (N == 16) wgmma_n16(d, a, b, scale_d);
+  else wgmma_n8(d, a, b, scale_d);
+}
+
+// --- the kernel ----------------------------------------------------------------
+
+// The ring's position, the same sequence in the producer and the consumers.
+struct Ring {
+  uint32_t slots, bars;  // slot 0; full[i] at bars + 8 i, empty after them
+  int n, stage, phase;
+  int bytes;             // a slot's
+  __device__ uint32_t full() const { return bars + 8 * stage; }
+  __device__ uint32_t empty() const { return bars + 8 * (n + stage); }
+  __device__ uint32_t slot() const { return slots + stage * bytes; }
+  // K rows a slot holds of a segment np columns wide (a multiple of 8).
+  __device__ int rows(int np) const { return bytes / (8 * np); }
+  __device__ void advance() {
+    if (++stage == n) stage = 0, phase ^= 1;
+  }
+};
+
+// The producer: every slot of every segment, tile after tile, its
+// 1 / kCluster slice multicast to the cluster once every consumer there
+// released the slot. The segments, in the consumers' order: layer 0's
+// first 64-column chunk; layer 1's X rows; then for each further chunk,
+// the chunk and the layer-1 rows of the chunk before it; layer 1's rows
+// of the last chunk; then layers 2-4, each its X rows and its h rows.
+__device__ __forceinline__ void produce(const Plan& s, const char* image,
+                                        Ring r, int iters, uint32_t rank) {
+  auto seg = [&](const char*& p, int np, int k) {
+    const int kd = r.rows(np);
+    for (int k0 = 0; k0 < k; k0 += kd) {
+      const int bytes = 8 * np * (k - k0 < kd ? k - k0 : kd);
+      const int slice = bytes / kCluster;
+      mbar_wait(r.empty(), r.phase ^ 1);
+      mbar_expect_tx(r.full(), bytes);
+      bulk_multicast(r.slot() + rank * slice, p + rank * slice, slice,
+                     r.full());
+      p += bytes;
+      r.advance();
+    }
+  };
+  const int nch = width(s.base, 0) / kChunk, w1 = width(s.base, 1);
+  for (int it = 0; it < iters; ++it) {
+    const char* p = image;
+    seg(p, kChunk, s.kx);
+    seg(p, w1, s.kx);
+#pragma unroll 1
+    for (int j = 0; j + 1 < nch; ++j) {
+      seg(p, kChunk, s.kx);
+      seg(p, w1, kChunk);
+    }
+    seg(p, w1, kChunk);
+    for (int layer = 2; layer < 5; ++layer) {
+      seg(p, width(s.base, layer), s.kx);
+      seg(p, width(s.base, layer), width(s.base, layer - 1));
+    }
+  }
+}
+
+// What a consumer thread knows.
+struct Consumer {
+  int ct;          // 0..255 over both consumer warpgroups
+  int q;           // warpgroup: which half of a layer's columns
+  int warp, lane;  // within the warpgroup
+  int act;
+  float ns;
+};
+
+// Index (in floats) of element (r, col) of a [kRows x K] operand stored in
+// the order of wgmma's A fragments: [k8 block][warp][lane][a0..a3].
+__device__ __forceinline__ int frag_index(int r, int col) {
+  const int kb = col >> 3, cc = col & 7, rr = r & 15;
+  return (((kb * 4 + (r >> 4)) * 32 + (rr & 7) * 4 + (cc & 3)) << 2) +
+         (rr >> 3) + 2 * (cc >> 2);
+}
+
+// A k8 step's A fragment, split into TF32 hi and lo.
+struct Frag {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ void load_frag(Frag& f, const float4* a, int kb,
+                                          const Consumer& c) {
+  const float4 v = a[(kb * 4 + c.warp) * 32 + c.lane];
+  const float x[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    hi[i] = __float_as_uint(hp[os[i]]);
-    lo[i] = __float_as_uint(lp[os[i]]);
+    f.hi[i] = tf32(x[i]);
+    f.lo[i] = tf32(x[i] - __uint_as_float(f.hi[i]));
   }
 }
 
-// The k8 x n8 B fragment at (k0, n0) of a row-major [K][ld] tile, split.
-// The weights' low part is passed unrounded (the tensor cores read its
-// top 10 mantissa bits): one conversion fewer per element, and no
-// measurable loss against float64 on an H100.
-__device__ __forceinline__ void load_b(const float* b, int ld, int k0,
-                                       int n0, int g, int t,
-                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-  const float* p = b + (k0 + t) * ld + n0 + g;
-  const float x[2] = {p[0], p[4 * ld]};
+// acc += [A0 | A1] @ B over this warpgroup's NWG columns of `parts`
+// consecutive segments 2 NWG wide (A0 k0 deep, then A1 k1 deep), whose
+// rows arrive in ring slots; each A in fragment order. Per k8 step and
+// BN-column block, the three products go into one of two temporaries
+// (wgmma's first product overwrites it), and the temporary is added to
+// acc once its products are done: block b's wgmmas fly while block
+// b - 1's temporary is added. One body for both parts keeps the code (and
+// ptxas's time) small. kNf: the widths' base, so that a slot's rows and
+// offsets are constants.
+template <int kNf, int NWG>
+__device__ __forceinline__ void mma_seg(float (&acc)[NWG / 2],
+                                        const float4* a0, int k0n,
+                                        const float4* a1, int k1n, int parts,
+                                        Ring& r, const Consumer& c) {
+  constexpr int BN = NWG < 64 ? NWG : 64, NB = NWG / BN, R = BN / 2;
+  constexpr int np = 2 * NWG;
+  constexpr int kSlot = slot_bytes(kNf), kd = kSlot / (8 * np);
+  float t[2][R];
+  for (int part = 0; part < parts; ++part) {
+    const float4* a = part ? a1 : a0;
+    const int k = part ? k1n : k0n;
+    for (int k0 = 0; k0 < k; k0 += kd) {
+      const int kn = k - k0 < kd ? k - k0 : kd;
+      mbar_wait(r.full(), r.phase);
+      // This warpgroup's first 8-column group in the hi plane of step 0.
+      const uint32_t base = r.slots + r.stage * kSlot + c.q * NWG * 32;
+      for (int s = 0; s < kn; s += 8) {
+        Frag f;
+        load_frag(f, a, (k0 + s) / 8, c);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    hi[i] = tf32(x[i]);
-    lo[i] = __float_as_uint(x[i] - __uint_as_float(hi[i]));
+        for (int b = 0; b < NB; ++b) {
+          wg_fence();
+          const uint32_t hi = base + s * 8 * np + b * BN * 32;
+          const uint32_t lo = hi + 32 * np;
+          wgmma<BN>(t[b & 1], f.lo, sdesc(hi), 0);
+          wgmma<BN>(t[b & 1], f.hi, sdesc(lo), 1);
+          wgmma<BN>(t[b & 1], f.hi, sdesc(hi), 1);
+          wg_commit();
+          if (b > 0) {
+            wg_wait<1>();  // block b - 1's products are done
+            fence_regs(t[(b - 1) & 1]);
+#pragma unroll
+            for (int i = 0; i < R; ++i)
+              acc[(b - 1) * R + i] += t[(b - 1) & 1][i];
+          }
+        }
+        wg_wait<0>();
+        fence_regs(t[(NB - 1) & 1]);
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          acc[(NB - 1) * R + i] += t[(NB - 1) & 1][i];
+      }
+      // Every product reading the slot is done: release it in every CTA.
+      if (c.warp == 0 && c.lane < kCluster)
+        mbar_arrive_remote(r.empty(), c.lane);
+      r.advance();
+    }
   }
 }
 
-__device__ __forceinline__ void cp16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+struct Relu {
+  __device__ float operator()(float x) const { return fmaxf(x, 0.f); }
+};
+struct LeakyRelu {
+  float ns;
+  __device__ float operator()(float x) const { return x >= 0.f ? x : ns * x; }
+};
+struct Identity {
+  __device__ float operator()(float x) const { return x; }
+};
 
-// Rows [k0, k0 + kKc) of a row-major [*, w] matrix -> dst [kKc][w + 8].
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int k0, int w) {
-  const int q = w >> 2;
-  for (int i = threadIdx.x; i < kKc * q; i += kThreads) {
-    const int r = i / q, c4 = i - r * q;
-    cp16(dst + r * (w + 8) + 4 * c4, src + (size_t)(k0 + r) * w + 4 * c4);
+// act(acc) of this warpgroup's NWG columns, stored at h in fragment order:
+// the next layer's A, k permuted within each 8-column block (columns 2t,
+// 2t + 1 are its k = t, t + 4).
+template <int NWG, typename Act>
+__device__ __forceinline__ void store_frag_act(const float (&acc)[NWG / 2],
+                                               float4* h, const Consumer& c,
+                                               Act act) {
+#pragma unroll
+  for (int j = 0; j < NWG / 8; ++j) {
+    const int kb = c.q * (NWG / 8) + j;
+    h[(kb * 4 + c.warp) * 32 + c.lane] =
+        make_float4(act(acc[4 * j]), act(acc[4 * j + 2]),
+                    act(acc[4 * j + 1]), act(acc[4 * j + 3]));
   }
 }
 
-// Columns [c0, c0 + kKc) of a row-major [rows, w] matrix -> dst
-// [rows][kLdW0].
-__device__ __forceinline__ void stage_cols(float* dst, const float* src,
-                                           int rows, int c0, int w) {
-  for (int i = threadIdx.x; i < rows * (kKc / 4); i += kThreads) {
-    const int r = i >> 3, c4 = i & 7;
-    cp16(dst + r * kLdW0 + 4 * c4, src + (size_t)r * w + c0 + 4 * c4);
+// act(acc) as f32 rows [kRows][ld] (layer 4, for the blend).
+template <int NWG, typename Act>
+__device__ __forceinline__ void store_rows_act(const float (&acc)[NWG / 2],
+                                               float* h, int ld,
+                                               const Consumer& c, Act act) {
+  const int g = c.lane >> 2, t = c.lane & 3;
+#pragma unroll
+  for (int j = 0; j < NWG / 8; ++j) {
+    const int col = c.q * NWG + 8 * j + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = 16 * c.warp + g + 8 * half;
+      *reinterpret_cast<float2*>(h + row * ld + col) =
+          make_float2(act(acc[4 * j + 2 * half]),
+                      act(acc[4 * j + 2 * half + 1]));
+    }
+  }
+}
+
+// activate() over the values this thread stored (the other activations'
+// path): one rolled loop, so the switch's code is there once and not once
+// for each of the NWG / 2 values (which took ptxas minutes a store).
+template <int NWG, bool kRowsOut>
+__device__ __forceinline__ void activate_own(void* h, int ld,
+                                             const Consumer& c) {
+  const int g = c.lane >> 2, t = c.lane & 3;
+#pragma unroll 1
+  for (int e = 0; e < NWG / 2; ++e) {
+    const int j = e >> 2, v = e & 3;
+    float* p;
+    if (kRowsOut)
+      p = static_cast<float*>(h) + (16 * c.warp + g + 8 * (v >> 1)) * ld +
+          c.q * NWG + 8 * j + 2 * t + (v & 1);
+    else
+      p = static_cast<float*>(h) +
+          (((c.q * (NWG / 8) + j) * 4 + c.warp) * 32 + c.lane) * 4 + v;
+    *p = activate(*p, c.act, c.ns);
+  }
+}
+
+// The store with the activation as a functor, so that the unrolled loop
+// runs only its own code; relu and leaky_relu are applied as the values
+// are stored, any other activation afterwards by activate_own. Only the
+// stores sit under the branch.
+template <int NWG, bool kRowsOut>
+__device__ __forceinline__ void store(const float (&acc)[NWG / 2], void* h,
+                                      int ld, const Consumer& c) {
+  auto go = [&](auto act) {
+    if constexpr (kRowsOut)
+      store_rows_act<NWG>(acc, static_cast<float*>(h), ld, c, act);
+    else
+      store_frag_act<NWG>(acc, static_cast<float4*>(h), c, act);
+  };
+  if (c.act == 1) {
+    go(LeakyRelu{c.ns});
+  } else if (c.act == 0) {
+    go(Relu{});
+  } else {
+    go(Identity{});
+    activate_own<NWG, kRowsOut>(h, ld, c);
+  }
+}
+
+// Where a tile's skip term comes from: rel [D, 31 base] and cb [2^D, 31
+// base] (each layer's columns at its offset) and the tile's frac [ppt][D]
+// in shared memory.
+struct Skip {
+  const float* rel;
+  const float* cb;
+  const float* fr;
+  int dim;
+};
+
+// acc = frac @ Wx_rel + corner_bias over this warpgroup's NWG columns of
+// the columns starting at `off`, in f32: the corner bias loaded straight
+// into acc, then each coordinate's product added in order. The loads are
+// issued in batches (all coordinates at once for NWG <= 64, predicated to
+// D; one coordinate at a time above, for the registers): each batch costs
+// one trip to L2, and the layer-0 chunks take 16 of these a tile.
+template <int kNf, int NWG>
+__device__ __forceinline__ void init_skip(float (&acc)[NWG / 2],
+                                          const Skip& k, int off,
+                                          const Consumer& c) {
+  constexpr int J = NWG / 8, ld = 31 * kNf;
+  const int g = c.lane >> 2, t = c.lane & 3, dim = k.dim;
+  const int col0 = off + c.q * NWG + 2 * t;
+  const float* f[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = 16 * c.warp + g + 8 * half;
+    f[half] = k.fr + (row >> dim) * dim;
+    const float* cb = k.cb + (size_t)(row & ((1 << dim) - 1)) * ld + col0;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(cb + 8 * j));
+      acc[4 * j + 2 * half] = v.x;
+      acc[4 * j + 2 * half + 1] = v.y;
+    }
+  }
+  auto add = [&](int d, const float2 (&w)[J]) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        acc[4 * j + 2 * half] += f[half][d] * w[j].x;
+        acc[4 * j + 2 * half + 1] += f[half][d] * w[j].y;
+      }
+  };
+  if constexpr (NWG <= 64) {
+    float2 w[kMaxDim][J];
+#pragma unroll
+    for (int d = 0; d < kMaxDim; ++d)
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        w[d][j] = d < dim ? __ldg(reinterpret_cast<const float2*>(
+                                k.rel + (size_t)d * ld + col0 + 8 * j))
+                          : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int d = 0; d < kMaxDim; ++d)
+      if (d < dim) add(d, w[d]);
+  } else {
+    for (int d = 0; d < dim; ++d) {
+      float2 w[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        w[j] = __ldg(reinterpret_cast<const float2*>(
+            k.rel + (size_t)d * ld + col0 + 8 * j));
+      add(d, w);
+    }
+  }
+}
+
+// h_0's chunk j (64 columns) from X into h0c (fragment order, 8 k8
+// blocks): each warpgroup its 32 columns.
+template <int kNf>
+__device__ __forceinline__ void h0_chunk(const float4* x, float4* h0c,
+                                         int j, const Plan& s,
+                                         const Skip& k, Ring& r,
+                                         const Consumer& c) {
+  float acc[kN0 / 2];
+  init_skip<kNf, kN0>(acc, k, kChunk * j, c);
+  mma_seg<kNf, kN0>(acc, x, s.kx, x, 0, 1, r, c);
+  store<kN0, false>(acc, h0c, 0, c);
+}
+
+// Layer i >= 2 (columns from `off` of rel / cb): X rows, then h_{i-1}
+// from H; h_i over H once both warpgroups are done reading it (as rows for
+// layer 4).
+template <int kNf, int NWG>
+__device__ __forceinline__ void layer(float4* h, const float4* x,
+                                      const Plan& s, int i, int off,
+                                      const Skip& k, Ring& r,
+                                      const Consumer& c, uint32_t xempty) {
+  float acc[NWG / 2];
+  init_skip<kNf, NWG>(acc, k, off, c);
+  mma_seg<kNf, NWG>(acc, x, s.kx, h, width(kNf, i - 1), 2, r, c);
+  consumer_sync();
+  if (i == 4) {
+    if (c.ct == 0) mbar_arrive(xempty);  // X is free for the next tile
+    store<NWG, true>(acc, h, width(kNf, 4) + 4, c);
+  } else {
+    store<NWG, false>(acc, h, 0, c);
+  }
+  consumer_sync();
+}
+
+// kNf: the widths' base (Plan::base).
+template <int kNf>
+__device__ __forceinline__ void consume(const Plan& s, unsigned char* smem,
+                                        Ring r, uint32_t xbars, int iters,
+                                        long long first, long long stride,
+                                        const float* image, const float* w5,
+                                        const float* b5, float* out, int n,
+                                        int act, float ns) {
+  Consumer c;
+  c.ct = threadIdx.x - 128;
+  c.q = c.ct >> 7;
+  c.warp = (c.ct & 127) >> 5;
+  c.lane = c.ct & 31;
+  c.act = act;
+  c.ns = ns;
+  // A warpgroup's columns of layers 1-4 (each layer's width / 2) and of
+  // a layer-0 chunk.
+  constexpr int kN1 = width(kNf, 1) / 2, kN2 = kN1 / 2, kN3 = kN2 / 2,
+                kN4 = kN3 / 2;
+  float4* h = reinterpret_cast<float4*>(smem + s.o_h);
+  float4* h0c = h;  // two 16 KB chunk buffers at H's start, in layer 1
+  constexpr int kChunkF4 = kRows * kChunk / 4;
+  const float4* x = reinterpret_cast<const float4*>(smem + s.o_x);
+  const int dim = s.dim, nk = 1 << dim, ppt = kRows >> dim, nf = s.nf;
+  constexpr int nch = width(kNf, 0) / kChunk;
+  Skip sk;
+  sk.rel = image + s.weights;
+  sk.cb = sk.rel + (size_t)dim * 31 * kNf;
+  sk.dim = dim;
+  for (int it = 0; it < iters; ++it) {
+    const long long tile = first + it * stride;
+    const float* fr = reinterpret_cast<const float*>(smem + s.o_fr) +
+                      (it & 1) * kRows;
+    sk.fr = fr;
+    mbar_wait(xbars, it & 1);  // X and frac hold this tile
+
+    // Layer 1 with layer 0 fused: K runs over X, then h_0 chunk by chunk.
+    // Step j computes chunk j (j < nch) into buffer j & 1, then runs
+    // layer 1's products over X (j = 0) or chunk j - 1.
+    {
+      float acc[kN1 / 2];
+      init_skip<kNf, kN1>(acc, sk, skip_offset(kNf, 1), c);
+#pragma unroll 1
+      for (int j = 0; j <= nch; ++j) {
+        if (j < nch)
+          h0_chunk<kNf>(x, h0c + (j & 1) * kChunkF4, j, s, sk, r, c);
+        mma_seg<kNf, kN1>(acc, j ? h0c + ((j - 1) & 1) * kChunkF4 : x,
+                          j ? kChunk : s.kx, x, 0, 1, r, c);
+        consumer_sync();
+      }
+      store<kN1, false>(acc, h, 0, c);
+      consumer_sync();
+    }
+    layer<kNf, kN2>(h, x, s, 2, skip_offset(kNf, 2), sk, r, c, xbars + 8);
+    layer<kNf, kN3>(h, x, s, 3, skip_offset(kNf, 3), sk, r, c, xbars + 8);
+    layer<kNf, kN4>(h, x, s, 4, skip_offset(kNf, 4), sk, r, c, xbars + 8);
+
+    // h_4 rows are in H: blend the corners into hb after them, then the
+    // head, f32 throughout.
+    const float* h4 = reinterpret_cast<const float*>(h);
+    const int ld4 = width(kNf, 4) + 4;
+    float* hb = reinterpret_cast<float*>(h) + kRows * ld4;
+    for (int i = c.ct; i < ppt * nf; i += kConsumerThreads) {
+      const int pp = i / nf, j = i - pp * nf;
+      float v = 0.f;
+      for (int k = 0; k < nk; ++k) {
+        float wk = 1.f;
+        for (int d = 0; d < dim; ++d) {
+          const float f = fr[pp * dim + d];
+          wk *= ((k >> (dim - 1 - d)) & 1) ? f : 1.f - f;
+        }
+        v += h4[(pp * nk + k) * ld4 + j] * wk;
+      }
+      hb[i] = v;
+    }
+    consumer_sync();
+    const int warp = c.ct >> 5;
+    for (int i = warp; i < ppt * s.out_dim; i += kConsumerThreads / 32) {
+      const int pp = i / s.out_dim, o = i - pp * s.out_dim;
+      float v = 0.f;
+      for (int j = c.lane; j < nf; j += 32)
+        v += hb[pp * nf + j] * __ldg(w5 + (size_t)j * s.out_dim + o);
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, m);
+      const long long gp = tile * ppt + pp;
+      if (c.lane == 0 && gp < n)
+        out[(size_t)gp * s.out_dim + o] = v + __ldg(b5 + o);
+    }
+    consumer_sync();  // H is free for the next tile's h_0 chunks
   }
 }
 
@@ -266,382 +878,229 @@ __device__ __forceinline__ float nan_f32() {
   return __int_as_float(0x7fc00000);
 }
 
-// The block's frac [ppb][D], 0 past point n.
-__device__ __forceinline__ void stage_frac(float* fr, const float* frac,
-                                           int p0, int n, int dim) {
-  const int ppb = kRows >> dim;
-  for (int i = threadIdx.x; i < ppb * dim; i += kThreads) {
-    const int gp = p0 + i / dim;
-    fr[i] = gp < n ? frac[(size_t)p0 * dim + i] : 0.f;
-  }
-}
-
-// The block's corner latents -> feats [kRows][ldf]: row r is corner
-// r & (2^D - 1) of point p0 + (r >> D), from row cell_flat[p] of the
-// cell-major table (kGather; NaN for a cell outside [0, n_cells)) or from
-// the pre-gathered rows; 0 past point n and in the padding columns.
+// Tile `tile`'s X [kRows][kx] (fragment order) and frac [ppt][D]: row r is
+// corner r & (2^D - 1) of point tile ppt + (r >> D), its latents from row
+// cell_flat[p] of the cell-major table (kGather; NaN for a cell outside
+// [0, n_cells)) or from the pre-gathered rows, then zeros; all 0 past
+// point n. The latents go by 4-byte cp.async (the caller waits). Thread t
+// of kXThreads.
 template <bool kGather>
-__device__ __forceinline__ void stage_feats(float* feats, int ldf,
-                                            const float* src,
-                                            const int* cell_flat, int p0,
-                                            int n, int n_cells, int c, int cp,
-                                            int dim) {
-  const int n_corners = 1 << dim;
-  for (int i = threadIdx.x; i < kRows * cp; i += kThreads) {
-    const int r = i / cp, ch = i - r * cp;
-    const int gp = p0 + (r >> dim), k = r & (n_corners - 1);
-    float v = 0.f;
-    if (gp < n && ch < c) {
+__device__ __forceinline__ void stage_x(float* x, float* fr,
+                                        const float* __restrict__ src,
+                                        const int* __restrict__ cell_flat,
+                                        const float* __restrict__ frac,
+                                        long long tile, int n, int n_cells,
+                                        const Plan& s, int t) {
+  const int dim = s.dim, nk = 1 << dim, ppt = kRows >> dim;
+  const long long p0 = tile * ppt;
+  for (int i = t; i < ppt * dim; i += kXThreads)
+    fr[i] = p0 + i / dim < n ? frac[p0 * dim + i] : 0.f;
+#pragma unroll 4
+  for (int i = t; i < kRows * s.c; i += kXThreads) {
+    const int r = i / s.c, ch = i - r * s.c;
+    const long long gp = p0 + (r >> dim);
+    const int k = r & (nk - 1);
+    float* d = x + frag_index(r, ch);
+    const float* g = nullptr;
+    bool bad = false;
+    if (gp < n) {
       if (kGather) {
         const int cell = cell_flat[gp];
-        v = (cell >= 0 && cell < n_cells)
-                ? src[((size_t)cell * n_corners + k) * c + ch]
-                : nan_f32();
+        bad = cell < 0 || cell >= n_cells;
+        if (!bad) g = src + ((size_t)cell * nk + k) * s.c;
       } else {
-        v = src[((size_t)gp * n_corners + k) * c + ch];
+        g = src + ((size_t)gp * nk + k) * s.c;
       }
     }
-    feats[r * ldf + ch] = v;
-  }
-}
-
-// The last layer's f32 h [kRows][ldh] blended over the corners with the
-// multilinear weights of fr -> hb [ppb][nf].
-__device__ __forceinline__ void blend_corners(float* hb, const float* h,
-                                              int ldh, const float* fr,
-                                              int nf, int dim) {
-  const int n_corners = 1 << dim, ppb = kRows >> dim;
-  for (int i = threadIdx.x; i < ppb * nf; i += kThreads) {
-    const int pp = i / nf, j = i - pp * nf;
-    float v = 0.f;
-    for (int k = 0; k < n_corners; ++k) {
-      float w = 1.f;
-      for (int d = 0; d < dim; ++d) {
-        const float f = fr[pp * dim + d];
-        w *= ((k >> (dim - 1 - d)) & 1) ? f : 1.f - f;
-      }
-      v += h[(pp * n_corners + k) * ldh + j] * w;
-    }
-    hb[i] = v;
-  }
-}
-
-// The head, out[p] = hb[p] @ w5 + b5: one warp per (point, output), lanes
-// over nf, f32 sums, b5 f32.
-__device__ __forceinline__ void head(float* out, const float* hb,
-                                     const float* w5, const float* b5, int p0,
-                                     int n, int nf, int out_dim, int dim) {
-  const int ppb = kRows >> dim;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < ppb * out_dim; i += kThreads / 32) {
-    const int pp = i / out_dim, o = i - pp * out_dim;
-    float v = 0.f;
-    for (int j = lane; j < nf; j += 32)
-      v += hb[pp * nf + j] * __ldg(w5 + (size_t)j * out_dim + o);
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-    const int gp = p0 + pp;
-    if (lane == 0 && gp < n) out[(size_t)gp * out_dim + o] = v + __ldg(b5 + o);
-  }
-}
-
-// Coordinate term and corner bias of row `row` at columns col, col + 1
-// (absolute columns of rel / cb).
-__device__ __forceinline__ float2 skip_bias(const Weights& wt,
-                                            const Shape& s, const float* fr,
-                                            int row, int col) {
-  const int pp = row >> s.dim, k = row & ((1 << s.dim) - 1);
-  float2 v = __ldg(reinterpret_cast<const float2*>(
-      wt.cb + (size_t)k * s.sp + col));
-  for (int d = 0; d < s.dim; ++d) {
-    const float f = fr[pp * s.dim + d];
-    const float2 r = __ldg(reinterpret_cast<const float2*>(
-        wt.rel + (size_t)d * s.sp + col));
-    v.x += f * r.x;
-    v.y += f * r.y;
-  }
-  return v;
-}
-
-using Acc = float[2][kMaxNt][4];
-
-__device__ __forceinline__ void zero(Acc& acc) {
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < kMaxNt; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
-}
-
-// acc += A[a_row0 : +32, a_k0 : +kKc] @ B[0 : kKc, b_col0 : +8 nt] for the
-// warp's two m-tiles and nt n-tiles. kSplit: A is stored as hi and lo
-// planes (lo at a + a_plane), else as f32 and split here.
-template <bool kSplit>
-__device__ __forceinline__ void mma_tile(Acc& acc, const float* a, int lda,
-                                         int a_plane, int a_row0, int a_k0,
-                                         const float* b, int ldb, int b_col0,
-                                         int nt, int g, int t) {
-#pragma unroll
-  for (int ks = 0; ks < kKc; ks += 8) {
-    uint32_t ah[2][4], al[2][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      if (kSplit)
-        load_a_split(a, a + a_plane, lda, a_row0 + 16 * m, a_k0 + ks, g, t,
-                     ah[m], al[m]);
-      else
-        load_a(a, lda, a_row0 + 16 * m, a_k0 + ks, g, t, ah[m], al[m]);
-    }
-#pragma unroll
-    for (int j = 0; j < kMaxNt; ++j) {
-      if (j < nt) {
-        uint32_t bh[2], bl[2];
-        load_b(b, ldb, ks, b_col0 + 8 * j, g, t, bh, bl);
-        mma3(acc[0][j], ah[0], al[0], bh, bl);
-        mma3(acc[1][j], ah[1], al[1], bh, bl);
-      }
-    }
-  }
-}
-
-// h[row][col] = act(acc + skip terms) for the warp's tile of a layer whose
-// columns start at `off` in rel / cb.
-__device__ __forceinline__ void store_layer(const Acc& acc, float* h,
-                                            const Shape& s,
-                                            const Weights& wt,
-                                            const float* fr, int off, int nt,
-                                            int wm, int wn, int g, int t,
-                                            int act, float ns) {
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < kMaxNt; ++j) {
-      if (j >= nt) continue;
-      const int col = (wn * nt + j) * 8 + 2 * t;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = wm * 32 + m * 16 + g + 8 * half;
-        const float2 b = skip_bias(wt, s, fr, row, off + col);
-        *reinterpret_cast<float2*>(h + row * s.ldh + col) = make_float2(
-            activate(acc[m][j][2 * half] + b.x, act, ns),
-            activate(acc[m][j][2 * half + 1] + b.y, act, ns));
-      }
-    }
-}
-
-// Columns [kc, kc + kKc) of h_0 for all kRows rows -> h0c, split once into
-// a TF32 hi plane and a lo plane [kRows][kLdH0] each (layer 1 reads every
-// element from 8 warps), from the latents and the staged chunk w0s
-// [Cp][kLdW0]. Warp w owns the 16 x 8 tile (w / 4, w % 4).
-__device__ __forceinline__ void layer0_chunk(const float* feats, int ldf,
-                                             const float* w0s, float* h0c,
-                                             const Shape& s,
-                                             const Weights& wt,
-                                             const float* fr, int kc,
-                                             int warp, int g, int t, int act,
-                                             float ns) {
-  const int row0 = (warp >> 2) * 16, col0 = (warp & 3) * 8;
-  float c0[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-  for (int k0 = 0; k0 < s.cp; k0 += 8) {
-    uint32_t ah[4], al[4], bh[2], bl[2];
-    load_a(feats, ldf, row0, k0, g, t, ah, al);
-    load_b(w0s, kLdW0, k0, col0, g, t, bh, bl);
-    mma3(c0, ah, al, bh, bl);
-  }
-  const int col = col0 + 2 * t;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + g + 8 * half;
-    const float2 b = skip_bias(wt, s, fr, row, kc + col);
-    const float v[2] = {activate(c0[2 * half] + b.x, act, ns),
-                        activate(c0[2 * half + 1] + b.y, act, ns)};
-    uint32_t hi[2], lo[2];
-    split(v[0], hi[0], lo[0]);
-    split(v[1], hi[1], lo[1]);
-    float* o = h0c + row * kLdH0 + col;
-    *reinterpret_cast<float2*>(o) =
-        make_float2(__uint_as_float(hi[0]), __uint_as_float(hi[1]));
-    *reinterpret_cast<float2*>(o + kRows * kLdH0) =
-        make_float2(__uint_as_float(lo[0]), __uint_as_float(lo[1]));
-  }
-}
-
-template <bool kGather>
-__global__ void __launch_bounds__(kThreads, 1)
-decode_blend_kernel(const float* __restrict__ src,      // table or feats2
-                    const int* __restrict__ cell_flat,  // gather only
-                    const float* __restrict__ frac,     // [N, D]
-                    Weights wt, float* __restrict__ out, int n, int n_cells,
-                    Shape s, int act_code, float ns) {
-  extern __shared__ __align__(16) float smem[];
-  float* r1 = smem;                  // H, or layer 1's weight tiles
-  float* r2 = smem + s.r2;           // weight tiles of layers 0 and 2-4
-  float* feats = smem + s.f;         // [kRows][Cp + 4]
-  float* fr = smem + s.fr;           // [ppb][D]
-  float* w0s = r2;                   // [2][Cp][kLdW0]
-  float* h0c = r2 + 2 * s.cp * kLdW0;  // [2][hi, lo][kRows][kLdH0]
-  constexpr int kPlane = kRows * kLdH0;
-  const int ldf = s.cp + 4;
-  const int ppb = kRows >> s.dim;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3, wm = warp / kWarpsN,
-            wn = warp % kWarpsN;
-  const int p0 = blockIdx.x * ppb;
-
-  // Layer 1's first weight tile and layer 0's first two chunks fly while
-  // the latents load.
-  const int ld1 = s.w[1] + 8, nh = s.w[0] / kKc;
-  stage_rows(r1, wt.wb[0], 0, s.w[1]);
-  stage_cols(w0s, wt.wx0, s.cp, 0, s.w[0]);
-  if (nh > 1) stage_cols(w0s + s.cp * kLdW0, wt.wx0, s.cp, kKc, s.w[0]);
-  cp_commit();
-  stage_frac(fr, frac, p0, n, s.dim);
-  stage_feats<kGather>(feats, ldf, src, cell_flat, p0, n, n_cells,
-                              s.c, s.cp, s.dim);
-
-  cp_wait_all();
-  __syncthreads();
-  layer0_chunk(feats, ldf, w0s, h0c, s, wt, fr, 0, warp, g, t, act_code, ns);
-
-  // Layer 1, layer 0 fused: K runs over h_0 and then the latents. Chunk j
-  // of h_0 was computed in the step before; this step computes chunk j + 1
-  // (its weights staged two steps ahead) beside the products of chunk j.
-  Acc acc;
-  zero(acc);
-  int nt = s.w[1] / (8 * kWarpsN);
-  const int n1 = (s.w[0] + s.cp) / kKc;
-  for (int j = 0; j < n1; ++j) {
-    if (j > 0) cp_wait_all();
-    __syncthreads();
-    if (j + 1 < n1)
-      stage_rows(r1 + ((j + 1) & 1) * kKc * ld1, wt.wb[0], (j + 1) * kKc,
-                 s.w[1]);
-    if (j + 2 < nh)
-      stage_cols(w0s + (j & 1) * s.cp * kLdW0, wt.wx0, s.cp, (j + 2) * kKc,
-                 s.w[0]);
-    cp_commit();
-    if (j + 1 < nh)
-      layer0_chunk(feats, ldf, w0s + ((j + 1) & 1) * s.cp * kLdW0,
-                   h0c + ((j + 1) & 1) * 2 * kPlane, s, wt, fr,
-                   (j + 1) * kKc, warp, g, t, act_code, ns);
-    const float* bst = r1 + (j & 1) * kKc * ld1;
-    if (j < nh)
-      mma_tile<true>(acc, h0c + (j & 1) * 2 * kPlane, kLdH0, kPlane, wm * 32,
-                     0, bst, ld1, wn * nt * 8, nt, g, t);
+    if (g)
+      cp4(d, g + ch);
     else
-      mma_tile<false>(acc, feats, ldf, 0, wm * 32, j * kKc - s.w[0], bst,
-                      ld1, wn * nt * 8, nt, g, t);
+      *d = bad ? nan_f32() : 0.f;
   }
-  __syncthreads();
-  stage_rows(r2, wt.wb[1], 0, s.w[2]);
-  cp_commit();
-  store_layer(acc, r1, s, wt, fr, s.off[1], nt, wm, wn, g, t, act_code, ns);
-
-  // Layers 2-4: A runs over H (h_{i-1}) and then the latents.
-#pragma unroll 1
-  for (int layer = 2; layer < 5; ++layer) {
-    const int wprev = s.w[layer - 1], w = s.w[layer], ld = w + 8;
-    const int nk = (wprev + s.cp) / kKc;
-    const float* wb = wt.wb[layer - 1];
-    nt = w / (8 * kWarpsN);
-    zero(acc);
-    for (int j = 0; j < nk; ++j) {
-      const int kc = j * kKc;
-      cp_wait_all();
-      __syncthreads();
-      if (j + 1 < nk) {
-        stage_rows(r2 + ((j + 1) & 1) * kKc * ld, wb, kc + kKc, w);
-        cp_commit();
-      }
-      const bool from_h = kc < wprev;
-      mma_tile<false>(acc, from_h ? r1 : feats, from_h ? s.ldh : ldf, 0,
-                      wm * 32, from_h ? kc : kc - wprev,
-                      r2 + (j & 1) * kKc * ld, ld, wn * nt * 8, nt, g, t);
-    }
-    __syncthreads();
-    if (layer < 4) {
-      stage_rows(r2, wt.wb[layer], 0, s.w[layer + 1]);
-      cp_commit();
-    }
-    store_layer(acc, r1, s, wt, fr, s.off[layer], nt, wm, wn, g, t,
-                act_code, ns);
-  }
-  __syncthreads();
-
-  // h_4 is in H; blend the corners into hb = R2 [ppb][nf], then the head.
-  float* hb = r2;
-  blend_corners(hb, r1, s.ldh, fr, s.nf, s.dim);
-  __syncthreads();
-  head(out, hb, wt.w5, wt.b5, p0, n, s.nf, s.out_dim, s.dim);
+  const int na = s.kx - s.c;
+  for (int i = t; i < kRows * na; i += kXThreads)
+    x[frag_index(i / na, s.c + i % na)] = 0.f;
 }
 
+// Warps 1-3 of warpgroup 0: each tile's X once the consumers are done with
+// the previous tile's (X's empty barrier), and its frac into the buffer
+// the blend of the tile before does not read; then X's full barrier.
 template <bool kGather>
-int launch(const float* src, const int* cell_flat, const float* frac,
-           const Weights& wt, float* out, int n, int n_cells, int c, int dim,
-           int nf, int out_dim, int act_code, float ns, void* stream) {
-  if (n <= 0) return 0;
-  if (dim < 1 || (1 << dim) > kRows) return (int)cudaErrorInvalidValue;
-  const Shape s = make_shape(c, dim, nf, out_dim);
-  const size_t smem = sizeof(float) * (size_t)s.total;
+__device__ __forceinline__ void load_x(const Plan& s, unsigned char* smem,
+                                       uint32_t xbars, int iters,
+                                       long long first, long long stride,
+                                       const float* src, const int* cell_flat,
+                                       const float* frac, int n, int n_cells,
+                                       int t) {
+  for (int it = 0; it < iters; ++it) {
+    mbar_wait(xbars + 8, (it & 1) ^ 1);  // X is free
+    stage_x<kGather>(reinterpret_cast<float*>(smem + s.o_x),
+                     reinterpret_cast<float*>(smem + s.o_fr) +
+                         (it & 1) * kRows,
+                     src, cell_flat, frac, first + it * stride, n, n_cells,
+                     s, t);
+    cp_commit_wait_all();
+    mbar_arrive(xbars);
+  }
+}
+
+// kGather: the gather entry (src: the cell-major table), else the
+// pre-gathered one (src: feats2 rows); kNf: the widths' base.
+template <int kNf, bool kGather>
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kThreads, 1)
+    decode_blend_kernel(const float* __restrict__ src,
+                        const int* __restrict__ cell_flat,
+                        const float* __restrict__ frac,
+                        const float* __restrict__ image,
+                        const float* __restrict__ w5,
+                        const float* __restrict__ b5,
+                        float* __restrict__ out, int n, int n_cells, Plan s,
+                        int act, float ns) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t rank = cluster_rank();
+  const int ppt = kRows >> s.dim;
+  const long long n_tiles = ((long long)n + ppt - 1) / ppt;
+  const long long groups = (n_tiles + kCluster - 1) / kCluster;
+  const int cid = cluster_id(), ncl = n_clusters();
+  const int iters =
+      cid < groups ? (int)((groups - cid + ncl - 1) / ncl) : 0;
+  Ring r{smem_u32(smem), smem_u32(smem + s.o_bar), s.stages, 0, 0, s.slot};
+  // X's barriers after the ring's: full (the loader warps arrive), then
+  // empty (a consumer arrives when the tile's layers are done with X).
+  const uint32_t xbars = r.bars + 16 * s.stages;
+  const long long first = (long long)cid * kCluster + rank;
+  const long long stride = (long long)ncl * kCluster;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < s.stages; ++i) {
+      mbar_init(r.bars + 8 * i, 1);
+      mbar_init(r.bars + 8 * (s.stages + i), kConsumers * kCluster);
+    }
+    mbar_init(xbars, kXThreads);
+    mbar_init(xbars + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();  // every CTA's barriers are set before any copy or arrive
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0)
+      produce(s, reinterpret_cast<const char*>(image), r, iters, rank);
+    else if (threadIdx.x >= 32)
+      load_x<kGather>(s, smem, xbars, iters, first, stride, src, cell_flat,
+                      frac, n, n_cells, threadIdx.x - 32);
+    cluster_sync();
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    consume<kNf>(s, smem, r, xbars, iters, first, stride, image, w5, b5, out,
+                 n, act, ns);
+    cluster_sync();  // no peer still multicasts or arrives into this CTA
+  }
+}
+
+// Clusters that fit on the card at once at this plan (cached per kernel and
+// shared-memory size).
+template <int kNf, bool kGather>
+int max_clusters(int smem, cudaError_t& e) {
+  static int cached_smem = -1, cached = 0;
+  e = cudaSuccess;
+  if (smem == cached_smem) return cached;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * 64, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  int m = 0;
+  e = cudaOccupancyMaxActiveClusters(&m, decode_blend_kernel<kNf, kGather>,
+                                     &cfg);
+  if (e != cudaSuccess) return 0;
+  cached_smem = smem, cached = m;
+  return m;
+}
+
+template <int kNf, bool kGather>
+int launch_at(const Plan& s, const float* src, const int* cell_flat,
+              const float* frac, const float* image, const float* w5,
+              const float* b5, float* out, int n, int n_cells, int act,
+              float ns, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      decode_blend_kernel<kGather>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      decode_blend_kernel<kNf, kGather>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, s.total);
+  int clusters = e == cudaSuccess ? max_clusters<kNf, kGather>(s.total, e)
+                                  : 0;
+  if (e == cudaSuccess && clusters < 1) e = cudaErrorInvalidConfiguration;
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it, or the next launch would report it
     return (int)e;
   }
-  if (s.w[1] > kWidthAlign * kMaxNt) return (int)cudaErrorInvalidValue;
-  const int ppb = kRows >> dim;
-  const unsigned blocks = (unsigned)((n + ppb - 1) / ppb);
-  decode_blend_kernel<kGather><<<blocks, kThreads, smem,
-                                 (cudaStream_t)stream>>>(
-      src, cell_flat, frac, wt, out, n, n_cells, s, act_code, ns);
+  const int ppt = kRows >> s.dim;
+  const long long groups =
+      (((long long)n + ppt - 1) / ppt + kCluster - 1) / kCluster;
+  if (groups < clusters) clusters = (int)groups;
+  decode_blend_kernel<kNf, kGather><<<clusters * kCluster, kThreads, s.total,
+                                      stream>>>(
+      src, cell_flat, frac, image, w5, b5, out, n, n_cells, s, act, ns);
   return (int)cudaGetLastError();
 }
 
-Weights pack(const float* wx0, const float* rel, const float* cb,
-             const float* wb1, const float* wb2, const float* wb3,
-             const float* wb4, const float* w5, const float* b5) {
-  return Weights{wx0, rel, cb, {wb1, wb2, wb3, wb4}, w5, b5};
+template <bool kGather>
+int launch(const float* src, const int* cell_flat, const float* frac,
+           const float* image, long long image_elems, const float* w5,
+           const float* b5, float* out, int n, int n_cells, int c, int dim,
+           int nf, int out_dim, int act, float ns, void* stream) {
+  if (n <= 0) return 0;
+  if (dim < 1 || dim > kMaxDim || nf < 1 || nf > kMaxNf || c < 1)
+    return (int)cudaErrorInvalidValue;
+  const Plan s = make_plan(c, dim, nf, out_dim);
+  if (image_elems != s.image) return (int)cudaErrorInvalidValue;
+  auto at = [&](auto f) {
+    return f(s, src, cell_flat, frac, image, w5, b5, out, n, n_cells, act,
+             ns, (cudaStream_t)stream);
+  };
+  if (s.base == 16) return at(launch_at<16, kGather>);
+  if (s.base == 32) return at(launch_at<32, kGather>);
+  return at(launch_at<64, kGather>);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Weights in the layout of ops/fused_query.py::kernel_weights.
-int stpde_decode_blend_gather(
-    const float* table, const int* cell_flat, const float* frac,
-    const float* wx0, const float* rel, const float* cb, const float* wb1,
-    const float* wb2, const float* wb3, const float* wb4, const float* w5,
-    const float* b5, float* out, int n, int n_cells, int c, int dim, int nf,
-    int out_dim, int act_code, float negative_slope, void* stream) {
-  return launch<true>(table, cell_flat, frac,
-                      pack(wx0, rel, cb, wb1, wb2, wb3, wb4, w5, b5), out, n,
-                      n_cells, c, dim, nf, out_dim, act_code, negative_slope,
-                      stream);
+// table [n_cells, 2^D * C] f32, the weight image of
+// ops/fused_query.py::decode_tiles(compute_dtype=float32) (image_elems f32
+// values), w5 [nf, out], b5, frac and out f32.
+int stpde_decode_blend_gather(const float* table, const int* cell_flat,
+                              const float* frac, const float* image,
+                              long long image_elems, const float* w5,
+                              const float* b5, float* out, int n,
+                              int n_cells, int c, int dim, int nf,
+                              int out_dim, int act_code,
+                              float negative_slope, void* stream) {
+  return launch<true>(table, cell_flat, frac, image, image_elems, w5, b5,
+                      out, n, n_cells, c, dim, nf, out_dim, act_code,
+                      negative_slope, stream);
 }
 
-int stpde_decode_blend(
-    const float* feats2, const float* frac, const float* wx0,
-    const float* rel, const float* cb, const float* wb1, const float* wb2,
-    const float* wb3, const float* wb4, const float* w5, const float* b5,
-    float* out, int n, int c, int dim, int nf, int out_dim, int act_code,
-    float negative_slope, void* stream) {
-  return launch<false>(feats2, nullptr, frac,
-                       pack(wx0, rel, cb, wb1, wb2, wb3, wb4, w5, b5), out,
-                       n, 0, c, dim, nf, out_dim, act_code, negative_slope,
-                       stream);
+// feats2 [N * 2^D, C] f32 and the same image; the rest as above.
+int stpde_decode_blend(const float* feats2, const float* frac,
+                       const float* image, long long image_elems,
+                       const float* w5, const float* b5, float* out, int n,
+                       int c, int dim, int nf, int out_dim, int act_code,
+                       float negative_slope, void* stream) {
+  return launch<false>(feats2, nullptr, frac, image, image_elems, w5, b5,
+                       out, n, 0, c, dim, nf, out_dim, act_code,
+                       negative_slope, stream);
 }
 
-// Corner rows a block decodes (points per block = this >> D).
+// Corner rows a CTA decodes at a time (points a tile = this >> D).
 int stpde_block_rows(void) { return kRows; }
 
-// Dynamic shared memory a block takes at these widths (bytes).
-int stpde_decode_smem_bytes(int c, int dim, int nf) {
-  return (int)sizeof(float) * make_shape(c, dim, nf, 0).total;
+// The plan at these widths: {shared-memory bytes a CTA, ring slots, kx,
+// weight-image floats, CTAs a cluster, corner rows a tile, the widths'
+// base, slot bytes}.
+void stpde_decode_plan(int c, int dim, int nf, long long* out) {
+  const Plan s = make_plan(c, dim, nf, 0);
+  const long long v[8] = {s.total, s.stages, s.kx, s.image,
+                          kCluster, kRows, s.base, s.slot};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
 }
 
 const char* stpde_error_string(int code) {

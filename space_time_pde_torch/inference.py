@@ -207,8 +207,9 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536,
     whatever this says. ``compute_dtype``: the decode's (the eval CLIs'
     ``--decode_dtype``): f32 (3xTF32 products), or bf16 (the latent table
     rounded to bf16, as JAX's ``gcast``, and the bf16 kernel on the bf16
-    tensor cores, its weights tiled here once). The UNet runs in its own
-    policy (its ``dtype``), whatever this says.
+    tensor cores); on a card the kernel's weight image is built here
+    once. The UNet runs in its own policy (its ``dtype``), whatever this
+    says.
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -226,9 +227,10 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536,
         packed = pack_imnet_params(imnet)
     common = dict(nf=imnet.nf, activation=imnet.activation,
                   negative_slope=imnet.negative_slope)
-    if device.type == "cuda" and compute_dtype == torch.bfloat16:
+    if device.type == "cuda":
         with torch.no_grad():
-            common["tiles"] = decode_tiles(packed, nf=imnet.nf, dim=dim)
+            common["tiles"] = decode_tiles(packed, nf=imnet.nf, dim=dim,
+                                           compute_dtype=compute_dtype)
 
     @torch.no_grad()
     def decode(lres):

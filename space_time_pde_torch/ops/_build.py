@@ -34,16 +34,18 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _ARGTYPES = {
     "fused_query": {
-        # table, cell_flat, frac, 9 weights (fused_query.kernel_weights),
-        # out, n, n_cells, c, dim, nf, out_dim, act_code, negative_slope,
-        # stream
-        "stpde_decode_blend_gather": ([_P] * 13 + [_I] * 7 + [_F, _P], _I),
-        # feats2, frac, 9 weights, out, n, c, dim, nf, out_dim, act_code,
-        # negative_slope, stream
-        "stpde_decode_blend": ([_P] * 12 + [_I] * 6 + [_F, _P], _I),
+        # table, cell_flat, frac, tile image (fused_query.decode_tiles at
+        # f32), its elements, w5, b5, out, n, n_cells, c, dim, nf, out_dim,
+        # act_code, negative_slope, stream
+        "stpde_decode_blend_gather": (
+            [_P] * 4 + [_L] + [_P] * 3 + [_I] * 7 + [_F, _P], _I),
+        # feats2, frac, tile image, its elements, w5, b5, out, n, c, dim,
+        # nf, out_dim, act_code, negative_slope, stream
+        "stpde_decode_blend": (
+            [_P] * 3 + [_L] + [_P] * 3 + [_I] * 6 + [_F, _P], _I),
         "stpde_block_rows": ([], _I),
-        # c, dim, nf
-        "stpde_decode_smem_bytes": ([_I] * 3, _I),
+        # c, dim, nf, out[8]
+        "stpde_decode_plan": ([_I] * 3 + [_P], None),
         "stpde_error_string": ([_I], ctypes.c_char_p),
     },
     "fused_query_bf16": {

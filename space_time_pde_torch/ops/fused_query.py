@@ -23,13 +23,14 @@ against on the card. The kernels have no backward, so the wrappers run
 under ``no_grad`` on every device; the twins themselves stay
 differentiable.
 
-The f32 kernel runs its products on the tensor cores in 3xTF32 (each f32
-operand split into two TF32 parts, three products, f32 accumulation) on
-64 corner rows a block (:func:`block_points`). It takes its weights in
-the layout of :func:`kernel_weights`, which the CUDA branch of each
-wrapper builds from :func:`pack_imnet_params`'s output: each layer's
-``[Wh_i ; Wx_feat[:, sl_i]]`` stacked, widths zero-padded to multiples
-of 64 and C to a multiple of 32.
+The f32 kernel (``csrc/fused_query.cu``, both f32 entries) runs its
+products on Hopper's ``wgmma`` in 3xTF32 (each f32 operand split into
+two TF32 parts, three products per k8 step into a temporary that is
+added to an f32 accumulator outside the tensor cores) on 64 corner rows
+a tile (:func:`block_points`). It takes its weights as one image of its
+shared-memory stages with each weight split into TF32 hi and lo planes
+(:func:`decode_tiles` at ``compute_dtype=torch.float32``), which a
+decoder builds once and hands to every launch (``tiles=``).
 
 Dropped from the TPU module, with nothing in their place: the one-hot
 MXU gather, ``corner_tables`` and the sorted 2 x 128-cell windows
@@ -88,13 +89,29 @@ __all__ = [
 _MULTS = (16, 8, 4, 2, 1)
 _WEIGHTS = ("wx_feat", "wx_rel", "corner_bias", "wh1", "wh2", "wh3", "wh4",
             "w5", "b5")
-# The kernel's padding: widths to its 8 column warps x 8 columns, the
-# latent rows to its 32-row weight tile (csrc/fused_query.cu).
+# kernel_weights' padding (the mma.sync f32 kernel's layout before the
+# wgmma one; the bf16 image and the CPU emulations build from it): widths
+# to multiples of 64, the latent rows to multiples of 32.
 _WIDTH_ALIGN, _C_ALIGN = 64, 32
 
 # The bf16 decode kernel's tile (csrc/fused_query_bf16.cu): a pass takes
 # at most 512 columns and a weight stage 16 KB.
 _BF16_PASS, _BF16_STAGE = 512, 16384
+
+# The f32 decode kernel's tile (csrc/fused_query.cu): nf <= 64 runs at the
+# widths of the smallest base in _F32_BASES that holds it (zero-padded),
+# h_0 computed in 64-column chunks, the latents (X) padded to 8 columns.
+_F32_BASES, _F32_CHUNK = (16, 32, 64), 64
+# Within each 8-row block of Wh_i, the row the kernel's k = 0..7 reads: a
+# layer stores its activations in the A fragment's order, where a thread's
+# columns 2t and 2t + 1 are the next layer's k = t and k = t + 4.
+_F32_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _f32_h_order(w: int) -> torch.Tensor:
+    """The h column the f32 kernel's k reads, for k in [0, w)."""
+    k = np.arange(w)
+    return torch.from_numpy(k // 8 * 8 + np.array(_F32_PERM)[k % 8])
 
 # The packed weights the bf16 instantiations round to bf16 (corner_bias and
 # b5 stay f32, as the TPU's pack_imnet_params keeps them).
@@ -174,14 +191,13 @@ def _round_up(x: int, m: int) -> int:
 
 def kernel_weights(packed, *, nf: int, dtype=torch.float32,
                    f32=("b5",)) -> Dict[str, torch.Tensor]:
-    """:func:`pack_imnet_params`'s output in the decode kernel's layout,
-    in the order of its C arguments.
+    """:func:`pack_imnet_params`'s output per layer, stacked and padded:
+    the layout of the earlier mma.sync f32 decode, which the bf16 image
+    (:func:`decode_tiles`) and the CPU emulations of the kernels read.
 
-    Layer widths are zero-padded to multiples of ``_WIDTH_ALIGN`` (a
-    block's 8 column warps x 8 columns) and the latent rows to a multiple
-    of ``_C_ALIGN`` (the kernel's K tile), as the kernel derives them from
-    nf and C; zero weights make the padding inert whatever the activation
-    gives at 0.
+    Layer widths are zero-padded to multiples of ``_WIDTH_ALIGN`` and the
+    latent rows to a multiple of ``_C_ALIGN``; zero weights make the
+    padding inert whatever the activation gives at 0.
 
     - ``wx0`` ``[Cp, W0]``: layer 0's latent projection;
     - ``rel`` ``[D, Sp]``, ``cb`` ``[2^D, Sp]``: ``wx_rel`` and
@@ -253,15 +269,18 @@ def _bf16_schedule(widths, kx):
 
 
 class DecodeTiles(NamedTuple):
-    """The bf16 decode kernel's weights (:func:`decode_tiles`)."""
+    """A decode kernel's weights (:func:`decode_tiles`): the bf16 kernel's
+    or, at ``compute_dtype=torch.float32``, the f32 kernel's (the same
+    image for both f32 entries)."""
 
-    image: torch.Tensor     # [elements] bf16, stage after stage
-    w5: torch.Tensor        # [nf, out] bf16
+    image: torch.Tensor     # [elements], stage after stage
+    w5: torch.Tensor        # [nf, out] in the compute type
     b5: torch.Tensor        # [1, out] f32
     c: int
     dim: int
     nf: int
     pregathered: bool
+    compute_dtype: torch.dtype = torch.bfloat16
 
 
 def _bf16_layer_matrices(packed, *, nf: int, dim: int, pregathered: bool):
@@ -299,16 +318,136 @@ def _bf16_layer_matrices(packed, *, nf: int, dim: int, pregathered: bool):
     return mats, kw
 
 
-def decode_tiles(packed, *, nf: int, dim: int,
-                 pregathered: bool = False) -> DecodeTiles:
-    """The bf16 decode kernel's weights (csrc/fused_query_bf16.cu), built
-    once per decoder: every stage of :func:`_bf16_schedule` in the exact
-    shared-memory image of wgmma's K-major, no-swizzle B operand, one
-    contiguous bf16 run a stage (``[k16 block][8-column group][2 k
-    halves][8 columns][8 k]``), so the kernel loads each with one bulk
-    copy; plus the head's weights (w5 bf16, b5 f32). ``pregathered``
-    picks the entry (:func:`decode_blend`'s, corner bias f32) or the
-    gather one's."""
+def _f32_base(nf: int) -> int:
+    """The nf whose widths the f32 kernel runs for ``nf``: the smallest of
+    ``_F32_BASES`` that holds it."""
+    for base in _F32_BASES:
+        if nf <= base:
+            return base
+    raise ValueError(f"the f32 decode kernel takes nf <= {_F32_BASES[-1]}, "
+                     f"not {nf}")
+
+
+def _f32_plan(c: int, nf: int):
+    """The f32 kernel's widths (:func:`_f32_base`'s) and its X width kx
+    (the C latents, padded to 8)."""
+    return [_f32_base(nf) * m for m in _MULTS], _round_up(c, 8)
+
+
+def _f32_schedule(widths, kx):
+    """``(layer, c0, np, k0, kn)`` of every weight segment in the order
+    the f32 kernel consumes them (rows c0:c0+np, K k0:k0+kn of layer
+    ``layer``'s ``[W_i, kx + W_{i-1}]``): layer 0's first 64-column chunk,
+    layer 1's X rows, then for each further chunk j + 1 the chunk and layer
+    1's rows of chunk j, layer 1's rows of the last chunk, then layers 2-4,
+    each its X rows and its h rows."""
+    w1, nch = widths[1], widths[0] // _F32_CHUNK
+    yield 0, 0, _F32_CHUNK, 0, kx
+    yield 1, 0, w1, 0, kx
+    for j in range(nch - 1):
+        yield 0, _F32_CHUNK * (j + 1), _F32_CHUNK, 0, kx
+        yield 1, 0, w1, kx + _F32_CHUNK * j, _F32_CHUNK
+    yield 1, 0, w1, kx + _F32_CHUNK * (nch - 1), _F32_CHUNK
+    for layer in range(2, 5):
+        yield layer, 0, widths[layer], 0, kx
+        yield layer, 0, widths[layer], kx, widths[layer - 1]
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _f32_layer_matrices(packed, *, nf: int):
+    """Each layer's B^T for the f32 kernel, ``[W_i, kx + W_{i-1}]``
+    (padded widths): columns ``[Wx_feat_i | 0 | Wh_i]``, the Wh_i rows of
+    each 8-row block in the order of ``_F32_PERM``."""
+    c = packed["wx_feat"].shape[0]
+    widths, kx = _f32_plan(c, nf)
+    true = [nf * m for m in _MULTS]
+    bounds = np.cumsum([0] + true)
+    mats = []
+    for i in range(5):
+        cols = slice(int(bounds[i]), int(bounds[i + 1]))
+        b = torch.zeros(widths[i], kx + (widths[i - 1] if i else 0),
+                        dtype=torch.float32,
+                        device=packed["wx_feat"].device)
+        b[:true[i], :c] = packed["wx_feat"][:, cols].t()
+        if i:
+            wp = widths[i - 1]
+            wh = torch.zeros(widths[i], wp, dtype=torch.float32,
+                             device=b.device)
+            wh[:true[i], :true[i - 1]] = packed[f"wh{i}"].t()
+            b[:, kx:] = wh[:, _f32_h_order(wp).to(b.device)]
+        mats.append(b)
+    return mats
+
+
+def _f32_skip(packed, *, nf: int):
+    """``wx_rel`` ``[D, S]`` and ``corner_bias`` ``[2^D, S]`` with each
+    layer's columns at its offset in the f32 kernel's widths (S = 31 x
+    :func:`_f32_base`), the rest 0: the kernel starts each accumulator at
+    their f32 sum (the coordinate term and the corner bias)."""
+    widths = [_f32_base(nf) * m for m in _MULTS]
+    true = [nf * m for m in _MULTS]
+    bounds, offs = np.cumsum([0] + true), np.cumsum([0] + widths)
+    out = []
+    for name in ("wx_rel", "corner_bias"):
+        t = packed[name]
+        z = torch.zeros(t.shape[0], int(offs[-1]), dtype=torch.float32,
+                        device=t.device)
+        for i in range(5):
+            z[:, int(offs[i]):int(offs[i]) + true[i]] = \
+                t[:, int(bounds[i]):int(bounds[i + 1])]
+        out.append(z)
+    return out
+
+
+def _f32_image(packed, *, nf: int) -> torch.Tensor:
+    """The f32 kernel's weight image: for each segment of
+    :func:`_f32_schedule`, for each k8 step, the TF32 hi plane then the lo
+    plane (``lo = tf32(w - hi)``), each in wgmma's K-major, no-swizzle B
+    layout ``[8-column group][2 k halves][8 columns][4 k]``; then
+    :func:`_f32_skip`'s ``rel`` and ``cb``, f32 as they are."""
+    mats = _f32_layer_matrices(packed, nf=nf)
+    c = packed["wx_feat"].shape[0]
+    widths, kx = _f32_plan(c, nf)
+    parts = []
+    for layer, c0, np_, k0, kn in _f32_schedule(widths, kx):
+        blk = mats[layer][c0:c0 + np_, k0:k0 + kn]
+        hi = _tf32(blk)
+        lo = _tf32(blk - hi)
+        planes = torch.stack([hi, lo])          # [2, np, kn]
+        parts.append(planes.reshape(2, np_ // 8, 8, kn // 8, 2, 4).permute(
+            3, 0, 1, 4, 2, 5).reshape(-1))
+    parts += [t.reshape(-1) for t in _f32_skip(packed, nf=nf)]
+    return torch.cat(parts)
+
+
+def decode_tiles(packed, *, nf: int, dim: int, pregathered: bool = False,
+                 compute_dtype=torch.bfloat16) -> DecodeTiles:
+    """A decode kernel's weights, built once per decoder, so the kernel
+    loads each of its ring stages with one bulk copy; plus the head's
+    weights (w5 in the compute type, b5 f32).
+
+    - bf16 (csrc/fused_query_bf16.cu): every stage of
+      :func:`_bf16_schedule` in the exact shared-memory image of wgmma's
+      K-major, no-swizzle B operand, one contiguous bf16 run a stage
+      (``[k16 block][8-column group][2 k halves][8 columns][8 k]``).
+      ``pregathered`` picks the entry (:func:`decode_blend`'s, corner bias
+      f32) or the gather one's.
+    - f32 (csrc/fused_query.cu, ``compute_dtype=torch.float32``):
+      :func:`_f32_image`, each weight split into TF32 hi and lo planes;
+      one image serves both f32 entries."""
+    if compute_dtype == torch.float32:
+        with torch.no_grad():
+            image = _f32_image(packed, nf=nf)
+        return DecodeTiles(image, packed["w5"].contiguous(),
+                           packed["b5"].contiguous(),
+                           packed["wx_feat"].shape[0], dim, nf, pregathered,
+                           torch.float32)
     mats, kw = _bf16_layer_matrices(packed, nf=nf, dim=dim,
                                     pregathered=pregathered)
     c = packed["wx_feat"].shape[0]
@@ -500,22 +639,30 @@ def block_points(dim: int, device,
     return _build.load().stpde_block_rows() >> dim
 
 
-def _launch_bf16(entry, rows, frac, packed, tiles, *, nf, dim, c,
-                 pregathered, args, activation, negative_slope):
-    """Launch a bf16 decode kernel with ``tiles`` (built here when None)
-    and count it."""
+def _launch(entry, rows, frac, packed, tiles, *, nf, dim, c, pregathered,
+            args, activation, negative_slope, compute_dtype):
+    """Launch the ``compute_dtype`` decode kernel of ``entry`` with
+    ``tiles`` (built here when None) and count it. The f32 image serves
+    both entries; the bf16 ones differ."""
     if tiles is None:
-        tiles = decode_tiles(packed, nf=nf, dim=dim, pregathered=pregathered)
-    if (tiles.c, tiles.dim, tiles.nf, tiles.pregathered) != \
-            (c, dim, nf, pregathered) or tiles.image.device != frac.device:
+        tiles = decode_tiles(packed, nf=nf, dim=dim, pregathered=pregathered,
+                             compute_dtype=compute_dtype)
+    bf16 = compute_dtype == torch.bfloat16
+    have = (tiles.c, tiles.dim, tiles.nf, tiles.compute_dtype,
+            tiles.pregathered if bf16 else None)
+    want = (c, dim, nf, compute_dtype, pregathered if bf16 else None)
+    if have != want or tiles.image.device != frac.device:
         raise ValueError(f"tiles are for C={tiles.c} D={tiles.dim} "
-                         f"nf={tiles.nf} pregathered={tiles.pregathered} on "
+                         f"nf={tiles.nf} {tiles.compute_dtype} "
+                         f"pregathered={tiles.pregathered} on "
                          f"{tiles.image.device}, not C={c} D={dim} nf={nf} "
-                         f"pregathered={pregathered} on {frac.device}")
+                         f"{compute_dtype} pregathered={pregathered} on "
+                         f"{frac.device}")
     n = frac.shape[0]
     out = torch.empty((n, tiles.w5.shape[-1]), dtype=torch.float32,
                       device=frac.device)
-    code = getattr(_build.load("fused_query_bf16"), "stpde_" + entry)(
+    lib = _build.load("fused_query_bf16" if bf16 else "fused_query")
+    code = getattr(lib, "stpde_" + entry)(
         rows.data_ptr(), *args, frac.data_ptr(), tiles.image.data_ptr(),
         tiles.image.numel(), tiles.w5.data_ptr(), tiles.b5.data_ptr(),
         out.data_ptr(), n, *([] if pregathered else [rows.shape[0]]), c,
@@ -536,9 +683,9 @@ def decode_blend_gather(table, cell_flat, frac, packed, *, nf: int,
     (:func:`cell_major_features`) in ``compute_dtype`` (f32, or bf16 for
     the bf16 kernel), cell_flat ``[N]`` int32, frac ``[N, D]`` f32 ->
     ``[N, out]`` f32. A cell id outside the table decodes NaN on the card
-    (the plain twin raises an IndexError). ``tiles``: the bf16 kernel's
-    weights, ``decode_tiles(packed, ...)`` built once by the caller
-    (else per launch)."""
+    (the plain twin raises an IndexError). ``tiles``: the kernel's
+    weights, ``decode_tiles(packed, ..., compute_dtype=compute_dtype)``
+    built once by the caller (else per launch)."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"compute_dtype {compute_dtype}: the "
                                   "decode kernel has f32 and bf16 "
@@ -559,23 +706,12 @@ def decode_blend_gather(table, cell_flat, frac, packed, *, nf: int,
         return decode_blend_gather_plain(
             table, cell_flat, frac, packed, nf=nf, activation=activation,
             negative_slope=negative_slope, compute_dtype=compute_dtype)
-    if compute_dtype == torch.bfloat16:
-        return _launch_bf16(
-            "decode_blend_gather_bf16", table, frac, packed, tiles, nf=nf,
-            dim=dim, c=c, pregathered=False, args=[cell_flat.data_ptr()],
-            activation=activation, negative_slope=negative_slope)
-    out = torch.empty((n, packed["w5"].shape[-1]), dtype=torch.float32,
-                      device=device)
-    kw = kernel_weights(packed, nf=nf)
-    code = _build.load().stpde_decode_blend_gather(
-        table.data_ptr(), cell_flat.data_ptr(), frac.data_ptr(),
-        *[w.data_ptr() for w in kw.values()], out.data_ptr(),
-        n, table.shape[0], c, dim, nf, out.shape[-1],
-        ACTIVATION_CODES[activation], negative_slope,
-        torch.cuda.current_stream(device).cuda_stream)
-    _build.check(code, "decode_blend_gather")
-    _count(LAUNCHES, "decode_blend_gather")
-    return out
+    entry = "decode_blend_gather" + (
+        "_bf16" if compute_dtype == torch.bfloat16 else "")
+    return _launch(entry, table, frac, packed, tiles, nf=nf, dim=dim, c=c,
+                   pregathered=False, args=[cell_flat.data_ptr()],
+                   activation=activation, negative_slope=negative_slope,
+                   compute_dtype=compute_dtype)
 
 
 @torch.no_grad()
@@ -587,7 +723,8 @@ def decode_blend(feats2, frac, packed, *, nf: int, n_corners: int,
     """Decode pre-gathered corner rows: feats2 ``[N * 2^D, C]`` in
     ``compute_dtype`` (f32, or bf16 for the bf16 kernel), frac ``[N, D]``
     f32 -> ``[N, out]`` f32. ``tiles``: as :func:`decode_blend_gather`'s,
-    ``decode_tiles(..., pregathered=True)``."""
+    ``decode_tiles(..., pregathered=True)`` at bf16 (the f32 image is the
+    gather entry's)."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"compute_dtype {compute_dtype}: the "
                                   "decode kernel has f32 and bf16 "
@@ -606,22 +743,12 @@ def decode_blend(feats2, frac, packed, *, nf: int, n_corners: int,
                                   n_corners=n_corners, activation=activation,
                                   negative_slope=negative_slope,
                                   compute_dtype=compute_dtype)
-    if compute_dtype == torch.bfloat16:
-        return _launch_bf16(
-            "decode_blend_bf16", feats2, frac, packed, tiles, nf=nf,
-            dim=dim, c=c, pregathered=True, args=[],
-            activation=activation, negative_slope=negative_slope)
-    out = torch.empty((n, packed["w5"].shape[-1]), dtype=torch.float32,
-                      device=device)
-    kw = kernel_weights(packed, nf=nf)
-    code = _build.load().stpde_decode_blend(
-        feats2.data_ptr(), frac.data_ptr(),
-        *[w.data_ptr() for w in kw.values()], out.data_ptr(),
-        n, c, dim, nf, out.shape[-1], ACTIVATION_CODES[activation],
-        negative_slope, torch.cuda.current_stream(device).cuda_stream)
-    _build.check(code, "decode_blend")
-    _count(LAUNCHES, "decode_blend")
-    return out
+    entry = "decode_blend" + (
+        "_bf16" if compute_dtype == torch.bfloat16 else "")
+    return _launch(entry, feats2, frac, packed, tiles, nf=nf, dim=dim, c=c,
+                   pregathered=True, args=[], activation=activation,
+                   negative_slope=negative_slope,
+                   compute_dtype=compute_dtype)
 
 
 @torch.no_grad()
@@ -647,10 +774,11 @@ def fused_query_local_implicit_grid(imnet, latent_grid, pts, xmin=0.0,
     packed = pack_imnet_params(imnet)
     common = dict(nf=imnet.nf, activation=imnet.activation,
                   negative_slope=imnet.negative_slope)
-    if latent_grid.is_cuda and compute_dtype == torch.bfloat16:
+    if latent_grid.is_cuda:
         common["tiles"] = decode_tiles(packed, nf=imnet.nf,
                                        dim=latent_grid.ndim - 2,
-                                       pregathered=gather == "pregather")
+                                       pregathered=gather == "pregather",
+                                       compute_dtype=compute_dtype)
     outs = []
     for grid, p in zip(latent_grid, pts):
         spatial = tuple(grid.shape[:-1])

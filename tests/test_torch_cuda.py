@@ -11,10 +11,11 @@ CPU mode). On a machine with one, from the repo root:
 machine does not have; this file imports only torch and the port.)
 
 Decode tolerance rtol = atol = 1e-4 against the f32 twin: the kernel
-runs its products in 3xTF32 (f32-grade operands, f32 accumulation), sums
-in another order than cuBLAS and blends before the head in its own
-order. At the flagship widths it is also held to the plain twin run in
-float64: at most twice as far from it as the f32 twin,
+runs its products in 3xTF32 on wgmma (f32-grade operands, each k8 step's
+products promoted into an f32 accumulator), sums in another order than
+cuBLAS and blends before the head in its own order. At the flagship
+widths it is also held to the plain twin run in float64: at most twice
+as far from it as the f32 twin,
 ``|err| <= 1e-4 |ref| + atol max|ref|``.
 """
 
@@ -75,6 +76,7 @@ EDGES = [(p, dim) for dim, b in ((3, 8), (4, 4))
          for p in (1, b - 1, b + 1, 4 * b)]
 CASES = ([(4, 8, 3, 257, a) for a in NONLINEARITIES]
          + [(8, 8, 2, 100, "leaky_relu"), (2, 4, 4, 33, "elu"),
+            (16, 16, 3, 300, "leaky_relu"), (32, 24, 4, 300, "gelu"),
             (64, 64, 3, 4096, "leaky_relu"), (64, 64, 3, 4096, "gelu"),
             (64, 64, 4, 4096, "leaky_relu")]
          + [(8, 16, dim, n, "leaky_relu") for n, dim in EDGES]
@@ -188,20 +190,40 @@ def test_kernels_within_twice_f32_twin_of_float64(device, dim):
         (need, floor)
 
 
+def _f32_plan(dim, c=64, nf=64):
+    import ctypes
+
+    buf = (ctypes.c_longlong * 8)()
+    _build.load().stpde_decode_plan(c, dim, nf, buf)
+    return dict(zip(("smem", "stages", "kx", "image", "cluster", "rows",
+                     "base", "slot"), list(buf)))
+
+
+# The f32 kernel's largest C at each widths' base (nf 16, 32, 64).
+F32_C_LIMITS = {16: 712, 32: 520, 64: 136}
+
+
 def test_shared_memory_overflow_raises(device):
-    """The kernel sizes its shared memory from nf and C (227 KiB a block
-    at most). At C = 8, nf = 64 fits (layer 1's 512 columns; 205 KiB) and
-    nf = 65, whose widths pad to 576 columns, needs 237 KiB; at nf = 64,
-    C = 96 fits (221 KiB) and C = 97 (latent rows padded to 128) needs
-    229 KiB. The
-    refused launch's CUDA error is raised, and the next launch runs."""
+    """The f32 kernel's plan must fit 227 KB with at least 2 ring slots
+    beside H (64 x 8 base f32) and X (64 x kx f32, kx = C padded to 8).
+    nf = 64 decodes and nf = 65 is refused (on the host, which cannot lay
+    out its image, and by the kernel, given nf = 64's image); at each base
+    the largest C decodes and the next one (kx 8 more) is refused: its plan
+    keeps 2 slots and passes 227 KB. The refused launch's CUDA error is
+    raised, and the next launch runs."""
     assert fq.block_points(3, device) == _build.load().stpde_block_rows() // 8
     assert fq.block_points(4, device) == 4
     rows16 = _build.load("fused_query_bf16").stpde_block_rows_bf16()
     assert fq.block_points(3, device, torch.bfloat16) == rows16 // 8
     assert fq.block_points(4, device, torch.bfloat16) == rows16 // 16
-    for nf, c, fits in ((64, 8, True), (65, 8, False), (64, 96, True),
-                        (64, 97, False)):
+    limits = []
+    for nf, c in F32_C_LIMITS.items():
+        for dim in (3, 4):
+            assert _f32_plan(dim, c=c, nf=nf)["smem"] <= 232448
+            over = _f32_plan(dim, c=c + 1, nf=nf)
+            assert over["smem"] > 232448 and over["stages"] == 2
+        limits += [(nf, c, True), (nf, c + 1, False)]
+    for nf, c, fits in [(64, 8, True), (65, 8, False)] + limits:
         packed, table, cell_flat, frac = _inputs(device, nf, c, 3, 16,
                                                  "leaky_relu")
         if fits:
@@ -212,9 +234,105 @@ def test_shared_memory_overflow_raises(device):
             torch.cuda.synchronize()
             np.testing.assert_allclose(got.cpu().numpy(),
                                        want.cpu().numpy(), **TOL)
+        elif nf > 64:
+            with pytest.raises(ValueError, match="nf <= 64"):
+                fq.decode_blend_gather(table, cell_flat, frac, packed, nf=nf)
+            packed64, _, _, _ = _inputs(device, 64, c, 3, 16, "leaky_relu")
+            tiles = fq.decode_tiles(packed64, nf=64, dim=3,
+                                    compute_dtype=torch.float32)
+            out = torch.empty(16, 4, device=device)
+            code = _build.load().stpde_decode_blend_gather(
+                table.data_ptr(), cell_flat.data_ptr(), frac.data_ptr(),
+                tiles.image.data_ptr(), tiles.image.numel(),
+                tiles.w5.data_ptr(), tiles.b5.data_ptr(), out.data_ptr(),
+                16, table.shape[0], c, 3, nf, 4, 1, 0.01,
+                torch.cuda.current_stream().cuda_stream)
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                _build.check(code, "decode_blend_gather at nf = 65")
         else:
             with pytest.raises(RuntimeError, match="CUDA error"):
                 fq.decode_blend_gather(table, cell_flat, frac, packed, nf=nf)
+
+
+def test_f32_plan_matches_host_mirror(device):
+    """The C plan's kx, widths' base and weight-image size equal the
+    host's (``fq._f32_plan``, the image ``decode_tiles`` builds), at
+    flagship and test widths."""
+    for c, nf, dim in ((64, 64, 3), (64, 64, 4), (5, 2, 2), (33, 3, 4),
+                       (16, 32, 3), (16, 16, 4), (32, 24, 3)):
+        plan = _f32_plan(dim, c=c, nf=nf)
+        widths, kx = fq._f32_plan(c, nf)
+        packed, _, _, _ = _inputs(device, nf, c, dim, 1, "leaky_relu")
+        tiles = fq.decode_tiles(packed, nf=nf, dim=dim,
+                                compute_dtype=torch.float32)
+        assert (plan["kx"], plan["image"], plan["base"]) == \
+            (kx, tiles.image.numel(), widths[-1]), (c, nf, dim)
+
+
+def _f32_both(device, nf, c, dim, n, seed=0):
+    """Both f32 entries' kernel outputs (one weight image) and the twin."""
+    packed, table, cell_flat, frac = _inputs(device, nf, c, dim, n,
+                                             "leaky_relu", seed=seed)
+    tiles = fq.decode_tiles(packed, nf=nf, dim=dim,
+                            compute_dtype=torch.float32)
+    feats2 = table[cell_flat.long()].reshape(-1, c).contiguous()
+    got = (fq.decode_blend_gather(table, cell_flat, frac, packed, nf=nf,
+                                  tiles=tiles),
+           fq.decode_blend(feats2, frac, packed, nf=nf, n_corners=2 ** dim,
+                           tiles=tiles))
+    want = fq.decode_blend_gather_plain(table, cell_flat, frac, packed,
+                                        nf=nf)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+def test_f32_kernel_ragged_n(device, dim):
+    """n = 1, fewer points than a tile, fewer than a cluster's tiles, and
+    n past a whole number of clusters' tiles: every point against the
+    twin, nothing written past n."""
+    plan = _f32_plan(dim)
+    ppt = plan["rows"] >> dim
+    cluster_pts = ppt * plan["cluster"]
+    for n in (1, ppt - 1, cluster_pts - 1, 3 * cluster_pts + ppt + 1):
+        got, want = _f32_both(device, 64, 64, dim, n)
+        for g in got:
+            assert g.shape == (n, 4) and bool(torch.isfinite(g).all()), n
+            np.testing.assert_allclose(g.cpu().numpy(), want.cpu().numpy(),
+                                       **TOL)
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+def test_f32_kernel_is_deterministic(device, dim):
+    """Two launches of each f32 entry give the same bits (every row is
+    computed and written once, whichever CTA takes its tile)."""
+    first, _ = _f32_both(device, 64, 64, dim, 20000, seed=3)
+    second, _ = _f32_both(device, 64, 64, dim, 20000, seed=3)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_f32_out_of_range_cell_decodes_nan_in_its_row(device):
+    """Cell ids past the table and below 0, in the middle of a run of
+    tiles: NaN in those points' rows only, every other point as the twin
+    decodes it."""
+    packed, table, cell_flat, frac = _inputs(device, 64, 64, 3, 1000,
+                                             "leaky_relu")
+    bad = [5, 517, 999]
+    cell_flat[bad[0]] = table.shape[0]
+    cell_flat[bad[1]] = -1
+    cell_flat[bad[2]] = 2 ** 30
+    got = fq.decode_blend_gather(table, cell_flat, frac, packed, nf=64)
+    ok = torch.ones(1000, dtype=torch.bool, device=device)
+    ok[bad] = False
+    good = cell_flat.clone()
+    good[bad] = 0
+    want = fq.decode_blend_gather_plain(table, good, frac, packed, nf=64)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got).any(dim=1), ~ok)
+    assert bool(torch.isnan(got[~ok]).all())
+    np.testing.assert_allclose(got[ok].cpu().numpy(),
+                               want[ok].cpu().numpy(), **TOL)
 
 
 # --- the bf16 decode kernel (csrc/fused_query_bf16.cu) ---------------------

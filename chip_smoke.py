@@ -11,13 +11,14 @@ Phases (any failure raises and exits non-zero):
    source, in parallel); print each kernel's registers and spills from
    ptxas, both D instantiations of the jet kernels apart, both decodes'
    plans at the flagship widths (shared memory, ring stages, cluster
-   size, rows a tile; the f32 one's widths' base), the bf16 jets'
-   rings, and, where the toolkit has ``cuobjdump``, the count of the
-   wgmma (``HGMMA``), ``mma.sync`` (``HMMA``), bulk-copy (``UBLKCP``),
-   TMA (``UTMALDG``) and mbarrier (``SYNCS``) instructions in the SASS of
-   both decodes and of the bf16 jets, and how many times ptxas noted
-   that it serialized the wgmmas of any (C7520); the f32 decode must show
-   HGMMA, no HMMA and no C7520;
+   size, rows a tile; the f32 one's widths' base), both jets' rings (the
+   f32 ones' at each D and product), and, where the toolkit has
+   ``cuobjdump``, the count of the wgmma (``HGMMA``), ``mma.sync``
+   (``HMMA``), bulk-copy (``UBLKCP``), TMA (``UTMALDG``) and mbarrier
+   (``SYNCS``) instructions in the SASS of both decodes and both jets,
+   and how many times ptxas noted that it serialized the wgmmas of any
+   (C7520); the f32 decode and the f32 jets must show HGMMA, no HMMA and
+   no C7520;
 3. both decode kernels against their plain PyTorch twins on the card,
    at the rb2d flagship widths (C = 64, nf = 64, D = 3, out = 4) on
    65,536 seeded points that include lattice faces, cell edges and
@@ -795,8 +796,8 @@ def _held(what, got, plain32, plain64, masked, flips_ok):
                 f"{mk:.3e}, f32 twin {mp:.3e}, limit {ml:.3e} "
                 + ("ok" if ok else "FAIL"))
     print(f"  {what:12s} max|ref| {scale:.4e}: kernel needs atol "
-          f"{need_k:.3e}, f32 twin {need_p:.3e}; limit {limit:.3e} {note}",
-          flush=True)
+          f"{need_k:.3e}, f32 twin {need_p:.3e}; limit {limit:.3e} "
+          f"({need_k / limit:.3f} of it) {note}", flush=True)
     if not ok:
         raise SystemExit(f"{what}: jet kernel disagrees with its plain twin")
     return float((got.double() - plain32.double()).abs().max())
@@ -3080,15 +3081,17 @@ def main():
               f"16 KB, kx {plan['kx']}, tile image {plan['image']} bf16 "
               f"values, clusters of {plan['cluster']} CTAs, "
               f"{plan['rows']} corner rows a tile", flush=True)
-    for src in ("fused_query", "fused_query_bf16", "fused_jet_bf16"):
+    for src in ("fused_query", "fused_query_bf16", "fused_jet",
+                "fused_jet_bf16"):
         sass, c7520 = sass_counts(src), log.get(src, "").count("C7520")
         print(f"{src}.cu SASS: {sass}; ptxas notes of serialized wgmma "
               f"(C7520): {c7520}", flush=True)
-        if src == "fused_query" and (c7520 or isinstance(sass, dict) and (
-                sass["HGMMA"] < 1 or sass["HMMA"] > 0)):
-            raise SystemExit("fused_query.cu: the f32 decode must run on "
-                             "wgmma (HGMMA), with no mma.sync (HMMA) and "
-                             "no serialized wgmma (C7520)")
+        if src in ("fused_query", "fused_jet") and (
+                c7520 or isinstance(sass, dict) and (
+                    sass["HGMMA"] < 1 or sass["HMMA"] > 0)):
+            raise SystemExit(f"{src}.cu: the f32 kernels must run on wgmma "
+                             f"(HGMMA), with no mma.sync (HMMA) and no "
+                             f"serialized wgmma (C7520)")
     ring = (ctypes.c_longlong * 4)()
     for what, mt, staging in (("forward layers and chain product, D = 3",
                                4, 1),
@@ -3099,6 +3102,24 @@ def main():
         print(f"fused_jet_bf16.cu ring of the {what}: {ring[1]} stages of "
               f"{ring[0]} bytes, {ring[2]} bytes of shared memory a CTA of "
               f"{ring[3]} threads", flush=True)
+    from space_time_pde_torch.ops import fused_jet as fj
+    for dim in (3, 4):
+        kc = fj.f32_chain_cols(dim)
+        for what, mt, kn, staging in (
+                ("forward layers and chain product", dim + 1, kc, 1),
+                ("d feats", 4, fj.F32_FEAT_COLS, 0)):
+            _build.load("fused_jet").stpde_jet_f32_ring(mt, kn, staging,
+                                                        ring)
+            print(f"fused_jet.cu ring of the {what}, D = {dim}: {ring[1]} "
+                  f"stages of {ring[0]} bytes ({mt} A tiles, {kn} columns "
+                  f"a consumer), {ring[2]} bytes of shared memory a CTA "
+                  f"of {ring[3]} threads", flush=True)
+    for mt in (1, 2, 4):
+        _build.load("fused_jet").stpde_jet_f32_ring(mt, fj.F32_TN_COLS, 0,
+                                                    ring)
+        print(f"fused_jet.cu ring of the split-K weight gradients, "
+              f"{64 * mt} rows: {ring[1]} stages of {ring[0]} bytes, "
+              f"{ring[2]} bytes of shared memory", flush=True)
     say(f"kernels loaded in {time.perf_counter() - t0:.1f}s ("
         + (f"nvcc {log['seconds']:.1f}s, all sources in parallel" if log
            else "already built") + ")")

@@ -72,6 +72,11 @@ _ARGTYPES = {
         # feats2, frac, 9 weights, fwd workspace, ybar, dfeats, 9 grads,
         # workspace, n, c, dim, nf, out_dim, slope, stream
         "stpde_jet_bwd": ([_P] * 24 + [_I] * 5 + [_F, _P], _I),
+        # n, c, dim, nf, out[2]; A tiles, columns a consumer, staging,
+        # out[4]; m, ka, nb, out[5]
+        "stpde_jet_f32_image_layout": ([_I] * 4 + [_P], None),
+        "stpde_jet_f32_ring": ([_I] * 3 + [_P], None),
+        "stpde_jet_f32_tn_plan": ([_L, _I, _I, _P], None),
     },
     # The same entry points at bf16 (feats2 and the weights but corner_bias
     # and b5 bf16; frac, out, ybar and every gradient f32).

@@ -30,9 +30,11 @@ kernel.
 Each kernel has two instantiations, by ``compute_dtype``:
 
 - f32 (``csrc/fused_jet.cu``, ``jet_fwd`` / ``jet_bwd``): the matrix
-  products in 3xTF32 on the tensor cores (each operand split into a TF32
-  high and low part, three products a k-step, f32 accumulation: f32-grade
-  results), the rest in f32;
+  products in 3xTF32 on Hopper's ``wgmma`` (each operand split into a TF32
+  high and low part, three products a k8 step, each step's sum promoted
+  into an f32 accumulator: f32-grade results), the rest in f32. The
+  weights' operands are one image that the forward splits on the card
+  into its workspace (:func:`f32_weight_image` mirrors it);
 - bf16 (``csrc/fused_jet_bf16.cu``, ``jet_fwd_bf16`` / ``jet_bwd_bf16``;
   the jet of ``--use_bf16 --pde_bf16``): bf16 rows and packed weights
   (``pack_imnet_params(dtype=bfloat16)``) on the bf16 tensor cores,
@@ -87,6 +89,12 @@ __all__ = [
     "workspace_masks",
     "bf16_tn_plan",
     "bf16_ring",
+    "f32_chain_cols",
+    "f32_ring",
+    "f32_tn_plan",
+    "f32_image_layout",
+    "f32_weight_image",
+    "workspace_image",
     "fused_query_jet",
 ]
 
@@ -380,6 +388,138 @@ def bf16_ring(mt: int, staging: bool):
     out = _STAGING if staging else 0
     n = min((_MAX_SMEM - _ALIGN - _BAR_BYTES - out) // stage, 6)
     return stage, (n if n >= 3 else 0), _ALIGN + n * stage + _BAR_BYTES + out
+
+
+# The f32 kernels' product schedule (csrc/fused_jet.cu), mirrored here so
+# that the CPU tests can follow it: A tiles of 64 rows x 32 f32 (one stage
+# deep), two consumer warpgroups of ``kn`` columns each, a ring of MT A
+# tiles and both consumers' B blocks (hi and lo) a stage.
+F32_TILE_ROWS, F32_DEPTH = 64, 32
+F32_FEAT_COLS, F32_TN_COLS = 32, 64   # d feats' and the weight gradients' kn
+_F32_TILE_BYTES = F32_TILE_ROWS * F32_DEPTH * 4
+# The K columns of a stage in the order of its 4 k8 steps x 8 positions: a
+# thread's k = t and t + 4 of step s are columns 8t + 2s and 8t + 2s + 1
+# (csrc/fused_jet.cu::load_rows); the weight image stores B's rows so.
+F32_STEP_COLS = [8 * p + 2 * s if p < 4 else 8 * (p - 4) + 2 * s + 1
+                 for s in range(4) for p in range(8)]
+
+
+def f32_chain_cols(dim: int) -> int:
+    """Columns a consumer warpgroup owns in the f32 forward layers and the
+    backward's chain product: 64 at D = 3, 32 at D = 4 (five chains of
+    accumulators)."""
+    return 64 if dim == 3 else 32
+
+
+def f32_ring(mt: int, kn: int, staging: bool):
+    """The f32 product kernel's ring with ``mt`` A tiles and ``kn`` columns
+    a consumer a stage (``f32_ring`` in csrc/fused_jet.cu): (stage bytes,
+    ring stages (0 if fewer than 2 fit in 227 KB), dynamic shared-memory
+    bytes); ``staging``: the epilogue's staging rows (8 warps x 16 rows x
+    4 kn bytes; the forward layers and the chain product)."""
+    stage = mt * _F32_TILE_BYTES + 2 * kn * F32_DEPTH * 8
+    out = 8 * 16 * 4 * kn if staging else 0
+    n = min((_MAX_SMEM - _ALIGN - _BAR_BYTES - out) // stage, 6)
+    return stage, (n if n >= 2 else 0), _ALIGN + n * stage + _BAR_BYTES + out
+
+
+def f32_tn_plan(m: int, ka: int, nb: int):
+    """The f32 backward's split-K plan of ``A^T B`` over ``m`` rows into
+    ``[ka, nb]`` (``tn_plan``, ``jet_common.cuh::chunk_rows`` at a stage's
+    depth): (A tiles an item (1, 2 or 4 by ka), output tiles along ka,
+    along nb, chunk rows (a multiple of a stage), chunks)."""
+    mt = 1 if ka <= F32_TILE_ROWS else (2 if ka <= 2 * F32_TILE_ROWS else 4)
+    mtiles = _cdiv(ka, mt * F32_TILE_ROWS)
+    ntiles = _cdiv(nb, 2 * F32_TN_COLS)
+    want = max(1, min(_TARGET_BLOCKS // (mtiles * ntiles),
+                      _cdiv(m, F32_DEPTH)))
+    chunk = max(_cdiv(_cdiv(m, want), F32_DEPTH) * F32_DEPTH, F32_DEPTH)
+    chunks = _cdiv(m, chunk) if m > 0 else 1
+    return mt, mtiles, ntiles, chunk, chunks
+
+
+def _f32_segments(c: int, dim: int, nf: int):
+    """The weight image's segments in order, (layer, kind, n, k, kn): per
+    layer the forward's skip (``Wx_feat[:, sl_i]^T``) and hidden
+    (``Wh_i^T``) B, the backward's chain-product (``Wh_i``) and d feats
+    (``Wx_feat[:, sl_i]``) B, each ``[n, k]``."""
+    kc = f32_chain_cols(dim)
+    widths = [nf * m for m in _MULTS]
+    out = []
+    for i, w in enumerate(widths):
+        out.append((i, "fwd_skip", w, c, kc))
+        if i:
+            out.append((i, "fwd_hidden", w, widths[i - 1], kc))
+            out.append((i, "bwd_hidden", widths[i - 1], w, kc))
+        out.append((i, "bwd_feats", c, w, F32_FEAT_COLS))
+    return out
+
+
+def _f32_segment_floats(n: int, k: int, kn: int) -> int:
+    return 2 * _cdiv(n, 2 * kn) * _cdiv(k, F32_DEPTH) * 64 * kn
+
+
+def f32_image_layout(n: int, c: int, dim: int, nf: int):
+    """(byte offset, f32 values) of the weight image in :func:`jet_fwd`'s
+    f32 workspace: it follows the chains and the masks, 128-byte
+    aligned."""
+    rows, s = n * 2 ** dim, 31 * nf
+    end = 4 * rows * (dim + 1) * s + rows * s
+    floats = sum(_f32_segment_floats(nn, k, kn)
+                 for *_, nn, k, kn in _f32_segments(c, dim, nf))
+    return _cdiv(end, 128) * 128, floats
+
+
+def _tf32(t):
+    """f32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as the kernels round (``(bits + 0x1000) & 0xffffe000``)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _f32_segment_image(b, kn: int):
+    """One segment of the image from its B ``[n, k]``: per item column
+    block (2 kn columns) and stage (32 K), both consumers' blocks, each 4
+    k8 steps of [hi, lo] x [8-column group][2 k halves][8 columns][4 k],
+    step s's position p at K column ``F32_STEP_COLS[8 s + p]``."""
+    n, k = b.shape
+    ncb, nkt = _cdiv(n, 2 * kn), _cdiv(k, F32_DEPTH)
+    full = b.new_zeros(ncb * 2 * kn, nkt * F32_DEPTH)
+    full[:n, :k] = b
+    full = full.view(-1, nkt, F32_DEPTH)[:, :, F32_STEP_COLS]
+    # n = (block, consumer, group, row), k = (stage, step, half, k)
+    x = full.reshape(ncb, 2, kn // 8, 8, nkt, 4, 2, 4)
+    x = x.permute(0, 4, 1, 5, 2, 6, 3, 7).contiguous()
+    hi = _tf32(x)
+    return torch.stack([hi, _tf32(x - hi)], dim=4).reshape(-1)
+
+
+def f32_weight_image(packed, *, nf: int, dim: int):
+    """The f32 kernels' weight image (``weight_image_kernel`` in
+    csrc/fused_jet.cu), built on the host: every segment of
+    :func:`_f32_segments` split into TF32 hi and lo planes, in the
+    kernel's shared-memory order -> a 1-D f32 tensor of
+    ``f32_image_layout(...)[1]`` values."""
+    wxf = packed["wx_feat"].float()
+    c = wxf.shape[0]
+    bounds = [0]
+    for m in _MULTS:
+        bounds.append(bounds[-1] + nf * m)
+    parts = []
+    for i, kind, _, _, kn in _f32_segments(c, dim, nf):
+        xf = wxf[:, bounds[i]:bounds[i + 1]]
+        wh = packed[f"wh{i}"].float() if i else None
+        b = {"fwd_skip": lambda: xf.t(), "fwd_hidden": lambda: wh.t(),
+             "bwd_hidden": lambda: wh, "bwd_feats": lambda: xf}[kind]()
+        parts.append(_f32_segment_image(b, kn))
+    return torch.cat(parts)
+
+
+def workspace_image(workspace, n: int, c: int, dim: int, nf: int):
+    """The weight image that the f32 :func:`jet_fwd` wrote into its
+    workspace (1-D f32 view)."""
+    off, floats = f32_image_layout(n, c, dim, nf)
+    return workspace[off:off + 4 * floats].view(torch.float32)
 
 
 def _kernel_args(feats2, frac, packed, *, nf: int, compute_dtype):

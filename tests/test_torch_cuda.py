@@ -625,6 +625,75 @@ def test_fused_query_jet_trains_through_kernels(device, dim):
                                    atol=3e-4 * float(w.abs().max()))
 
 
+# Corner rows an item of the f32 product kernel (csrc/fused_jet.cu, a wgmma
+# m64 tile): 8 points at D = 3, 4 at D = 4. A persistent wave is one item
+# per SM.
+F32_JET_ROWS = 64
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+def test_f32_jet_ragged_n(device, dim):
+    """n around the item: one point, one point short of an item, one past
+    it, and a count whose items are not a multiple of a persistent wave
+    (the card's SMs) and whose last item is ragged."""
+    ppi = F32_JET_ROWS >> dim
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for n in (1, ppi - 1, ppi + 1, (sms + 1) * ppi + 3):
+        test_jet_kernels_match_plain(device, 8, 16, n, "leaky_relu", dim)
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+def test_f32_jet_forward_is_deterministic(device, dim):
+    """Two forward launches give the same bits: the jet and the whole
+    workspace (every layer's chains and masks, the weight image)."""
+    from space_time_pde_torch.ops import fused_jet as fj
+
+    packed, feats2, frac, _, _ = _jet_inputs(device, 64, 64, 3000,
+                                             "leaky_relu", dim=dim)
+    first = fj.jet_fwd(feats2, frac, packed, nf=64)
+    second = fj.jet_fwd(feats2, frac, packed, nf=64)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("nf,c,dim", [(64, 64, 3), (64, 64, 4), (3, 5, 3),
+                                      (16, 4, 4), (2, 64, 3)])
+def test_f32_jet_image_and_plans_match_host_mirrors(device, nf, c, dim):
+    """The weight image that the forward splits on the card equals
+    ``ops/fused_jet.py::f32_weight_image`` bit for bit, where
+    ``f32_image_layout`` puts it; the library's ring and split-K plans
+    (``stpde_jet_f32_ring``, ``stpde_jet_f32_tn_plan``) are the mirrors
+    that the CPU tests follow."""
+    import ctypes
+
+    from space_time_pde_torch.ops import fused_jet as fj
+
+    packed, feats2, frac, _, _ = _jet_inputs(device, nf, c, 37,
+                                             "leaky_relu", dim=dim)
+    _, ws = fj.jet_fwd(feats2, frac, packed, nf=nf)
+    torch.cuda.synchronize()
+    lib = _build.load("fused_jet")
+    buf = (ctypes.c_longlong * 5)()
+    lib.stpde_jet_f32_image_layout(37, c, dim, nf, buf)
+    assert tuple(buf[:2]) == fj.f32_image_layout(37, c, dim, nf)
+    got = fj.workspace_image(ws, 37, c, dim, nf).cpu()
+    want = fj.f32_weight_image({k: v.cpu() for k, v in packed.items()},
+                               nf=nf, dim=dim)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for mt in (1, 2, 4, 5):
+        for kn in (32, 64):
+            for staging in (0, 1):
+                lib.stpde_jet_f32_ring(mt, kn, staging, buf)
+                assert tuple(buf[:3]) == fj.f32_ring(mt, kn, bool(staging))
+                assert buf[3] == 384
+    for m in (8, 296, 1184, 65536, 262144, 327680):
+        for ka, nb in ((1, 1), (16, 8), (64, 1024), (128, 64),
+                       (1024, 512), (16384, 8192)):
+            lib.stpde_jet_f32_tn_plan(m, ka, nb, buf)
+            assert tuple(buf) == fj.f32_tn_plan(m, ka, nb), (m, ka, nb)
+
+
 def test_jet_kernels_refuse_other_d(device):
     """D = 3 and D = 4 are the kernels' instantiations; D = 2 on the card
     raises, naming them."""

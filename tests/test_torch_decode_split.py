@@ -29,14 +29,20 @@ truncate as they accumulate, then added to the accumulator (promoted).
 The flagship check runs that arithmetic too (``_tile_chain``); the
 mma.sync case stays as the reference it was.
 
-``csrc/fused_jet.cu`` runs the jet's products the same way (the
-activations' lo rounded, the weights' not). Its forward, emulated layer
-by layer over the chain rows with the kernel's K order, holds every jet
-block of the committed rb2d (D = 3) and turb3d (D = 4) ImNets to the
-card's rule of ``chip_smoke.py`` phases 4 and 11, and its backward's
-largest product, the layer-1 weight gradient X_0^T P_1 over all chain
-rows (split-K partials in the kernel's order), sits within twice the f32
-product's distance from float64.
+``csrc/fused_jet.cu`` runs the jet's products on ``wgmma`` the same way
+(every operand's lo rounded; each k8 step's products promoted into an f32
+accumulator; the weights from ``ops/fused_jet.py::f32_weight_image``).
+Its forward, emulated layer by layer over the chain rows with the
+kernel's K order (``F32_STEP_COLS`` within each 32-deep stage; the
+accumulators starting at the coordinate term and corner bias in f32),
+holds every jet block of the committed rb2d (D = 3) and turb3d (D = 4)
+ImNets to the card's rule of ``chip_smoke.py`` phases 4 and 11; its
+backward's largest product, the layer-1 weight gradient X_0^T P_1 over
+all chain rows (split-K partials of ``f32_tn_plan``'s chunks, summed in
+reduce_kernel's order), sits within twice the f32 product's distance from
+float64; and its chain products P_{i-1} = (P_i Wh_i^T) m_{i-1} with the
+corner-bias sums over them (bias_grad_kernel's order) predict phase 4's
+``corner_bias`` reading against its limit.
 """
 
 import os
@@ -131,6 +137,60 @@ def _mm_tf32x3(a, b, round_b_lo=False, promoted=False, init=None):
 def _mm_tf32(a, b):
     return torch.from_numpy(_tf32(a.float().numpy()) @
                             _tf32(b.float().numpy()))
+
+
+def _trunc32(x):
+    """float64 -> f32 rounded toward zero (the low 29 mantissa bits
+    cleared, so the cast is exact in f32's normal range)."""
+    return x.view(torch.int64).bitwise_and_(-(1 << 29)).view(
+        torch.float64).float()
+
+
+def _mm_promoted(a, b, init=None, rows=64):
+    """The f32 jets' wgmma products (csrc/fused_jet.cu): both operands
+    split into TF32 hi and lo (lo rounded), per k8 step (8 consecutive K)
+    the three products' sum taken exactly and truncated toward zero to
+    f32 (the tensor cores' accumulation, modelled as one truncation a step
+    rather than one a product), then added to the f32 accumulator, which
+    starts at ``init`` or 0 (promoted every step). K is padded to 8.
+    Torch float64 in chunks of ``rows`` rows."""
+    a, b = a.float(), b.float()
+    m, k = a.shape
+    n = b.shape[1]
+    pad = -k % 8
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    g = (k + pad) // 8
+    ah = fj._tf32(a)
+    al = fj._tf32(a - ah)
+    bh = fj._tf32(b)
+    bl = fj._tf32(b - bh)
+    bs = torch.cat([bh.reshape(g, 8, n), bl.reshape(g, 8, n),
+                    bh.reshape(g, 8, n)], 1).double()
+    out = torch.zeros(m, n) if init is None else init.float().clone()
+    for r0 in range(0, m, rows):
+        sl = slice(r0, r0 + rows)
+        a3 = torch.cat([x[sl].reshape(-1, g, 8) for x in (al, ah, ah)], 2)
+        t = _trunc32(torch.bmm(a3.double().transpose(0, 1), bs))
+        acc = out[sl]
+        for j in range(g):
+            acc += t[j]
+    return out
+
+
+def _mm_stages(a, b, init=None):
+    """:func:`_mm_promoted` with K in the f32 jet kernel's order for a
+    row-major A: padded to whole 32-deep stages, each stage's columns
+    taken in ``fj.F32_STEP_COLS`` order (k8 step s holds columns 8t + 2s
+    and 8t + 2s + 1)."""
+    k = a.shape[1]
+    kp = -(-k // 32) * 32
+    idx = torch.tensor([32 * kt + c for kt in range(kp // 32)
+                        for c in fj.F32_STEP_COLS])
+    a = torch.nn.functional.pad(a.float(), (0, kp - k))[:, idx]
+    b = torch.nn.functional.pad(b.float(), (0, 0, 0, kp - k))[idx]
+    return _mm_promoted(a, b, init)
 
 
 def _kernel_chain(kw, feats2, frac, *, nf, activation, matmul,
@@ -364,12 +424,14 @@ def jet_inputs():
 
 
 def _jet_kernel_chain(packed, feats2, frac, *, nf, slope, matmul):
-    """The jet forward kernel's decomposition: per layer one product over
-    the chain planes [D+1][R] of X_{i-1} @ Wh_i, the primal's accumulator
-    continuing over the latents (feats @ Wx_feat[:, sl_i], extra K steps);
-    the coordinate term and corner bias added after, in f32; the primal's
-    mask on every chain; the blend and head of the plain twin. ->
-    (jet [N, blocks, O], the five layers' masks [R, w_i])."""
+    """The f32 jet forward kernel's decomposition (csrc/fused_jet.cu,
+    FwdLayer): per layer, the primal's accumulator starts at corner_bias +
+    frac @ Wx_rel (each coordinate's term fused-multiply-added in order, in
+    f32) and each tangent's at its Wx_rel row; the skip product feats @
+    Wx_feat[:, sl_i] (K = C) adds to the primal's, then the hidden product
+    X_{i-1} @ Wh_i (K = w_{i-1}) to every chain's (``matmul(a, b, init)``);
+    the primal's mask on every chain; the blend and head of the plain twin.
+    -> (jet [N, blocks, O], the five layers' masks [R, w_i])."""
     n, dim = frac.shape
     k = 2 ** dim
     wxf, wxr, cb = packed["wx_feat"], packed["wx_rel"], packed["corner_bias"]
@@ -378,21 +440,23 @@ def _jet_kernel_chain(packed, feats2, frac, *, nf, slope, matmul):
     for i, mult in enumerate(fq._MULTS):
         sl = slice(off, off + nf * mult)
         off += nf * mult
+        init = cb[corner, sl].double()
+        for d in range(dim):
+            init = (init + frac[point, d:d + 1].double()
+                    * wxr[d, sl].double()).float().double()
+        acc = [matmul(feats2, wxf[:, sl], init.float())]
+        tangents = [wxr[c, sl].expand(n * k, -1).contiguous()
+                    for c in range(dim)]
         if i == 0:
-            acc = [matmul(feats2, wxf[:, sl])] + [0.0] * dim
+            acc += tangents
         else:
             wh = packed[f"wh{i}"]
-            acc = [matmul(torch.cat([x[0], feats2], 1),
-                          torch.cat([wh, wxf[:, sl]], 0))]
-            acc += [matmul(x[c], wh) for c in range(1, dim + 1)]
-        pre = acc[0]
-        for d in range(dim):
-            pre = pre + frac[point, d:d + 1] * wxr[d, sl]
-        pre = pre + cb[corner, sl]
-        masks.append(pre >= 0)
+            acc = [matmul(x[0], wh, acc[0])]
+            acc += [matmul(x[c], wh, tangents[c - 1])
+                    for c in range(1, dim + 1)]
+        masks.append(acc[0] >= 0)
         m = torch.where(masks[-1], 1.0, slope)
-        x = [m * pre] + [m * (acc[c] + wxr[c - 1, sl])
-                         for c in range(1, dim + 1)]
+        x = [m * a for a in acc]
     h = x[0].reshape(n, k, nf)
     g = torch.stack(x[1:], 1).reshape(n, k, dim, nf)
     return fj._head(fj._stacked(h, g, frac), packed, lambda t: t), masks
@@ -417,7 +481,7 @@ def test_jet_tf32x3_within_twice_f32_of_float64(jet_inputs, dim):
     p64 = {k: v.double() for k, v in packed.items()}
     f64, fr64 = feats2.double(), frac.double()
     with torch.no_grad():
-        got, km = _jet_kernel_chain(packed, feats2, frac, matmul=_mm_tf32x3,
+        got, km = _jet_kernel_chain(packed, feats2, frac, matmul=_mm_stages,
                                     **kw)
         plain32 = fj.jet_fwd_plain(feats2, frac, packed, **kw)
         want64, pres64 = fj.jet_fwd_plain(f64, fr64, p64, return_pre=True,
@@ -461,10 +525,10 @@ def _chain_planes(packed, feats2, frac, nf):
 
 def test_jet_weight_gradient_tf32x3_within_twice_f32_of_float64(jet_inputs):
     """dWh_1 = X_0^T P_1 over all 4 x 2,048 chain rows (rb2d flagship,
-    256 points), as the TN kernel sums it: split-K chunks of 512 rows
-    (chunk_rows at this size), each a run of 3xTF32 k8 steps with both
-    operands' lo rounded, then the chunks in eight interleaved sums added
-    in order (reduce_kernel)."""
+    256 points), as the TN product sums it: split-K chunks of
+    ``f32_tn_plan`` (256 rows at this size), each a run of promoted 3xTF32
+    k8 steps (8 rows a step, both operands' lo rounded), then the chunks in
+    eight interleaved sums added in order (reduce_kernel)."""
     nf, packed, feats2, frac = jet_inputs[3]
     with torch.no_grad():
         _, pres = fj.jet_fwd_plain(feats2, frac, packed, nf=nf,
@@ -477,17 +541,109 @@ def test_jet_weight_gradient_tf32x3_within_twice_f32_of_float64(jet_inputs):
     p1 = torch.from_numpy(rng.randn(rows, 8 * nf).astype(np.float32)) * m1
     want64 = x0.double().T @ p1.double()
     plain32 = x0.T @ p1
-    parts = [_mm_tf32x3(x0[z:z + 512].T, p1[z:z + 512], round_b_lo=True)
-             for z in range(0, rows, 512)]
+    chunk = fj.f32_tn_plan(rows, 16 * nf, 8 * nf)[3]
+    parts = [_mm_promoted(x0[z:z + chunk].T, p1[z:z + chunk])
+             for z in range(0, rows, chunk)]
+    assert len(parts) >= 8
     sums = [sum(parts[q::8][1:], parts[q]) for q in range(8)]
     got = sums[0]
     for s in sums[1:]:
         got = got + s
     need, floor = _jet_atol(got, want64), _jet_atol(plain32, want64)
-    print(f"X_0^T P_1 over {rows} chain rows: atol needed vs float64 "
-          f"3xTF32 {need:.3e}, f32 {floor:.3e}")
+    print(f"X_0^T P_1 over {rows} chain rows in {len(parts)} chunks of "
+          f"{chunk}: atol needed vs float64 3xTF32 {need:.3e}, f32 "
+          f"{floor:.3e}")
     assert need <= 2.0 * floor
 
+
+def _head_backward(packed, frac, ybar, masks4, slope):
+    """P_4 in f32 (the backward head kernel's sums, jet_common.cuh): ybar
+    through W5 and spread over the chain rows by the blend's transpose,
+    times layer 4's mask -> the chain planes [D + 1, R, nf]."""
+    n, dim = frac.shape
+    w, dw, d2w = (t.float() for t in fj.multilinear_weight_jet(frac))
+    bars = ybar.float() @ packed["w5"].float().t()       # [N, blocks, nf]
+    hbar = w[..., None] * bars[:, :1]
+    for a in range(dim):
+        hbar = hbar + dw[..., a, None] * bars[:, 1 + a, None]
+    gbar = [w[..., None] * bars[:, 1 + a, None] for a in range(dim)]
+    for i, (a, b) in enumerate(fj.tri_pairs(dim)):
+        bh = bars[:, 1 + dim + i, None]
+        if a != b:
+            hbar = hbar + d2w[..., a, b, None] * bh
+        gbar[b] = gbar[b] + dw[..., a, None] * bh
+        gbar[a] = gbar[a] + dw[..., b, None] * bh
+    m = torch.where(masks4.reshape(n, 2 ** dim, -1), 1.0, slope)
+    planes = [hbar * m] + [g * m for g in gbar]
+    return torch.stack([p.reshape(n * 2 ** dim, -1) for p in planes])
+
+
+# Points of the chain-product emulation: the truncating accumulation runs
+# in float64 over every product of the backward's chains.
+CHAIN_POINTS = 256
+
+
+def test_jet_corner_bias_tf32x3_within_twice_f32_of_float64():
+    """Phase 4's ``corner_bias`` gradient (its D = 3 reading sat at 96% of
+    the limit under the mma.sync kernel) on both kernels' arithmetic:
+    chip_smoke.py's phase-4 inputs (the flagship ImNet, a seeded N(0, 1)
+    latent grid of (4, 16, 16), its point mix) at CHAIN_POINTS points; the
+    forward's masks from its emulation (:func:`_jet_kernel_chain`), P_4 from
+    the head in f32, then P_{i-1} = (P_i Wh_i^T) m_{i-1} as the chain
+    product runs it (promoted 3xTF32, K in the stage order), and
+    corner_bias[k, sl_i] = sum_p P_i[p, k, primal] in bias_grad_kernel's
+    order. Held as phase 4 holds it: within twice the f32 twin's distance
+    from float64, or, where only branches flipped near 0 differ, within
+    twice on the kernel's own branches. Both readings are printed."""
+    import chip_smoke as cs
+
+    imnet = cs.load_imnet(ASSET, 3, torch.device("cpu"))
+    feats2, frac, packed, ybar, kw = cs.jet_inputs(
+        imnet, torch.device("cpu"), (4, 16, 16), CHAIN_POINTS)
+    nf, slope, dim = kw["nf"], kw["slope"], 3
+    p64 = {k: v.double() for k, v in packed.items()}
+    f64, fr64, y64 = feats2.double(), frac.double(), ybar.double()
+    with torch.no_grad():
+        _, km = _jet_kernel_chain(packed, feats2, frac, matmul=_mm_stages,
+                                  **kw)
+        planes = _head_backward(packed, frac, ybar, km[4], slope)
+        sums = [None] * 5
+        for i in range(4, -1, -1):
+            prim = planes[0].reshape(CHAIN_POINTS, 2 ** dim, -1)
+            sums[i] = torch.from_numpy(_bias_sums_tree(prim.numpy()))
+            if i:
+                w = planes.shape[-1]
+                nxt = _mm_stages(planes.reshape(-1, w),
+                                 packed[f"wh{i}"].t())
+                m = torch.where(km[i - 1], 1.0, slope)
+                planes = nxt.reshape(dim + 1, -1, nxt.shape[-1]) * m
+        _, pres64 = fj.jet_fwd_plain(f64, fr64, p64, return_pre=True, **kw)
+    got = torch.cat(sums, dim=-1)
+    flips, near = 0, True
+    for m, pre in zip(km, pres64):
+        flip = m != (pre.reshape(m.shape) >= 0)
+        flips += int(flip.sum())
+        if flip.any():
+            near &= float(pre.reshape(m.shape)[flip].abs().max()) <= \
+                FLIP_REL * float(pre.abs().max())
+    readings = {}
+    for what, masks in (("float64's branches", None),
+                        ("the kernel's branches", km)):
+        g32 = fj.jet_bwd_plain(feats2, frac, packed, ybar, masks=masks,
+                               **kw)[1]["corner_bias"]
+        g64 = fj.jet_bwd_plain(f64, fr64, p64, y64, masks=masks,
+                               **kw)[1]["corner_bias"]
+        need, floor = _jet_atol(got, g64), _jet_atol(g32, g64)
+        limit = max(JET_SLACK * floor, JET_FLOOR)
+        readings[what] = need <= limit
+        print(f"corner_bias over {CHAIN_POINTS} phase-4 points (D = 3), "
+              f"on {what}: atol needed vs float64: kernel {need:.3e}, f32 "
+              f"twin {floor:.3e}; {need / limit:.3f} of the limit "
+              f"{limit:.3e} ({flips} kernel branches differ from "
+              f"float64's)")
+    assert torch.isfinite(got).all()
+    assert readings["float64's branches"] or (
+        near and readings["the kernel's branches"])
 
 
 # The jet backward's bias-side sums (csrc/fused_jet.cu, bias_grad_kernel

@@ -239,14 +239,35 @@ P. the captured step (``CapturedStep``: one CUDA graph a dispatch, the
    replays included) and the idle share, 1 - the device's busy time /
    the wall time, both of that traced dispatch;
 
-and last, one JSON line of the eight kernels (the four f32 kernels and
-the four bf16 instantiations; ``path``: eval, train or off_path;
-``math``: tf32x3 for the f32 kernels (3xTF32 on the tensor cores), bf16
-for the bf16 ones; launches per path and per D (on the train paths,
-the device trace's count); times, plain times and
-bounds at D = 4, and at D = 3 under ``d3``: ``bound_ms`` against the
-kernel's own arithmetic, ``bound_f32_ms`` against f32 FFMA), then the
-status line.
+and the RB2D data generator (``data/rb2_solver.py``: the float64
+Boussinesq solver, its Helmholtz solves on ``csrc/tridiag.cu``):
+
+S. (a) the tridiag kernel against ``thomas_plain`` on the card, both
+   boundary kinds, at 128 x 257 and a ragged 16 x 45, within TRIDIAG_TOL
+   of max |x|, CUDA-event times; (b) the card solver against the port's
+   numpy copy, 200 steps from seed 42 at 512 x 128, Ra 1e6, every field
+   within SEEDED_TOL of its max; (c) the same from a developed state
+   (the numpy copy run to t = 10 at 64 x 32, Ra 1e5, seed 0) within
+   DEVELOPED_TOL; (d) two card runs of (b), and a snapshot interval's
+   CUDA graph replayed twice against the same steps run eagerly, bit for
+   bit, and one replay traced; (e) ``generate_data_torch.main`` with
+   ``data/regen_rb2d.sh``'s flags (seed 42): s per seed, the tridiag
+   launches (the wrapper's from Python plus those it recorded into the
+   graph times the replays ``simulate_rb2d`` counted, which must be the
+   transient's and the snapshots'), the file's schema, its statistics
+   against the numpy seeds' (``assets/rb2d_ra1e6_stats.npz``,
+   STATS_SLACK, STATS_FLOOR); (f)
+   ``train_torch.main`` with the flagship's flags, 2 epochs x 8 steps on
+   that file; the readings on a ``{"solver": ...}`` line;
+
+and last, one JSON line of the nine kernels (the four f32 kernels, the
+four bf16 instantiations and ``tridiag``; ``path``: eval, train,
+off_path or rb2d_data; ``math``: tf32x3 for the f32 kernels (3xTF32 on
+the tensor cores), bf16 for the bf16 ones, fp64 for tridiag; launches
+per path and per D (on the train paths, the device trace's count);
+times, plain times and bounds at D = 4, and at D = 3 under ``d3``:
+``bound_ms`` against the kernel's own arithmetic, ``bound_f32_ms``
+against f32 FFMA; tridiag's at 128 x 257), then the status line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -424,8 +445,10 @@ TRACE_MARKERS = {
     "decode_blend": r"decode_blend_kernel<\d+, false>",
     "decode_blend_gather_bf16": r"decode_bf16_kernel<false>",
     "decode_blend_bf16": r"decode_bf16_kernel<true>",
+    "tridiag": r"tridiag_kernel",
 }
-_MARKED = r"jet_head_(fwd|bwd)_kernel|decode_(blend|bf16)_kernel"
+_MARKED = (r"jet_head_(fwd|bwd)_kernel|decode_(blend|bf16)_kernel"
+           r"|tridiag_kernel")
 
 
 def traced(fn):
@@ -2494,6 +2517,316 @@ def ckpt_vs_params(card):
 
 
 # ------------------------------------------------------------------------
+# Phase S: the RB2D Boussinesq data generator on the card (the float64
+# solver of data/rb2_solver.py, its Helmholtz solves on the tridiag
+# kernel), held against the port's numpy copy of the solver.
+
+STATS_ASSET = os.path.join(ASSETS, "rb2d_ra1e6_stats.npz")
+# data/regen_rb2d.sh's flags, seed 42: 16,000 transient steps, then 200
+# snapshots 80 steps apart.
+REGEN_FLAGS = ["--nx", "512", "--nz", "128", "--rayleigh", "1e6",
+               "--n_snapshots", "200", "--seed", "42"]
+SOLVER_STEPS = 200
+# The kernel against its plain twin, x max |x|: both do numpy's float64
+# operations in numpy's order (no FMA), so they should agree exactly.
+TRIDIAG_TOL = 1e-13
+# The card solver against the numpy copy after SOLVER_STEPS steps, x max
+# |numpy| of each field: cuFFT and pocketfft round differently, and the
+# seeded start's first steps grow that rounding (the torch solver on the
+# CPU reads ~2e-14 after 200 steps at 64 x 32, tests/
+# test_torch_rb2_solver.py); from a developed state it stays at ~1e-15.
+SEEDED_TOL, DEVELOPED_TOL = 1e-10, 1e-12
+# A card seed's statistics against the numpy seed 42's
+# (assets/rb2d_ra1e6_stats.npz): within STATS_SLACK times the distance
+# between the numpy seeds 42 and 7 (a profile's distance is its max over
+# z), never below STATS_FLOOR of the statistic's max |value|. The flow is
+# chaotic: after 16,000 steps the card's trajectory is another sample of
+# the same statistics, not the numpy one.
+STATS_SLACK, STATS_FLOOR = 3.0, 1e-3
+# float64 outside the tensor cores (NVIDIA's H100 SXM data sheet, 700 W).
+FP64_FLOPS = 34e12
+
+
+def _numpy_dt(s):
+    """``simulate_rb2d``'s step for solver ``s``."""
+    return min(0.2 * s.dx, 0.2 * s.dz, 0.2 * s.dz ** 2 / max(s.R, s.P))
+
+
+def _solver_fields(s):
+    """The state (``b, zeta, psi``) of solver ``s`` after its last step,
+    then ``u, w`` (``velocities``) and ``p`` (``pressure``), as numpy
+    float64 (card tensors copied)."""
+    out = {k: getattr(s, k) for k in ("b", "zeta", "psi")}
+    out = {k: v.clone() if torch.is_tensor(v) else v.copy()
+           for k, v in out.items()}
+    u, w = s.velocities()
+    out.update(u=u, w=w, p=s.pressure(u, w, s.b))
+    return {k: v.cpu().numpy() if torch.is_tensor(v) else v
+            for k, v in out.items()}
+
+
+def _fields_held(what, got, want, tol):
+    """Each field's max |card - numpy| / max |numpy| beside ``tol``."""
+    rel = {k: float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+           for k in want}
+    say(f"phase S {what}: max |card - numpy| / max |numpy| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" (limit {tol:g})")
+    bad = [k for k, v in rel.items() if not v <= tol]
+    if bad:
+        raise SystemExit(f"phase S {what}: {bad} beyond {tol:g} of max "
+                         f"|numpy|: {rel}")
+    return {"max_rel": max(rel.values()), "limit": tol, "fields": rel}
+
+
+def tridiag_vs_plain(device):
+    """Phase S (a): the kernel against ``thomas_plain`` on the card, both
+    boundary kinds of the solver's operators (Dirichlet with the walls
+    zeroed; Neumann with the kx = 0 mode pinned), at 128 x 257 (the
+    512 x 128 grid) and at a ragged 16 x 45 (nx 88), seeded complex
+    right-hand sides; CUDA-event times at 128 x 257, plain / kernel /
+    kernel / plain."""
+    from space_time_pde_torch.data.rb2_solver import RB2Solver
+    from space_time_pde_torch.ops import tridiag as td
+
+    rng = np.random.RandomState(0)
+    row, worst = None, 0.0
+    for nx, nz in ((512, 128), (88, 16)):
+        s = RB2Solver(nx, nz, 4.0, 1.0, 1e6, 1.0, 0, device)
+        nk = nx // 2 + 1
+        rhs = torch.from_numpy(rng.randn(nz, nk)
+                               + 1j * rng.randn(nz, nk)).to(device)
+        for what, op in (("Dirichlet", s._psi_op),
+                         ("Neumann, kx = 0 pinned", s._p_op)):
+            kernel = lambda: td.tridiag(rhs, *op)
+            plain = lambda: td.thomas_plain(rhs, *op)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            worst = max(worst, err / scale)
+            say(f"phase S (a) tridiag {nz} x {nk} {what}: max |kernel - "
+                f"plain| {err:.3e} = {err / scale:.3e} of max |x| "
+                f"{scale:.4e} (limit {TRIDIAG_TOL:g}); bit for bit: "
+                f"{torch.equal(got, want)}")
+            if not (err <= TRIDIAG_TOL * scale
+                    and bool(torch.isfinite(got).all())):
+                raise SystemExit(f"tridiag disagrees with thomas_plain at "
+                                 f"{nz} x {nk} ({what}): {err:.3e}")
+            if row is None:
+                p1, k1, k2, p2 = (cuda_ms(f, r) for f, r in (
+                    (plain, 3), (kernel, 200), (kernel, 200), (plain, 3)))
+                n = nz * nk
+                # rhs, c, inv read and x written once: 16 + 2 x 8 + 16
+                # bytes an entry, and lower's nz float64 once; 10 float64
+                # operations an entry.
+                nbytes = 48 * n + 8 * nz
+                t_mem = nbytes / HBM_BYTES * 1e3
+                t_op = 10 * n / FP64_FLOPS * 1e3
+                row = {"max_abs_err": err, "ms": (k1 + k2) / 2,
+                       "plain_ms": (p1 + p2) / 2,
+                       "bound_ms": max(t_mem, t_op),
+                       "bound_by": "bytes" if t_mem >= t_op
+                       else "operations", "library_ms": None,
+                       "shape": [nz, nk]}
+                say(f"phase S (a) tridiag {nz} x {nk}: kernel {k1:.4f}/"
+                    f"{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms, bound "
+                    f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: "
+                    f"{nbytes} bytes, {10 * n} float64 operations)")
+    row["max_rel_err"] = worst
+    return row
+
+
+def rb2d_generator(device, card):
+    """Phase S: (a) the tridiag kernel against its twin; (b) the card
+    solver against the numpy copy, 200 steps from seed 42 at 512 x 128,
+    Ra 1e6, every field; (c) the same from a developed state (the numpy
+    copy run to t = 10 at 64 x 32, Ra 1e5, seed 0), 200 steps both ways;
+    (d) two card runs of (b) equal bit for bit, and the captured graph of
+    one snapshot interval replayed twice equal to the same steps run
+    eagerly, state and snapshot fields; one replay traced (the kernel
+    runs in it; its device time); (e) ``generate_data_torch.main`` with
+    ``data/regen_rb2d.sh``'s flags (seed 42) on the card, s per seed, its
+    launches, the file's schema and its statistics against the numpy
+    seeds' (``assets/rb2d_ra1e6_stats.npz``); (f) ``train_torch.main``
+    with the flagship's flags for 2 epochs of 8 steps on that file.
+    Returns ({"solver": readings}, the tridiag kernel's row)."""
+    from space_time_pde_torch.data import generator as gen
+    from space_time_pde_torch.data import rb2_solver as rb
+    from space_time_pde_torch.data.rb2_solver import (RB2Solver,
+                                                      flow_statistics)
+    from space_time_pde_torch.ops import tridiag as td
+
+    t_s = time.perf_counter()
+    readings = {}
+    row = tridiag_vs_plain(device)
+    readings["a_tridiag_vs_plain"] = {"max_rel": row["max_rel_err"],
+                                      "limit": TRIDIAG_TOL}
+
+    # (b) and the first half of (d): two card runs of 200 steps.
+    ref = gen._RB2Solver(512, 128, 4.0, 1.0, 1e6, 1.0, 42)
+    dt = _numpy_dt(ref)
+    runs = []
+    for _ in range(2):
+        s = RB2Solver(512, 128, 4.0, 1.0, 1e6, 1.0, 42, device)
+        for _ in range(SOLVER_STEPS):
+            s.step(dt)
+        runs.append(_solver_fields(s))
+    t0 = time.perf_counter()
+    for _ in range(SOLVER_STEPS):
+        ref.step(dt)
+    numpy_s = time.perf_counter() - t0
+    readings["b_seeded"] = _fields_held(
+        f"(b) 512 x 128, Ra 1e6, seed 42, {SOLVER_STEPS} steps",
+        runs[0], _solver_fields(ref), SEEDED_TOL)
+    readings["b_seeded"]["numpy_ms_per_step_host"] = \
+        numpy_s / SOLVER_STEPS * 1e3
+    repeat = all(np.array_equal(runs[0][k], runs[1][k]) for k in runs[0])
+    say(f"phase S (d) two card runs of (b): bit for bit {repeat}")
+
+    # (c) from a developed state.
+    ref = gen._RB2Solver(64, 32, 4.0, 1.0, 1e5, 1.0, 0)
+    dt_c = _numpy_dt(ref)
+    n_dev = int(round(10.0 / dt_c))
+    for _ in range(n_dev):
+        ref.step(dt_c)
+    u_max = float(np.abs(ref.ddz(ref.psi)).max())
+    w_max = float(np.abs(ref.ddx(ref.psi)).max())
+    s = RB2Solver.from_state(ref.b, ref.zeta, ref.psi, 4.0, 1.0, 1e5, 1.0,
+                             device)
+    for _ in range(SOLVER_STEPS):
+        ref.step(dt_c)
+        s.step(dt_c)
+    readings["c_developed"] = _fields_held(
+        f"(c) 64 x 32, Ra 1e5, seed 0 after {n_dev} numpy steps (t = 10, "
+        f"|u| {u_max:.3f}, |w| {w_max:.3f}), {SOLVER_STEPS} steps",
+        _solver_fields(s), _solver_fields(ref), DEVELOPED_TOL)
+
+    # (d) captured against eager over two snapshot intervals.
+    n_per = max(1, int(round(0.125 / dt)))
+    eager = RB2Solver(512, 128, 4.0, 1.0, 1e6, 1.0, 42, device)
+    cap = RB2Solver(512, 128, 4.0, 1.0, 1e6, 1.0, 42, device)
+    td.reset_launches()
+    graph = cap.capture(n_per, dt)
+    recorded = td.CAPTURED["tridiag"]
+    captured = True
+    for _ in range(2):
+        for _ in range(n_per):
+            eager.step(dt)
+        graph.replay()
+        fe, fc = _solver_fields(eager), _solver_fields(cap)
+        captured &= all(np.array_equal(fe[k], fc[k]) for k in fe)
+    # One traced replay of the interval gives a step's device time; its
+    # count of tridiag records only shows that the kernel ran: in this
+    # script a traced replay has read one record short (159 of 160, and 3
+    # of a 2-step graph's 4) while captured == eager bit for bit showed
+    # every solve ran. The launches a replay runs are the wrapper's count
+    # of those it recorded in the capture.
+    _, counts, busy, wall = traced(graph.replay)
+    seen = counts["tridiag"]
+    step_ms = busy / n_per
+    say(f"phase S (d) captured == eager over 2 intervals of {n_per} steps "
+        f"(state and snapshot fields) bit for bit: {captured}; the graph "
+        f"holds {recorded} tridiag launches, one traced replay shows "
+        f"{seen}; device busy {busy:.3f} ms of {wall:.3f} ms wall "
+        f"({step_ms:.4f} ms a step) on {card}")
+    readings["d_bit_for_bit"] = {"two_runs": repeat,
+                                 "captured_vs_eager": captured}
+    if not (repeat and captured) or recorded != 2 * n_per or \
+            not 0 < seen <= recorded:
+        raise SystemExit(f"phase S (d): two runs equal {repeat}, captured "
+                         f"== eager {captured}, tridiag launches recorded "
+                         f"{recorded} (want {2 * n_per}), traced {seen}")
+    del eager, cap, graph
+    torch.cuda.empty_cache()
+
+    # (e) one seed through the CLI, the main path: the wrapper counts
+    # the launches made from Python (the capture's warm-up step, the
+    # snapshots) and those recorded into the graph, and simulate_rb2d
+    # counts the graph's replays, each of which runs them again.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rb2d_ra1e6_s42.npz")
+        cli = load_driver("rb2d", "generate_data_torch.py")
+        td.reset_launches()
+        rb.reset_replays()
+        t0 = time.perf_counter()
+        cli.main(REGEN_FLAGS + ["--out", path])
+        seed_s = time.perf_counter() - t0
+        eager_launches = td.LAUNCHES["tridiag"]
+        per_replay = td.CAPTURED["tridiag"]
+        replays = rb.REPLAYS["interval"]
+        n_tr = int(round(25.0 / dt))
+        want_replays = n_tr // n_per + 200
+        want_eager = 2 + 2 * (n_tr % n_per) + 2 * 200
+        launches = eager_launches + per_replay * replays
+        say(f"phase S (e) one seed with data/regen_rb2d.sh's flags: "
+            f"{seed_s:.2f} s on {card} ({n_tr} + 200 x {n_per} steps); "
+            f"tridiag launches {launches} ({eager_launches} from Python, "
+            f"{per_replay} in the graph x {replays} replays counted, want "
+            f"{want_replays})")
+        if eager_launches != want_eager or per_replay != 2 * n_per or \
+                replays != want_replays:
+            raise SystemExit(f"phase S (e): {eager_launches} tridiag "
+                             f"launches from Python (want {want_eager}), "
+                             f"{per_replay} in the graph (want "
+                             f"{2 * n_per}), {replays} replays (want "
+                             f"{want_replays})")
+        with np.load(path) as z:
+            fields = {k: z[k] for k in z.files}
+        for k in ("p", "b", "u", "w"):
+            v = fields[k]
+            if v.shape != (200, 128, 512) or v.dtype != np.float32 or \
+                    not np.isfinite(v).all():
+                raise SystemExit(f"phase S (e): {k} {v.dtype} {v.shape}, "
+                                 f"finite {np.isfinite(v).all()}")
+        got = flow_statistics(fields)
+        with np.load(STATS_ASSET) as z:
+            seeds = list(z["seeds"])
+            ref = {k: z[k] for k in got}
+        i42, i7 = seeds.index(42), seeds.index(7)
+        stats = {}
+        for k in got:
+            dist = float(np.abs(ref[k][i42] - ref[k][i7]).max())
+            scale = float(np.abs(ref[k][i42]).max())
+            limit = max(STATS_SLACK * dist, STATS_FLOOR * scale)
+            d = float(np.abs(got[k] - ref[k][i42]).max())
+            stats[k] = {"distance": d, "limit": limit,
+                        "seeds_42_7": dist}
+            say(f"phase S (e) {k}: |card - numpy s42| {d:.4e} (numpy "
+                f"s42 - s7 {dist:.4e}; limit {limit:.4e})"
+                + (f"; card {float(got[k]):.5f}, numpy s42 "
+                   f"{float(ref[k][i42]):.5f}, s7 {float(ref[k][i7]):.5f}"
+                   if np.ndim(got[k]) == 0 else ""))
+            if not d <= limit:
+                raise SystemExit(f"phase S (e): {k} {d:.4e} from numpy "
+                                 f"seed 42, beyond {limit:.4e}")
+        readings["e_seed"] = {"seconds": seed_s, "steps": n_tr + 200 * n_per,
+                              "device_ms_per_step": step_ms,
+                              "stats": stats}
+
+        # (f) the flagship's training on the file.
+        log_dir = os.path.join(tmp, "log")
+        flags = rb2d_flags(tmp, log_dir)
+        for flag in ("--train_data", "--eval_data"):
+            flags[flags.index(flag) + 1] = os.path.basename(path)
+        run = load_driver("rb2d", "train_torch.py").main(
+            flags + ["--epochs", "2"])
+        losses = [e["loss"] for e in run["epochs"]]
+        if len(losses) != 2 or not np.isfinite(
+                [e[k] for e in run["epochs"] for k in e
+                 if k.endswith("loss")]).all():
+            raise SystemExit(f"phase S (f): {run['epochs']}")
+        say(f"phase S (f) train_torch on the card's seed, 2 epochs x 8 "
+            f"steps at the flagship widths: losses "
+            + ", ".join(f"{v:.5f}" for v in losses))
+        readings["f_train_losses"] = losses
+    say(f"phase S took {time.perf_counter() - t_s:.1f} s")
+    row.update(launches=launches, launches_from_python=eager_launches,
+               launches_in_graph_replays=per_replay * replays)
+    return {"solver": readings, "card": card}, row
+
+
+# ------------------------------------------------------------------------
 # Phases D-F: the parallel paths. Their ranks are processes of this
 # script (``--worker``), started as torchrun starts ranks (RANK,
 # WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, a localhost rendezvous); with
@@ -3061,7 +3394,7 @@ def main():
     _build.load()
     log = _build.build_log()
     for src in ("fused_query", "fused_query_bf16", "fused_jet",
-                "fused_jet_bf16"):
+                "fused_jet_bf16", "tridiag"):
         for line in ptxas_summary(log.get(src, "")):
             print(f"{src}.cu {line}", flush=True)
     for dim in (3, 4):
@@ -3248,6 +3581,10 @@ def main():
     say(f"phase O1 took {time.perf_counter() - t_o:.1f} s; phase O ran "
         f"{sorted(ckpt_paths)}")
 
+    # Phase S: the RB2D data generator on the card.
+    solver, tridiag_row = rb2d_generator(device, card)
+    torch.cuda.empty_cache()
+
     by_path = {"rb2d_eval": rb2d_eval, "rb2d_train": rb2d_train,
                "turb3d_eval_val": turb3d_eval["val"],
                "turb3d_eval_test": turb3d_eval["test"],
@@ -3283,7 +3620,18 @@ def main():
         elif main_path < 1:
             raise SystemExit(f"{name} was not launched on its main paths")
         kernels.append(entry)
+    # The data generator's kernel replaces numpy code, no TPU kernel.
+    kernels.append({"name": "tridiag", "route": "cuda", "math": "fp64",
+                    "source": "space_time_pde_torch/csrc/tridiag.cu",
+                    "replaces": "space_time_pde_tpu/data/generator.py:80",
+                    "replaces_kind": "numpy (_thomas_batched), no TPU "
+                                     "kernel",
+                    "path": "rb2d_data",
+                    "launches_by_path": {"rb2d_data":
+                                         tridiag_row["launches"]},
+                    **tridiag_row})
     say("done")
+    print(json.dumps(solver))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

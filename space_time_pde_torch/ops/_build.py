@@ -25,7 +25,8 @@ __all__ = ["load", "check", "build_log", "library_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("fused_query", "fused_query_bf16", "fused_jet", "fused_jet_bf16")
+_SOURCES = ("fused_query", "fused_query_bf16", "fused_jet", "fused_jet_bf16",
+            "tridiag")
 _BUILD = _PKG / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -88,6 +89,10 @@ _ARGTYPES = {
         # A tiles a stage, staging, out[4]; m, ka, nb, out[5]
         "stpde_jet_bf16_ring": ([_I, _I, _P], None),
         "stpde_jet_bf16_tn_plan": ([_L, _I, _I, _P], None),
+    },
+    "tridiag": {
+        # rhs, lower, c, inv, x, nz, nk, zero_rows, stream
+        "stpde_tridiag_solve": ([_P] * 5 + [_I] * 3 + [_P], _I),
     },
 }
 

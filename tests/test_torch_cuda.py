@@ -1,5 +1,5 @@
-"""On-card checks of the CUDA kernels (decode and jet) against their
-plain twins.
+"""On-card checks of the CUDA kernels (decode, jet and the rb2d data
+generator's tridiagonal solve) against their plain twins.
 
 Marked ``cuda``: without a card every test skips (a CUDA kernel has no
 CPU mode). On a machine with one, from the repo root:
@@ -1061,3 +1061,96 @@ def test_device_sampled_step_captures(device, tmp_path):
         assert torch.equal(got[k], want[k]), k
     for k in wm:
         assert torch.equal(gm[k], wm[k]), k
+
+
+# --- the rb2d data generator: the tridiagonal kernel (csrc/tridiag.cu) ---
+
+
+@pytest.mark.parametrize("nx,nz", [(512, 128), (88, 16)])
+@pytest.mark.parametrize("op", ["_psi_op", "_p_op"])
+def test_tridiag_kernel_matches_plain(device, nx, nz, op):
+    """The kernel against ``thomas_plain`` on the solver's Dirichlet and
+    pinned Neumann operators, at the 512 x 128 grid's 128 x 257 and a
+    ragged 16 x 45: within 1e-13 of max |x| (both do numpy's operations
+    in numpy's order), one launch counted."""
+    from space_time_pde_torch.data.rb2_solver import RB2Solver
+    from space_time_pde_torch.ops import tridiag as td
+
+    s = RB2Solver(nx, nz, 4.0, 1.0, 1e6, 1.0, 0, device)
+    rng = np.random.RandomState(nz)
+    nk = nx // 2 + 1
+    rhs = torch.from_numpy(rng.randn(nz, nk)
+                           + 1j * rng.randn(nz, nk)).to(device)
+    before = td.LAUNCHES["tridiag"]
+    got = td.tridiag(rhs, *getattr(s, op))
+    want = td.thomas_plain(rhs, *getattr(s, op))
+    torch.cuda.synchronize()
+    assert td.LAUNCHES["tridiag"] == before + 1
+    assert float((got - want).abs().max()) <= \
+        1e-13 * float(want.abs().max())
+
+
+def _rb2_pair(device):
+    from space_time_pde_torch.data.rb2_solver import RB2Solver
+
+    a, b = (RB2Solver(64, 32, 4.0, 1.0, 1e5, 1.0, 0, device)
+            for _ in range(2))
+    dt = min(0.2 * a.dx, 0.2 * a.dz, 0.2 * a.dz ** 2 / max(a.R, a.P))
+    return a, b, dt
+
+
+def test_rb2_solver_captured_equals_eager(device):
+    """Two replays of a 5-step graph equal 10 eager steps bit for bit;
+    the wrapper counts the graph's 10 solves as recorded, not launched."""
+    from space_time_pde_torch.ops import tridiag as td
+
+    eager, cap, dt = _rb2_pair(device)
+    td.reset_launches()
+    graph = cap.capture(5, dt)
+    assert td.CAPTURED["tridiag"] == 10
+    assert td.LAUNCHES["tridiag"] == 2      # the warm-up step
+    for _ in range(2):
+        for _ in range(5):
+            eager.step(dt)
+        graph.replay()
+        torch.cuda.synchronize()
+        for k in ("b", "zeta", "psi"):
+            assert torch.equal(getattr(cap, k), getattr(eager, k)), k
+
+
+def test_rb2_simulate_counts_its_replays(device):
+    """``simulate_rb2d`` on the card replays its snapshot interval's
+    graph once an interval of the transient and once a snapshot, and
+    counts each replay; the remainder of the transient and the snapshots'
+    solves are launched from Python."""
+    from space_time_pde_torch.data import rb2_solver as rb
+    from space_time_pde_torch.ops import tridiag as td
+
+    s, _, dt = _rb2_pair(device)
+    n_tr, n_per = int(round(0.5 / dt)), max(1, int(round(0.05 / dt)))
+    td.reset_launches()
+    rb.reset_replays()
+    out = rb.simulate_rb2d(nx=64, nz=32, rayleigh=1e5, t_transient=0.5,
+                           n_snapshots=3, snap_dt=0.05, device=device)
+    assert out["b"].shape == (3, 32, 64)
+    assert rb.REPLAYS["interval"] == n_tr // n_per + 3
+    assert td.CAPTURED["tridiag"] == 2 * n_per
+    assert td.LAUNCHES["tridiag"] == 2 + 2 * (n_tr % n_per) + 2 * 3
+
+
+def test_rb2_solver_card_matches_numpy(device):
+    """100 steps from seed 0 at 64 x 32 against the port's numpy copy of
+    the solver: every field within 1e-10 of its max |numpy|."""
+    from space_time_pde_torch.data import generator as gen
+
+    s, _, dt = _rb2_pair(device)
+    ref = gen._RB2Solver(64, 32, 4.0, 1.0, 1e5, 1.0, 0)
+    for _ in range(100):
+        s.step(dt)
+        ref.step(dt)
+    u, w = s.velocities()
+    ru, rw = ref.velocities()
+    for got, want in ((s.b, ref.b), (s.zeta, ref.zeta), (s.psi, ref.psi),
+                      (u, ru), (w, rw)):
+        got = got.cpu().numpy()
+        assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()

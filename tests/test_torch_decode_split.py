@@ -179,6 +179,34 @@ def _mm_promoted(a, b, init=None, rows=64):
     return out
 
 
+def _mm_f32_steps(a, b, rows=512):
+    """The f32 yardstick of the decode's mma_sync / wgmma kernels in a
+    fixed order: per k8 step (8 consecutive K) the exact sum of the step's
+    f32 products rounded to f32 (to nearest), added to an f32 accumulator
+    step after step, as the kernels sum their steps. Torch float64 in
+    chunks of ``rows`` rows: unlike torch's f32 matmul, whose blocking
+    follows the thread count, the sum does not depend on how many threads
+    compute it."""
+    a, b = a.float(), b.float()
+    m, k = a.shape
+    n = b.shape[1]
+    pad = -k % 8
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    g = (k + pad) // 8
+    bs = b.reshape(g, 8, n).double()
+    out = torch.zeros(m, n)
+    for r0 in range(0, m, rows):
+        sl = slice(r0, r0 + rows)
+        t = torch.bmm(a[sl].reshape(-1, g, 8).double().transpose(0, 1),
+                      bs).float()
+        acc = out[sl]
+        for j in range(g):
+            acc += t[j]
+    return out
+
+
 def _mm_stages(a, b, init=None):
     """:func:`_mm_promoted` with K in the f32 jet kernel's order for a
     row-major A: padded to whole 32-deep stages, each stage's columns
@@ -257,12 +285,12 @@ def test_kernel_layout_reproduces_plain_twin(nf, c, dim, activation):
                                atol=1e-12)
 
 
-@pytest.fixture(scope="module")
-def flagship_inputs():
+def _flagship_inputs(threads):
     """The committed flagship ImNet, latents from its UNet3d on 0.1 x
     N(0, 1) input at the training igres (data-like magnitudes, ~1e3, as
     ``test_torch_checkpoint.py``), and 1,024 points with their corner
-    rows."""
+    rows. The UNet runs on ``threads`` threads, so that the latents (and
+    the rule's limit on them) do not follow the machine's thread count."""
     from space_time_pde_torch.utils.config import Config
 
     exported = load_exported(ASSET)
@@ -279,14 +307,33 @@ def flagship_inputs():
     lres = 0.1 * rng.randn(1, *igres, 4).astype(np.float32)
     pts = rng.rand(1024, 3).astype(np.float32)
     pts[:4] = [[0, 0, 0], [1, 1, 1], [0, 0.5, 1], [1, 0, 0.25]]
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        with torch.no_grad():
+            grid = unet(torch.from_numpy(lres))[0]
+    finally:
+        torch.set_num_threads(before)
     with torch.no_grad():
-        grid = unet(torch.from_numpy(lres))[0]
         cell, frac = _locate(torch.from_numpy(pts), igres, 0.0, 1.0)
         table = fq.cell_major_features(grid)
         feats2 = table[fq._flat_cells(cell, igres).long()].reshape(
             -1, grid.shape[-1])
         packed = fq.pack_imnet_params(imnet)
     return imnet, packed, feats2.contiguous(), frac.contiguous()
+
+
+@pytest.fixture(scope="module")
+def flagship_inputs():
+    """:func:`_flagship_inputs` on one thread."""
+    return _flagship_inputs(1)
+
+
+@pytest.fixture(scope="module")
+def flagship_inputs_8():
+    """:func:`_flagship_inputs` on eight threads (the latents the rule was
+    first held on, on an eight-core machine)."""
+    return _flagship_inputs(8)
 
 
 def _tile_chain(packed, feats2, frac, *, nf, activation, matmul,
@@ -331,14 +378,15 @@ def _tile_chain(packed, feats2, frac, *, nf, activation, matmul,
 PROMOTE_POINTS = 128
 
 
-@pytest.mark.parametrize("kernel", ["mma_sync", "wgmma_promote1"])
-def test_tf32x3_within_twice_f32_of_float64(flagship_inputs, kernel):
+def _tf32x3_rule(inputs, kernel):
     """The card's rule for the decode (chip_smoke.py phases 3 and 10) on
     the kernels' arithmetic: ``mma_sync``, the earlier kernel's order over
     ``kernel_weights`` (weights' lo truncated, every k8 step's sum added in
     f32), where plain TF32 fails the rule; ``wgmma_promote1``, the wgmma
-    kernel's over its weight image, each k8 step's products promoted."""
-    imnet, packed, feats2, frac = flagship_inputs
+    kernel's over its weight image, each k8 step's products promoted. The
+    f32 yardstick sums in the kernels' k8-step order
+    (:func:`_mm_f32_steps`), whatever the thread count."""
+    imnet, packed, feats2, frac = inputs
     kw = dict(nf=imnet.nf, activation=imnet.activation,
               negative_slope=imnet.negative_slope)
     if kernel != "mma_sync":
@@ -347,10 +395,14 @@ def test_tf32x3_within_twice_f32_of_float64(flagship_inputs, kernel):
         p64 = {k: v.double() for k, v in packed.items()}
         want64 = fq.decode_blend_plain(feats2.double(), frac.double(), p64,
                                        n_corners=8, **kw)
-        plain32 = fq.decode_blend_plain(feats2, frac, packed, n_corners=8,
+        layout = fq.kernel_weights(packed, nf=imnet.nf)
+        plain32 = _kernel_chain(layout, feats2, frac, matmul=_mm_f32_steps,
+                                **kw)
+        # Torch's f32 products, the yardstick before the k8-step order,
+        # printed beside it (not asserted).
+        torch32 = fq.decode_blend_plain(feats2, frac, packed, n_corners=8,
                                         **kw)
         if kernel == "mma_sync":
-            layout = fq.kernel_weights(packed, nf=imnet.nf)
             emu = {name: _kernel_chain(layout, feats2, frac, matmul=mm, **kw)
                    for name, mm in (("tf32x3", _mm_tf32x3),
                                     ("tf32", _mm_tf32))}
@@ -362,12 +414,61 @@ def test_tf32x3_within_twice_f32_of_float64(flagship_inputs, kernel):
     need_f32 = _atol_needed(plain32, want64)
     need = {name: _atol_needed(v, want64) for name, v in emu.items()}
     print(f"{kernel}: atol needed vs float64 at rtol {RTOL:g} (x max|ref| "
-          f"{float(want64.abs().max()):.4g}): f32 twin {need_f32:.3e}, "
+          f"{float(want64.abs().max()):.4g}) on {torch.get_num_threads()} "
+          f"thread(s): f32 twin {need_f32:.3e} (torch's f32 products "
+          f"{_atol_needed(torch32, want64):.3e}), "
           + ", ".join(f"{k} {v:.3e}" for k, v in need.items()))
     assert torch.isfinite(emu["tf32x3"]).all()
     assert need["tf32x3"] <= 2.0 * need_f32
     if kernel == "mma_sync":
         assert need["tf32"] > 2.0 * need_f32
+
+
+@pytest.mark.parametrize("kernel", ["mma_sync", "wgmma_promote1"])
+def test_tf32x3_within_twice_f32_of_float64(flagship_inputs, kernel):
+    """:func:`_tf32x3_rule` on latents made on one thread."""
+    _tf32x3_rule(flagship_inputs, kernel)
+
+
+@pytest.mark.parametrize("kernel", ["mma_sync", "wgmma_promote1"])
+def test_tf32x3_within_twice_f32_of_float64_8_thread_latents(
+        flagship_inputs_8, kernel):
+    """:func:`_tf32x3_rule` on latents made on eight threads."""
+    _tf32x3_rule(flagship_inputs_8, kernel)
+
+
+def test_tf32x3_decode_rms_at_narrow_widths():
+    """At C = nf = 16, D = 4 (a random-init ImNet, as
+    ``scripts/f32_flip_check.py`` takes it) the wgmma decode's emulated
+    arithmetic sits as far from float64 as f32 in the kernels' k8-step
+    order does, in rms over every output, within the rule's 2x: where the
+    kernel reads past the rule at these widths, a few outputs near 0 set
+    the reading (``scripts/f32_decode_emulation.py``), not a product's
+    error, which would move every output it feeds."""
+    torch.manual_seed(0)
+    imnet = ImNet(dim=4, in_features=16, out_features=4, nf=16,
+                  activation="leaky_relu")
+    rng = np.random.RandomState(0)
+    n = 256
+    feats2 = torch.from_numpy(rng.randn(n * 16, 16).astype(np.float32))
+    frac = torch.from_numpy(rng.rand(n, 4).astype(np.float32))
+    kw = dict(nf=16, activation="leaky_relu", negative_slope=0.01)
+    with torch.no_grad():
+        packed = fq.pack_imnet_params(imnet)
+        p64 = {k: v.double() for k, v in packed.items()}
+        want64 = fq.decode_blend_plain(feats2.double(), frac.double(), p64,
+                                       n_corners=16, **kw)
+        emu = _tile_chain(packed, feats2, frac, matmul=lambda a, b, init:
+                          _mm_tf32x3(a, b, round_b_lo=True, promoted=True,
+                                     init=init), **kw)
+        f32 = _kernel_chain(fq.kernel_weights(packed, nf=16), feats2, frac,
+                            matmul=_mm_f32_steps, **kw)
+    rms = lambda x: float(((x.double() - want64) ** 2).mean().sqrt())
+    print(f"C = nf = 16, D = 4: rms |x - float64| (max |float64| "
+          f"{float(want64.abs().max()):.4g}): emulated wgmma {rms(emu):.3e}, "
+          f"f32 k8-step order {rms(f32):.3e}")
+    assert torch.isfinite(emu).all()
+    assert rms(emu) <= 2.0 * rms(f32)
 
 
 # --- the jet kernels' products (csrc/fused_jet.cu) --------------------------

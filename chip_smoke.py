@@ -260,6 +260,20 @@ S. (a) the tridiag kernel against ``thomas_plain`` on the card, both
    ``train_torch.main`` with the flagship's flags, 2 epochs x 8 steps on
    that file; the readings on a ``{"solver": ...}`` line;
 
+and the turb3d data CLI and a from-scratch training run:
+
+T. (a) ``experiments/turb3d/generate_data_torch.py`` on the card for the
+   Beltrami seeds 7 and 123 at its default flags: every field within
+   BELTRAMI_TOL (2^-22) of its max |value| from the port's numpy copy,
+   the schema and scalars equal, s a seed; (b)
+   ``scripts/train_from_scratch.py --smoke`` in this process: the rb2d
+   flagship's ``log/r5_rb2d_4x_e900/command.sh`` flags under f32, 2
+   epochs of its 256 steps on phase S's seed as train and val data,
+   ``scripts/train_curve.py --keys_only`` on its metrics; its launches
+   (path ``rb2d_from_scratch``) the wrappers' from Python plus those the
+   captured step's graph replays ran, each jet once a step; the readings
+   on a ``{"phase_t": ...}`` line;
+
 and last, one JSON line of the nine kernels (the four f32 kernels, the
 four bf16 instantiations and ``tridiag``; ``path``: eval, train,
 off_path or rb2d_data; ``math``: tf32x3 for the f32 kernels (3xTF32 on
@@ -1150,12 +1164,16 @@ def check_step(state, metrics, ref, spec, note, verbose=True, grad64=None,
     return bad
 
 
-def load_driver(*parts):
+def load_module(*parts):
     spec = importlib.util.spec_from_file_location(
-        parts[-1][:-3], os.path.join(ROOT, "experiments", *parts))
+        parts[-1][:-3], os.path.join(ROOT, *parts))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_driver(*parts):
+    return load_module("experiments", *parts)
 
 
 def train_path(card, driver, flags, log_dir, batch_points, what,
@@ -2637,7 +2655,7 @@ def tridiag_vs_plain(device):
     return row
 
 
-def rb2d_generator(device, card):
+def rb2d_generator(device, card, tmp):
     """Phase S: (a) the tridiag kernel against its twin; (b) the card
     solver against the numpy copy, 200 steps from seed 42 at 512 x 128,
     Ra 1e6, every field; (c) the same from a developed state (the numpy
@@ -2649,8 +2667,9 @@ def rb2d_generator(device, card):
     ``data/regen_rb2d.sh``'s flags (seed 42) on the card, s per seed, its
     launches, the file's schema and its statistics against the numpy
     seeds' (``assets/rb2d_ra1e6_stats.npz``); (f) ``train_torch.main``
-    with the flagship's flags for 2 epochs of 8 steps on that file.
-    Returns ({"solver": readings}, the tridiag kernel's row)."""
+    with the flagship's flags for 2 epochs of 8 steps on that file. The
+    seed's file stays in ``tmp`` (phase T trains on it). Returns
+    ({"solver": readings}, the tridiag kernel's row)."""
     from space_time_pde_torch.data import generator as gen
     from space_time_pde_torch.data import rb2_solver as rb
     from space_time_pde_torch.data.rb2_solver import (RB2Solver,
@@ -2744,86 +2763,186 @@ def rb2d_generator(device, card):
     # the launches made from Python (the capture's warm-up step, the
     # snapshots) and those recorded into the graph, and simulate_rb2d
     # counts the graph's replays, each of which runs them again.
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "rb2d_ra1e6_s42.npz")
-        cli = load_driver("rb2d", "generate_data_torch.py")
-        td.reset_launches()
-        rb.reset_replays()
-        t0 = time.perf_counter()
-        cli.main(REGEN_FLAGS + ["--out", path])
-        seed_s = time.perf_counter() - t0
-        eager_launches = td.LAUNCHES["tridiag"]
-        per_replay = td.CAPTURED["tridiag"]
-        replays = rb.REPLAYS["interval"]
-        n_tr = int(round(25.0 / dt))
-        want_replays = n_tr // n_per + 200
-        want_eager = 2 + 2 * (n_tr % n_per) + 2 * 200
-        launches = eager_launches + per_replay * replays
-        say(f"phase S (e) one seed with data/regen_rb2d.sh's flags: "
-            f"{seed_s:.2f} s on {card} ({n_tr} + 200 x {n_per} steps); "
-            f"tridiag launches {launches} ({eager_launches} from Python, "
-            f"{per_replay} in the graph x {replays} replays counted, want "
-            f"{want_replays})")
-        if eager_launches != want_eager or per_replay != 2 * n_per or \
-                replays != want_replays:
-            raise SystemExit(f"phase S (e): {eager_launches} tridiag "
-                             f"launches from Python (want {want_eager}), "
-                             f"{per_replay} in the graph (want "
-                             f"{2 * n_per}), {replays} replays (want "
-                             f"{want_replays})")
-        with np.load(path) as z:
-            fields = {k: z[k] for k in z.files}
-        for k in ("p", "b", "u", "w"):
-            v = fields[k]
-            if v.shape != (200, 128, 512) or v.dtype != np.float32 or \
-                    not np.isfinite(v).all():
-                raise SystemExit(f"phase S (e): {k} {v.dtype} {v.shape}, "
-                                 f"finite {np.isfinite(v).all()}")
-        got = flow_statistics(fields)
-        with np.load(STATS_ASSET) as z:
-            seeds = list(z["seeds"])
-            ref = {k: z[k] for k in got}
-        i42, i7 = seeds.index(42), seeds.index(7)
-        stats = {}
-        for k in got:
-            dist = float(np.abs(ref[k][i42] - ref[k][i7]).max())
-            scale = float(np.abs(ref[k][i42]).max())
-            limit = max(STATS_SLACK * dist, STATS_FLOOR * scale)
-            d = float(np.abs(got[k] - ref[k][i42]).max())
-            stats[k] = {"distance": d, "limit": limit,
-                        "seeds_42_7": dist}
-            say(f"phase S (e) {k}: |card - numpy s42| {d:.4e} (numpy "
-                f"s42 - s7 {dist:.4e}; limit {limit:.4e})"
-                + (f"; card {float(got[k]):.5f}, numpy s42 "
-                   f"{float(ref[k][i42]):.5f}, s7 {float(ref[k][i7]):.5f}"
-                   if np.ndim(got[k]) == 0 else ""))
-            if not d <= limit:
-                raise SystemExit(f"phase S (e): {k} {d:.4e} from numpy "
-                                 f"seed 42, beyond {limit:.4e}")
-        readings["e_seed"] = {"seconds": seed_s, "steps": n_tr + 200 * n_per,
-                              "device_ms_per_step": step_ms,
-                              "stats": stats}
+    path = os.path.join(tmp, "rb2d_ra1e6_s42.npz")
+    cli = load_driver("rb2d", "generate_data_torch.py")
+    td.reset_launches()
+    rb.reset_replays()
+    t0 = time.perf_counter()
+    cli.main(REGEN_FLAGS + ["--out", path])
+    seed_s = time.perf_counter() - t0
+    eager_launches = td.LAUNCHES["tridiag"]
+    per_replay = td.CAPTURED["tridiag"]
+    replays = rb.REPLAYS["interval"]
+    n_tr = int(round(25.0 / dt))
+    want_replays = n_tr // n_per + 200
+    want_eager = 2 + 2 * (n_tr % n_per) + 2 * 200
+    launches = eager_launches + per_replay * replays
+    say(f"phase S (e) one seed with data/regen_rb2d.sh's flags: "
+        f"{seed_s:.2f} s on {card} ({n_tr} + 200 x {n_per} steps); "
+        f"tridiag launches {launches} ({eager_launches} from Python, "
+        f"{per_replay} in the graph x {replays} replays counted, want "
+        f"{want_replays})")
+    if eager_launches != want_eager or per_replay != 2 * n_per or \
+            replays != want_replays:
+        raise SystemExit(f"phase S (e): {eager_launches} tridiag "
+                         f"launches from Python (want {want_eager}), "
+                         f"{per_replay} in the graph (want "
+                         f"{2 * n_per}), {replays} replays (want "
+                         f"{want_replays})")
+    with np.load(path) as z:
+        fields = {k: z[k] for k in z.files}
+    for k in ("p", "b", "u", "w"):
+        v = fields[k]
+        if v.shape != (200, 128, 512) or v.dtype != np.float32 or \
+                not np.isfinite(v).all():
+            raise SystemExit(f"phase S (e): {k} {v.dtype} {v.shape}, "
+                             f"finite {np.isfinite(v).all()}")
+    got = flow_statistics(fields)
+    with np.load(STATS_ASSET) as z:
+        seeds = list(z["seeds"])
+        ref = {k: z[k] for k in got}
+    i42, i7 = seeds.index(42), seeds.index(7)
+    stats = {}
+    for k in got:
+        dist = float(np.abs(ref[k][i42] - ref[k][i7]).max())
+        scale = float(np.abs(ref[k][i42]).max())
+        limit = max(STATS_SLACK * dist, STATS_FLOOR * scale)
+        d = float(np.abs(got[k] - ref[k][i42]).max())
+        stats[k] = {"distance": d, "limit": limit,
+                    "seeds_42_7": dist}
+        say(f"phase S (e) {k}: |card - numpy s42| {d:.4e} (numpy "
+            f"s42 - s7 {dist:.4e}; limit {limit:.4e})"
+            + (f"; card {float(got[k]):.5f}, numpy s42 "
+               f"{float(ref[k][i42]):.5f}, s7 {float(ref[k][i7]):.5f}"
+               if np.ndim(got[k]) == 0 else ""))
+        if not d <= limit:
+            raise SystemExit(f"phase S (e): {k} {d:.4e} from numpy "
+                             f"seed 42, beyond {limit:.4e}")
+    readings["e_seed"] = {"seconds": seed_s, "steps": n_tr + 200 * n_per,
+                          "device_ms_per_step": step_ms,
+                          "stats": stats}
 
-        # (f) the flagship's training on the file.
-        log_dir = os.path.join(tmp, "log")
-        flags = rb2d_flags(tmp, log_dir)
-        for flag in ("--train_data", "--eval_data"):
-            flags[flags.index(flag) + 1] = os.path.basename(path)
-        run = load_driver("rb2d", "train_torch.py").main(
-            flags + ["--epochs", "2"])
-        losses = [e["loss"] for e in run["epochs"]]
-        if len(losses) != 2 or not np.isfinite(
-                [e[k] for e in run["epochs"] for k in e
-                 if k.endswith("loss")]).all():
-            raise SystemExit(f"phase S (f): {run['epochs']}")
-        say(f"phase S (f) train_torch on the card's seed, 2 epochs x 8 "
-            f"steps at the flagship widths: losses "
-            + ", ".join(f"{v:.5f}" for v in losses))
-        readings["f_train_losses"] = losses
+    # (f) the flagship's training on the file.
+    log_dir = os.path.join(tmp, "log")
+    flags = rb2d_flags(tmp, log_dir)
+    for flag in ("--train_data", "--eval_data"):
+        flags[flags.index(flag) + 1] = os.path.basename(path)
+    run = load_driver("rb2d", "train_torch.py").main(
+        flags + ["--epochs", "2"])
+    losses = [e["loss"] for e in run["epochs"]]
+    if len(losses) != 2 or not np.isfinite(
+            [e[k] for e in run["epochs"] for k in e
+             if k.endswith("loss")]).all():
+        raise SystemExit(f"phase S (f): {run['epochs']}")
+    say(f"phase S (f) train_torch on the card's seed, 2 epochs x 8 "
+        f"steps at the flagship widths: losses "
+        + ", ".join(f"{v:.5f}" for v in losses))
+    readings["f_train_losses"] = losses
     say(f"phase S took {time.perf_counter() - t_s:.1f} s")
     row.update(launches=launches, launches_from_python=eager_launches,
                launches_in_graph_replays=per_replay * replays)
     return {"solver": readings, "card": card}, row
+
+
+# ------------------------------------------------------------------------
+# Phase T: the turb3d data CLI on the card, and the first epochs of a
+# from-scratch training run (scripts/train_from_scratch.py --smoke).
+
+# A card field against the numpy copy's, x its max |value|: the closed
+# form in float64 on the card (whose sin, cos and exp round otherwise
+# than numpy's), cast once to float32 as the numpy copy casts.
+BELTRAMI_TOL = 2.0 ** -22
+BELTRAMI_SEEDS = (7, 123)
+
+
+def turb3d_data_and_scratch(card, tmp):
+    """Phase T: (a) ``experiments/turb3d/generate_data_torch.py`` on the
+    card for seeds 7 and 123 at its default flags, every field within
+    BELTRAMI_TOL of its max |value| from the numpy copy's
+    (``beltrami_fields``), timed; (b) ``scripts/train_from_scratch.py
+    --smoke``: the rb2d flagship's ``command.sh`` under f32, 2 epochs of
+    its 256 steps on phase S's seed (in ``tmp``) as train and val data,
+    every epoch's curve keys present and finite; its launches, the
+    wrappers' from Python plus those the captured step's graph replays
+    ran (``REPLAYED``): each jet once a step. Returns ({"turb3d_data",
+    "from_scratch"} readings, the launches of (b))."""
+    from space_time_pde_torch.data import generator as gen
+    from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.ops import fused_query as fq
+    from space_time_pde_torch.train import REPLAYED, reset_replayed
+
+    t_t = time.perf_counter()
+    cli = load_driver("turb3d", "generate_data_torch.py")
+    data = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for seed in BELTRAMI_SEEDS:
+            path = os.path.join(out_dir, f"beltrami_s{seed}.npz")
+            t0 = time.perf_counter()
+            cli.main(["--seed", str(seed), "--out", path])
+            seconds = time.perf_counter() - t0
+            want = gen.beltrami_fields(seed)
+            with np.load(path) as z:
+                got = {k: z[k] for k in z.files}
+            rel = {k: float(np.abs(got[k] - want[k]).max()
+                            / np.abs(want[k]).max())
+                   for k in ("p", "u", "v", "w")}
+            same = sorted(got) == sorted(want) and all(
+                got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
+                for k in want) and all(
+                float(got[k]) == float(want[k]) for k in want
+                if np.ndim(want[k]) == 0)
+            say(f"phase T (a) beltrami seed {seed} on the card: {seconds:.3f} "
+                f"s (npz written); max |card - numpy| / max |numpy| "
+                + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+                + f" (limit {BELTRAMI_TOL:.3e}); schema and scalars equal: "
+                f"{same}")
+            if not same or not all(v <= BELTRAMI_TOL for v in rel.values()):
+                raise SystemExit(f"phase T (a): seed {seed}: {rel}, schema "
+                                 f"{same}")
+            data[seed] = {"seconds": seconds, "max_rel": rel}
+
+    work = os.path.join(tmp, "scratch")
+    os.makedirs(os.path.join(work, "data"))
+    os.link(os.path.join(tmp, "rb2d_ra1e6_s42.npz"),
+            os.path.join(work, "data", "rb2d_ra1e6_s42.npz"))
+    tfs = load_module("scripts", "train_from_scratch.py")
+    fj.reset_launches()
+    fq.reset_launches()
+    reset_replayed()
+    res = tfs.main(["--recipe", "rb2d", "--policy", "f32", "--work", work,
+                    "--smoke"])
+    torch.cuda.synchronize()
+    wrapped = {**fj.LAUNCHES, **fq.LAUNCHES}
+    launches = {k: wrapped[k] + REPLAYED[k] for k in wrapped}
+    train = res["train"]
+    say(f"phase T (b) train_from_scratch --smoke: {train['epochs']} epochs "
+        f"to step {train['step']}, {train['sec_per_step_mean']:.6f} s/step "
+        f"after the first epoch on {card}; skipped-update epochs "
+        f"{len(train['skipped_updates'])}, recoveries "
+        f"{len(train['recoveries'])}; curve keys ok {res['curve']['ok']}; "
+        f"launches {launches} (from Python {wrapped}, in graph replays "
+        f"{dict(REPLAYED)})")
+    if not res["ok"] or train["step"] != 512 or res["data"]["made"]:
+        raise SystemExit(f"phase T (b): ok {res['ok']}, step {train['step']} "
+                         f"(want 512), data files made {res['data']['made']} "
+                         f"(want 0: phase S's seed)")
+    for k in ("jet_fwd", "jet_bwd"):
+        if launches[k] != train["step"]:
+            raise SystemExit(f"phase T (b): {k} launched {launches[k]} times "
+                             f"in {train['step']} steps")
+    if launches["decode_blend_gather"] < 1:
+        raise SystemExit("phase T (b): the epoch eval launched no "
+                         "decode_blend_gather")
+    say(f"phase T took {time.perf_counter() - t_t:.1f} s")
+    readings = {"turb3d_data": {"limit": BELTRAMI_TOL, "seeds": data},
+                "from_scratch": {
+                    k: res[k] for k in ("recipe", "policy", "steps_per_epoch",
+                                        "ok")}}
+    readings["from_scratch"].update(
+        step=train["step"], sec_per_step=train["sec_per_step_mean"],
+        skipped_updates=train["skipped_updates"],
+        recoveries=train["recoveries"], curve_keys_ok=res["curve"]["ok"])
+    return readings, launches
 
 
 # ------------------------------------------------------------------------
@@ -3581,8 +3700,12 @@ def main():
     say(f"phase O1 took {time.perf_counter() - t_o:.1f} s; phase O ran "
         f"{sorted(ckpt_paths)}")
 
-    # Phase S: the RB2D data generator on the card.
-    solver, tridiag_row = rb2d_generator(device, card)
+    # Phase S: the RB2D data generator on the card; phase T: the turb3d
+    # data CLI, and the rb2d recipe trained from scratch on S's seed.
+    with tempfile.TemporaryDirectory() as tmp:
+        solver, tridiag_row = rb2d_generator(device, card, tmp)
+        torch.cuda.empty_cache()
+        phase_t, scratch = turb3d_data_and_scratch(card, tmp)
     torch.cuda.empty_cache()
 
     by_path = {"rb2d_eval": rb2d_eval, "rb2d_train": rb2d_train,
@@ -3591,7 +3714,8 @@ def main():
                "turb3d_train": turb3d_train,
                "rb2d_eval_real": rb2d_eval_real,
                "rb2d_bn_train": rb2d_bn_train, "rb2d_resume": rb2d_resume,
-               **parallel, **bf16_paths, **ckpt_paths}
+               **parallel, **bf16_paths, **ckpt_paths,
+               "rb2d_from_scratch": scratch}
     off = {"rb2d_scattered": rb2d_off, "turb3d_scattered": turb3d_off,
            "rb2d_scattered_bf16": rb2d_off16,
            "turb3d_scattered_bf16": turb3d_off16}
@@ -3632,6 +3756,7 @@ def main():
                     **tridiag_row})
     say("done")
     print(json.dumps(solver))
+    print(json.dumps({"phase_t": phase_t}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ Counterpart of ``experiments/turb3d/train.py``: the same flags, data
 the held-out-seed check), model (UNet4d encoder, ImNet(dim=4) decoder
 on the 16-corner local implicit grid), ns3d PDE loss, schedule,
 device batch assembly, ``--inner_steps``, cliff recovery and
-checkpoints with resume, plus ``--device``. Each step's derivative jet
+checkpoints with resume, plus ``--device`` and ``--run_epochs N`` (stop
+after N epochs of this run; the schedule still spans ``--epochs``, as in
+the rb2d CLI). Each step's derivative jet
 runs the hand-written CUDA jet kernels at D = 4
 (``space_time_pde_torch/csrc/fused_jet.cu``, forward and backward) on a
 card, their plain PyTorch twins on the CPU; the per-epoch eval decodes
@@ -85,7 +87,7 @@ def _bool(s):
 
 def add_turb3d_args(parser: argparse.ArgumentParser) -> None:
     """The JAX driver's flags, same names and defaults, plus
-    ``--device``."""
+    ``--device`` and ``--run_epochs`` (as the rb2d CLI's)."""
     p = parser.add_argument
     p("--data_folder", type=str, default="./data")
     p("--train_data", type=str, default="abc_flow.npz")
@@ -133,6 +135,8 @@ def add_turb3d_args(parser: argparse.ArgumentParser) -> None:
     p("--device", type=str, default="cuda",
       help="torch device; 'cpu' runs the kernels' plain PyTorch twins "
            "(tests, tiny models)")
+    p("--run_epochs", type=int, default=0,
+      help="stop after N epochs of this run (0 = run to --epochs)")
 
 
 def make_config(args) -> Config:
@@ -295,7 +299,10 @@ def main(argv=None):
     cliff = CliffDetector() if args.cliff_recovery else None
     history = []
     try:
-        for epoch in range(start_epoch, args.epochs):
+        last = args.epochs
+        if args.run_epochs > 0:
+            last = min(last, start_epoch + args.run_epochs)
+        for epoch in range(start_epoch, last):
             t0 = time.time()
             for _ in range(max(1, steps_per_epoch // inner)):
                 state, metrics = step_fn(state, upload(prefetcher.get()))

@@ -78,6 +78,7 @@ from space_time_pde_torch.utils.constants import device_constant
 
 __all__ = [
     "LAUNCHES",
+    "CAPTURED",
     "reset_launches",
     "tri_pairs",
     "jet_slope",
@@ -103,11 +104,13 @@ BF16 = torch.bfloat16
 
 LAUNCHES = {"jet_fwd": 0, "jet_bwd": 0, "jet_fwd_bf16": 0,
             "jet_bwd_bf16": 0}
+# Launches recorded into a CUDA graph under capture (``fused_query.py``).
+CAPTURED = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = CAPTURED[k] = 0
 
 
 def tri_pairs(dim: int):
@@ -572,7 +575,7 @@ def jet_fwd(feats2, frac, packed, *, nf: int, slope: float = 0.01,
         ws.data_ptr(), n, c, dim, nf, out_dim, slope,
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(code, "jet_fwd" + sfx)
-    _count(LAUNCHES, "jet_fwd" + sfx)
+    _count(LAUNCHES, CAPTURED, "jet_fwd" + sfx)
     return out, ws
 
 
@@ -614,7 +617,7 @@ def jet_bwd(feats2, frac, packed, workspace, ybar, *, nf: int,
         n, c, dim, nf, out_dim, slope,
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(code, "jet_bwd" + sfx)
-    _count(LAUNCHES, "jet_bwd" + sfx)
+    _count(LAUNCHES, CAPTURED, "jet_bwd" + sfx)
     return dfeats, grads
 
 

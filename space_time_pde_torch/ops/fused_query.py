@@ -72,6 +72,7 @@ from space_time_pde_torch.utils.constants import device_constant
 
 __all__ = [
     "LAUNCHES",
+    "CAPTURED",
     "reset_launches",
     "block_points",
     "pack_imnet_params",
@@ -121,18 +122,24 @@ _ROUNDED = ("wx_feat", "wx_rel", "wh1", "wh2", "wh3", "wh4", "w5")
 # CUDA branch of a wrapper adds to them, and not under graph capture.
 LAUNCHES = {"decode_blend_gather": 0, "decode_blend": 0,
             "decode_blend_gather_bf16": 0, "decode_blend_bf16": 0}
+# The launches a wrapper recorded into a CUDA graph under capture; each
+# replay of the graph runs them again (``train/trainer.py::CapturedStep``
+# counts its replays' in ``REPLAYED``).
+CAPTURED = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = CAPTURED[k] = 0
 
 
-def _count(table, key) -> None:
-    """One launch of ``key``'s kernel. A launch recorded into a CUDA graph
-    (under capture) runs at each replay instead, which only a device
-    trace sees: it is not counted."""
-    if not torch.cuda.is_current_stream_capturing():
+def _count(table, captured, key) -> None:
+    """One launch of ``key``'s kernel: in ``table`` when it runs now, in
+    ``captured`` when it is recorded into a CUDA graph (under capture),
+    whose replays run it instead."""
+    if torch.cuda.is_current_stream_capturing():
+        captured[key] += 1
+    else:
         table[key] += 1
 
 
@@ -669,7 +676,7 @@ def _launch(entry, rows, frac, packed, tiles, *, nf, dim, c, pregathered,
         dim, nf, out.shape[-1], ACTIVATION_CODES[activation],
         negative_slope, torch.cuda.current_stream(frac.device).cuda_stream)
     _build.check(code, entry)
-    _count(LAUNCHES, entry)
+    _count(LAUNCHES, CAPTURED, entry)
     return out
 
 

@@ -59,6 +59,8 @@ from space_time_pde_torch.models import (
     ImNet, UNet3d, UNet4d, query_local_implicit_grid)
 from space_time_pde_torch.models.nonlinearities import PIECEWISE_LINEAR
 from space_time_pde_torch.models.policy import policy_dtype
+from space_time_pde_torch.ops import fused_jet as fj
+from space_time_pde_torch.ops import fused_query as fq
 from space_time_pde_torch.ops.fused_jet import fused_query_jet
 from space_time_pde_torch.ops.fused_query import (
     fused_query_local_implicit_grid)
@@ -68,9 +70,24 @@ from space_time_pde_torch.train.optim import Optimizer
 __all__ = ["CapturedStep", "TrainState", "build_models", "flax_init_",
            "init_state", "jet_compute_dtype", "make_loss_fn",
            "make_train_step", "make_multi_step", "make_eval_fn",
-           "model_buffers", "model_params"]
+           "model_buffers", "model_params", "REPLAYED", "reset_replayed"]
 
 PDE_DERIVS = ("jet", "jet_jnp", "tower")
+
+# The kernel launches that CapturedStep's graph replays ran, by the
+# wrappers' keys: each replay adds the launches its graph recorded
+# (the wrappers' ``CAPTURED``). A wrapper's ``LAUNCHES`` plus this is
+# every launch of its kernel.
+REPLAYED = dict.fromkeys([*fj.LAUNCHES, *fq.LAUNCHES], 0)
+
+
+def reset_replayed() -> None:
+    for k in REPLAYED:
+        REPLAYED[k] = 0
+
+
+def _recorded() -> Dict[str, int]:
+    return {**fj.CAPTURED, **fq.CAPTURED}
 
 
 @dataclass
@@ -371,8 +388,9 @@ class CapturedStep:
     in a ``torch.cuda.CUDAGraph`` and replays it, and so does every later
     one. Capture executes nothing, so the run's steps and schedule equal
     the eager run's, and ``state.step`` moves by ``n_inner`` a replay.
-    The kernel wrappers count the warm-up's launches only
-    (``LAUNCHES``): a replay's are seen by a device trace alone.
+    The kernel wrappers count the warm-up's launches in ``LAUNCHES`` and
+    those the capture recorded in ``CAPTURED``; each replay adds the
+    latter to :data:`REPLAYED`.
 
     What the graph needs, which the rest of the step provides: the
     optimizer's state on the device and updated in place
@@ -393,6 +411,7 @@ class CapturedStep:
                       make_multi_step(loss_fn, opt, n_inner))
         self.static = None
         self.graph = None
+        self.recorded = {}
         self.dispatches = 0
         self._names, self._out = None, None
         self._stream = torch.cuda.Stream(self.device)
@@ -416,6 +435,7 @@ class CapturedStep:
         for p in state.params().values():
             p.grad = None       # allocated in the graph's pool
         graph = torch.cuda.CUDAGraph()
+        before = _recorded()
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.graph(graph, stream=self._stream):
             state, metrics = self._step(state, self.static)
@@ -425,6 +445,8 @@ class CapturedStep:
         torch.cuda.current_stream(self.device).wait_stream(self._stream)
         state.step = step       # capture ran nothing
         self.graph = graph
+        self.recorded = {k: n - before[k] for k, n in _recorded().items()
+                         if n > before[k]}
 
     def __call__(self, state: TrainState, batch):
         self._load(batch)
@@ -439,6 +461,8 @@ class CapturedStep:
         if self.graph is None:
             self._capture(state)
         self.graph.replay()
+        for k, n in self.recorded.items():
+            REPLAYED[k] += n
         state.step += self.n_inner
         out = self._out.clone()
         return state, dict(zip(self._names, out.unbind(0)))

@@ -1,5 +1,6 @@
 """On-card checks of the CUDA kernels (decode, jet and the rb2d data
-generator's tridiagonal solve) against their plain twins.
+generator's tridiagonal solve) against their plain twins, and of the
+turb3d data CLI's card path against the numpy copy.
 
 Marked ``cuda``: without a card every test skips (a CUDA kernel has no
 CPU mode). On a machine with one, from the repo root:
@@ -1154,3 +1155,56 @@ def test_rb2_solver_card_matches_numpy(device):
                       (u, ru), (w, rw)):
         got = got.cpu().numpy()
         assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("family", ["rb2d", "turb3d"])
+def test_captured_step_counts_replayed_launches(device, family):
+    """Over 4 dispatches of 8 steps a ``CapturedStep`` launches each jet 32
+    times: 8 from Python (the warm-up), 8 recorded by the capture
+    (``CAPTURED``) and 3 replays of them (``REPLAYED``)."""
+    from space_time_pde_torch.ops import fused_jet as fj
+    from space_time_pde_torch.train import (
+        REPLAYED, CapturedStep, reset_replayed)
+
+    loss_fn, opt, state, batch = _tiny_train(device, family, "f32")
+    step = CapturedStep(loss_fn, opt, 8, device)
+    fj.reset_launches()
+    reset_replayed()
+    for i in range(4):
+        b = {k: torch.from_numpy(v).to(device)
+             for k, v in batch(10 + i, 8).items()}
+        state, _ = step(state, b)
+    torch.cuda.synchronize()
+    for k in ("jet_fwd", "jet_bwd"):
+        assert (fj.LAUNCHES[k], fj.CAPTURED[k], REPLAYED[k]) == (8, 8, 24), k
+    assert step.recorded == {"jet_fwd": 8, "jet_bwd": 8}
+
+
+def test_turb3d_data_cli_on_the_card(device, tmp_path):
+    """``experiments/turb3d/generate_data_torch.py`` on the card (its
+    default device), seed 7 at its default flags: the numpy copy's schema
+    and scalars, every field within 2^-22 of its max |value| from the
+    numpy copy's."""
+    import importlib.util
+    import os
+
+    from space_time_pde_torch.data import generator as gen
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "generate_data_torch",
+        os.path.join(root, "experiments", "turb3d", "generate_data_torch.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    out = tmp_path / "beltrami_s7.npz"
+    cli.main(["--seed", "7", "--out", str(out)])
+    want = gen.beltrami_fields(7)
+    with np.load(out) as z:
+        got = {k: z[k] for k in z.files}
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+        if np.ndim(v):
+            assert np.abs(got[k] - v).max() <= 2.0 ** -22 * np.abs(v).max(), k
+        else:
+            assert got[k] == v, k

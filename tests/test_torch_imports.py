@@ -1,11 +1,11 @@
 """Import hygiene of the port: no JAX stack and no JAX package.
 
 Walks the AST of every ``.py`` under ``space_time_pde_torch/`` plus
-``chip_smoke.py``, ``experiments/{rb2d,turb3d}/{evaluation,
-train}_torch.py``, ``experiments/rb2d/generate_data_torch.py`` and the
-port's scripts (``scripts/profile_torch_step.py``,
-``scripts/time_bf16_{decode,jet}.py``, ``scripts/rb2d_stats.py``,
-``scripts/f32_{flip_check,decode_emulation}.py``).
+``chip_smoke.py``, ``experiments/{rb2d,turb3d}/{evaluation,train,
+generate_data}_torch.py`` and the port's scripts
+(``scripts/profile_torch_step.py``, ``scripts/time_bf16_{decode,jet}.py``,
+``scripts/rb2d_stats.py``, ``scripts/f32_{flip_check,decode_emulation}.py``,
+``scripts/train_{curve,from_scratch}.py``).
 (A ``sys.modules`` check cannot work: the test process imports jax for
 the parity tests.) Also holds the port's copies of JAX-free modules (the
 config's fields; the prefetcher, metrics logger, cliff detector and 4-D
@@ -31,11 +31,13 @@ def _port_files():
     files += [os.path.join(ROOT, "experiments", family, f"{name}_torch.py")
               for family in ("rb2d", "turb3d")
               for name in ("evaluation", "train")]
-    files.append(os.path.join(ROOT, "experiments", "rb2d",
-                              "generate_data_torch.py"))
+    files += [os.path.join(ROOT, "experiments", family,
+                           "generate_data_torch.py")
+              for family in ("rb2d", "turb3d")]
     files += [os.path.join(ROOT, "scripts", name) for name in (
         "profile_torch_step.py", "time_bf16_decode.py", "time_bf16_jet.py",
-        "rb2d_stats.py", "f32_flip_check.py", "f32_decode_emulation.py")]
+        "rb2d_stats.py", "f32_flip_check.py", "f32_decode_emulation.py",
+        "train_curve.py", "train_from_scratch.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "space_time_pde_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)

@@ -15,7 +15,9 @@ the script prints the run's median ``eval/rel_l2`` and ``train/loss``
 beside each reference's over the same epochs, the run's largest
 ``train/grad_norm``, and the run's epochs whose loss or gradient norm is
 not finite or whose loss is more than ``SPIKE`` times the median of the
-epochs before it.
+epochs before it. It also counts the loss spikes of the run and of each
+reference up to the run's last epoch: epochs whose ``train/loss`` is
+above ``SPIKE_LOSS``, consecutive ones one event.
 
 The rule: from the second window on, each of the run's two medians lies
 within ``[CURVE_LOW x min(refs), CURVE_HIGH x max(refs)]``. The first
@@ -48,6 +50,9 @@ CURVE_LOW, CURVE_HIGH = 0.8, 1.25
 # is flagged.
 SPIKE = 100.0
 KEYS = ("eval/rel_l2", "train/loss", "train/grad_norm")
+# A loss spike: an epoch whose train/loss is above SPIKE_LOSS (the turb3d
+# runs train at ~0.03-0.06 from epoch 10 on; a spike reads 0.3-100).
+SPIKE_LOSS = 0.3
 
 
 def load_epochs(path, steps_per_epoch):
@@ -96,6 +101,24 @@ def flagged(epochs):
         if loss is not None and math.isfinite(loss):
             seen.append(loss)
     return out
+
+
+def spike_events(epochs, last=None):
+    """The loss spikes of ``epochs`` ({epoch: record}) up to ``last``:
+    [[first, last epoch]] of each run of consecutive epochs whose loss is
+    above SPIKE_LOSS (a non-finite loss counts)."""
+    events = []
+    for e in sorted(epochs):
+        if last is not None and e > last:
+            break
+        loss = epochs[e].get("train/loss")
+        if loss is None or not (math.isnan(loss) or loss > SPIKE_LOSS):
+            continue
+        if events and events[-1][1] == e - 1:
+            events[-1][1] = e
+        else:
+            events.append([e, e])
+    return events
 
 
 def curve(run, refs):
@@ -202,6 +225,14 @@ def main(argv=None):
               + f"; max grad_norm {row['max_grad_norm']:.4g}"
               + "".join(f"; epoch {f['epoch']}: {f['why']}"
                         for f in row["flagged"]))
+    last = max(run)
+    spikes = {"loss_above": SPIKE_LOSS, "to_epoch": last,
+              "run": spike_events(run),
+              "refs": {n: spike_events(r, last) for n, r in refs.items()}}
+    print(f"loss spikes (epochs with train/loss > {SPIKE_LOSS}, consecutive "
+          f"ones one event) to epoch {last}: run {len(spikes['run'])} "
+          f"{spikes['run']}"
+          + "".join(f"; {n} {len(v)} {v}" for n, v in spikes["refs"].items()))
     ok = all(row["ok"] for row in rows)
     outside = [row["window"] for row in rows if not row["ok"]]
     print(f"curve: every held window inside the band: {ok}"
@@ -209,7 +240,7 @@ def main(argv=None):
     out = {"curve": {"run": args.run, "refs": list(refs),
                      "steps_per_epoch": args.steps_per_epoch,
                      "band": [CURVE_LOW, CURVE_HIGH], "windows": rows,
-                     "ok": ok}}
+                     "spikes": spikes, "ok": ok}}
     print(json.dumps(out), flush=True)
     return out
 

@@ -19,8 +19,12 @@ What has to match the flax model exactly:
   ``nn.Conv1d``'s forward: without cuDNN (the training step's setting)
   PyTorch's Conv1d loops over its batch one sample at a time, 2,048
   samples at the turb3d training igres, which took 1.16 s a training
-  step on an H100. ``nn.Conv1d`` still holds the weight and bias, so
-  the bridge and the init see the flax layer's counterpart;
+  step on an H100. At f32 that product and its bias are summed in
+  float64 and rounded once (:class:`_TimeProduct`, which says why; its
+  backward stays f32). ``nn.Conv1d`` still holds the weight and bias,
+  so the bridge and the init see the flax layer's counterpart. The
+  spatial conv is PyTorch's own (im2col and an f32 GEMM in the training
+  step, where cuDNN is off: ``train/trainer.py::_without_cudnn``);
 - the up path is nearest-neighbour x2 on all four axes
   (``repeat_interleave``, as ``jnp.repeat``) then a ``Conv4d``, with no
   transposed conv;
@@ -60,6 +64,37 @@ def _group_norm(ch: int) -> GroupNorm:
     return GroupNorm(_num_groups(ch), ch, eps=1e-6)
 
 
+class _TimeProduct(torch.autograd.Function):
+    """``cols @ wt + b`` summed in float64 and rounded once to the
+    inputs' type; the backward is the plain product's (``g wt^T``,
+    ``cols^T g`` and the bias's row sum, in the inputs' type).
+
+    Why float64: with this forward summed in f32 by cuBLAS, the turb3d
+    training step's gradients sat a median 1.73x (3.15x at most) JAX
+    f32's distance from float64 on an H100; with it summed in float64,
+    0.63x (1.13x). Its backward in float64 moved nothing
+    (``scripts/turb3d_grad_attribution.py``). Each value is a sum of F k
+    terms (768 at most at the recipe's widths), exact products of f32
+    values; the cost over an f32 product is the operands' cast."""
+
+    @staticmethod
+    def forward(ctx, cols, wt, b):
+        ctx.save_for_backward(cols, wt)
+        ctx.has_bias = b is not None
+        h = cols.to(torch.float64) @ wt.to(torch.float64)
+        if b is not None:
+            h = h + b.to(torch.float64)
+        return h.to(cols.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        cols, wt = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        return (g @ wt.t() if need[0] else None,
+                cols.t() @ g if need[1] else None,
+                g.sum(0) if ctx.has_bias and need[2] else None)
+
+
 class Conv4d(nn.Module):
     """Factorized 4-D convolution: 3-D spatial (no bias), then 1-D
     temporal (bias). ``x [B, Cin, T, Z, Y, X] -> [B, Cout, T', Z', Y',
@@ -92,13 +127,20 @@ class Conv4d(nn.Module):
         h = F.pad(h, (0, 0, total // 2, total - total // 2))
         cols = h.unfold(4, self.kt, self.stride)   # [B, Z, Y, X, T', F, k]
         t2 = cols.shape[4]
-        w = self.temporal.weight                    # [F', F, k]
-        h = product(lambda a, b, _: a @ b, cols.reshape(-1, f * self.kt),
-                    w.reshape(w.shape[0], -1).t(), None, self.dtype)
-        if self.temporal.bias is not None:
-            h = h + self.temporal.bias.to(h.dtype)
+        h = self._conv_time(cols.reshape(-1, f * self.kt))
         return h.reshape(b, z2, y2, x2, t2, -1).permute(0, 5, 4, 1, 2, 3)
 
+    def _conv_time(self, cols: torch.Tensor) -> torch.Tensor:
+        """The temporal factor on its unfolded windows ``[rows, F k]``:
+        ``[rows, F']``, bias added (:class:`_TimeProduct` at f32)."""
+        w = self.temporal.weight                    # [F', F, k]
+        wt = w.reshape(w.shape[0], -1).t()
+        if self.dtype == torch.float32:
+            return _TimeProduct.apply(cols, wt, self.temporal.bias)
+        h = product(lambda a, b, _: a @ b, cols, wt, None, self.dtype)
+        if self.temporal.bias is not None:
+            h = h + self.temporal.bias.to(h.dtype)
+        return h
 
     def _conv_space(self, h: torch.Tensor) -> torch.Tensor:
         """The spatial factor on ``[B*T, C, Z, Y, X]``, "SAME"-padded."""

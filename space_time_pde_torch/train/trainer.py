@@ -293,8 +293,10 @@ def _without_cudnn():
     far (4.2x) with cuDNN in the forward only, so the loss is in cuDNN's
     forward; PyTorch's own kernels in both directions 0.4x
     (``chip_smoke.py``'s training-step phase). UNet4d's spatial
-    ``Conv3d`` takes the same path; its temporal conv is a plain matrix
-    product either way (``models/unet4d.py``). Under the bf16 policy the
+    ``Conv3d`` takes the same path; its temporal conv is one matrix
+    product over unfolded time windows (no convolution, so no cuDNN),
+    summed in float64 and rounded once at f32
+    (``models/unet4d.py::_TimeProduct``). Under the bf16 policy the
     step keeps this path: PyTorch's own CUDA convolutions take bf16
     operands, and on the flagship step their gradients sit a median
     0.99x JAX bf16's distance from float64 (``chip_smoke.py`` phase I,

@@ -1208,3 +1208,25 @@ def test_turb3d_data_cli_on_the_card(device, tmp_path):
             assert np.abs(got[k] - v).max() <= 2.0 ** -22 * np.abs(v).max(), k
         else:
             assert got[k] == v, k
+
+
+def test_turb3d_step_gradient_median_within_jax(device):
+    """``chip_smoke.py`` phase 14's turb3d step (the recipe's widths, the
+    seeded weights, the exported batch) through the captured step: phase
+    8's rule, and the median over the leaves of each leaf's rel-L2
+    distance from float64 over JAX f32's at most ``STEP_MEDIAN`` (it read
+    1.73 with UNet4d's temporal product summed in f32)."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg, pde, opt, state, batch, ref, ref_spec = cs.reference_step(
+        cs.TURB3D_STEP_REF, device)
+    state, metrics, _ = cs.captured_step_once(cfg, pde, opt, state, batch)
+    bad = cs.check_step(state, metrics, ref, ref_spec, "", verbose=False,
+                        median_limit=cs.STEP_MEDIAN)
+    assert not bad, bad

@@ -22,7 +22,8 @@ import torch
 
 from space_time_pde_torch.models import ImNet
 from space_time_pde_torch.ops import fused_query as fq
-from test_torch_decode_split import _mm_tf32x3, _tf32, _tile_chain
+from test_torch_decode_split import _tile_chain
+from tf32x3_emulation import _mm_tf32x3, _tf32
 
 F32 = torch.float32
 

@@ -5,7 +5,8 @@ Walks the AST of every ``.py`` under ``space_time_pde_torch/`` plus
 generate_data}_torch.py`` and the port's scripts
 (``scripts/profile_torch_step.py``, ``scripts/time_bf16_{decode,jet}.py``,
 ``scripts/rb2d_stats.py``, ``scripts/f32_{flip_check,decode_emulation}.py``,
-``scripts/train_{curve,from_scratch}.py``).
+``scripts/train_{curve,from_scratch,bf16_products}.py``,
+``scripts/turb3d_grad_attribution.py``).
 (A ``sys.modules`` check cannot work: the test process imports jax for
 the parity tests.) Also holds the port's copies of JAX-free modules (the
 config's fields; the prefetcher, metrics logger, cliff detector and 4-D
@@ -37,7 +38,8 @@ def _port_files():
     files += [os.path.join(ROOT, "scripts", name) for name in (
         "profile_torch_step.py", "time_bf16_decode.py", "time_bf16_jet.py",
         "rb2d_stats.py", "f32_flip_check.py", "f32_decode_emulation.py",
-        "train_curve.py", "train_from_scratch.py")]
+        "train_curve.py", "train_from_scratch.py",
+        "turb3d_grad_attribution.py", "train_bf16_products.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "space_time_pde_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)

@@ -117,6 +117,32 @@ def test_nan_grad_norm_is_reported(tmp_path, capsys):
     assert keys["curve"]["bad"] == [(15, ["train/grad_norm"])]
 
 
+def test_loss_spikes_are_counted_as_events(tmp_path):
+    """Synthetic metrics, one step an epoch: epochs with train/loss above
+    SPIKE_LOSS, consecutive ones one event, for the run and for each
+    reference up to the run's last epoch."""
+    tc = _script("train_curve")
+
+    def write(path, losses):
+        with open(path, "w") as f:
+            for e, loss in enumerate(losses, 1):
+                f.write(json.dumps({"step": e, "train/loss": loss,
+                                    "train/grad_norm": 1.0}) + "\n")
+                f.write(json.dumps({"step": e, "eval/rel_l2": 0.05}) + "\n")
+
+    run, ref = tmp_path / "run" / "metrics.jsonl", \
+        tmp_path / "ref" / "metrics.jsonl"
+    run.parent.mkdir(), ref.parent.mkdir()
+    write(run, [0.9, 0.1, 0.5, 0.31, 0.1, 0.3, 0.2, float("nan"), 0.1])
+    write(ref, [0.1, 0.4, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 7.0])
+    out = tc.main([str(run), "--ref", str(ref), "--steps_per_epoch", "1"])
+    spikes = out["curve"]["spikes"]
+    assert tc.SPIKE_LOSS == 0.3 and spikes["loss_above"] == 0.3
+    assert spikes["run"] == [[1, 1], [3, 4], [8, 8]]
+    assert spikes["to_epoch"] == 9
+    assert spikes["refs"] == {"ref": [[2, 2]]}
+
+
 def _command_flags(recipe_log):
     with open(os.path.join(ROOT, "log", recipe_log, "command.sh")) as f:
         text = f.read().replace("\\\n", " ")

@@ -21,16 +21,30 @@ runs nothing):
     ``--run_epochs N`` and the policy's flags: the same lr schedule, step
     for step, as the JAX run's first N epochs. It prints every skipped
     update and every cliff recovery with its epoch (the CLI's own lines),
-    their counts, the s/step of the epochs after the first and whether
-    the final parameters are finite;
+    their counts, the s/step of each sitting's epochs after its first
+    and whether the final parameters are finite;
 (c) the curve: ``scripts/train_curve.py`` against the JAX runs' metrics
     (r4 and r5 for rb2d, r5 for turb3d). Under ``--policy f32`` its band
     is held (a window outside fails the command); under
     ``use_bf16_pde_bf16`` it is reported, as no JAX run of that policy is
     committed;
-(d) rb2d: the eval CLI's dense eval of the run's newest checkpoint on the
-    val and test seeds, 4 windows each (``--split val|test
-    --eval_windows 4``, the protocol of ``log/r5_rb2d_4x_e900/eval_cpu.log``).
+(d) the eval CLI's dense eval of the run's newest checkpoint on the val
+    and test seeds, 4 windows each (``--split val|test --eval_windows
+    4``, the protocol of ``log/r5_rb2d_4x_e900/eval_cpu.log`` and of
+    ``space_time_pde_torch/assets/r5_turb3d_200x_big_76800_eval_cpu.log``).
+    For turb3d each split's mean rel-L2 is held, once the run has
+    reached the recipe's last epoch, within ``[CURVE_LOW, CURVE_HIGH]``
+    x the JAX model's mean in that log (the curve's band applied to the
+    final model); a shorter run's is reported beside the band.
+
+``--seed N`` overrides the ``command.sh`` seed (the initialisation and
+the batch draws) and names the run ``<recipe>_<policy>_s<N>``; without
+it the run is the recipe's own seed. ``--continue_run`` continues the
+run in its directory from its newest checkpoint for ``--run_epochs``
+more epochs (the train CLI's ``--resume`` of its own checkpoints, which
+draws the batches from the seed's start again), then holds the curve and
+evaluates the whole run: a recipe longer than one sitting is trained in
+several.
 
 Where a held window falls outside the band, two options separate the
 data from the training: ``--data_device cpu`` writes the data with the
@@ -71,14 +85,17 @@ RECIPES = {
         generate="experiments/rb2d/generate_data_torch.py",
         train="experiments/rb2d/train_torch.py",
         evaluate="experiments/rb2d/evaluation_torch.py",
-        test_file="rb2d_ra1e6_s123.npz"),
+        test_file="rb2d_ra1e6_s123.npz", final_eval=None),
     "turb3d": dict(
         command="log/r5_turb3d_200x_big/command.sh",
         refs=("log/r5_turb3d_200x_big/metrics.jsonl",),
         regen="data/regen_beltrami.sh",
         generate="experiments/turb3d/generate_data_torch.py",
         train="experiments/turb3d/train_torch.py",
-        evaluate=None, test_file=None),
+        evaluate="experiments/turb3d/evaluation_torch.py",
+        test_file="beltrami_s123.npz",
+        final_eval="space_time_pde_torch/assets/"
+                   "r5_turb3d_200x_big_76800_eval_cpu.log"),
 }
 POLICIES = {"f32": [],
             "use_bf16_pde_bf16": ["--use_bf16", "true", "--pde_bf16", "true"]}
@@ -138,6 +155,32 @@ def seed_of(name):
     return int(m.group(1))
 
 
+def jax_final_means(path):
+    """{split: mean rel-L2} of a committed JAX eval log (repo-relative):
+    the ``rel_l2 = M (std ...)`` line after each ``split=S:`` line."""
+    means, split = {}, None
+    with open(os.path.join(ROOT, path)) as f:
+        for line in f:
+            m = re.match(r"split=(\w+): evaluating", line)
+            if m:
+                split = m.group(1)
+            m = re.match(r"rel_l2 = ([0-9.]+) \(std", line)
+            if m and split:
+                means[split] = float(m.group(1))
+    return means
+
+
+def final_band(mean, ref, held):
+    """The final model's mean rel-L2 on a split against the JAX model's
+    ``ref``: inside ``[CURVE_LOW x ref, CURVE_HIGH x ref]``, the curve
+    tool's band; ``held`` says whether it counts (a run that reached the
+    recipe's last epoch)."""
+    curve = _module(CURVE)
+    lo, hi = curve.CURVE_LOW * ref, curve.CURVE_HIGH * ref
+    return {"mean": mean, "jax_mean": ref, "band": [lo, hi],
+            "inside": bool(lo <= mean <= hi), "held": held}
+
+
 def plan(args):
     """The stages' command lines: {"data": [(path, argv)], "train":
     (path, argv), "curve": (path, argv), "eval": [(split, path, argv)]},
@@ -148,6 +191,8 @@ def plan(args):
     val_flag = "--val_data" if "--val_data" in jax_args else "--eval_data"
     data_dir = os.path.join(args.work, "data")
     run_dir = os.path.join(args.work, f"{args.recipe}_{args.policy}"
+                           + (f"_s{args.seed}" if args.seed is not None
+                              else "")
                            + ("_cpu_data" if args.data_device == "cpu"
                               else "")
                            + ("_init" if args.init else "")
@@ -163,9 +208,13 @@ def plan(args):
     else:
         files = train_files + [val_file] + (
             [r["test_file"]] if r["test_file"] else [])
+    if args.seed is not None:
+        train = with_flag(train, "--seed", str(args.seed))
     train += ["--run_epochs", str(args.run_epochs)] + POLICIES[args.policy]
     if args.init:
         train += ["--resume", os.path.abspath(args.init)]
+    elif args.continue_run:
+        train += ["--resume", os.path.join(run_dir, "checkpoints")]
     steps = int(flag(train, "--pseudo_epoch_size")) // int(
         flag(train, "--batch_size_per_gpu"))
 
@@ -219,45 +268,52 @@ class _Tee:
 _MODULES = {}
 
 
-def run_cli(path, argv, log_path):
-    """``main(argv)`` of the CLI at ``path`` (repo-relative) in this
-    process, its output printed and appended to ``log_path``: (its
-    return value, the lines it printed)."""
+def _module(path):
+    """The module of the script at ``path`` (repo-relative), loaded once."""
     if path not in _MODULES:
         spec = importlib.util.spec_from_file_location(
             os.path.basename(path)[:-3], os.path.join(ROOT, path))
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         _MODULES[path] = mod
+    return _MODULES[path]
+
+
+def run_cli(path, argv, log_path):
+    """``main(argv)`` of the CLI at ``path`` (repo-relative) in this
+    process, its output printed and appended to ``log_path``: its return
+    value."""
+    mod = _module(path)
     print(f"$ {command_line(path, argv)}", flush=True)
-    start = os.path.getsize(log_path) if os.path.exists(log_path) else 0
     with open(log_path, "a") as log:
         with contextlib.redirect_stdout(_Tee(sys.stdout, log)):
-            out = _MODULES[path].main(argv)
-        log.flush()
-    with open(log_path) as log:
-        log.seek(start)
-        lines = log.read().splitlines()
-    return out, lines
+            return mod.main(argv)
 
 
 SKIP_LINE = re.compile(r"^epoch (\d+): non-finite (.*) — update\(s\) skipped")
 RECOVERY_LINE = re.compile(r"^epoch (\d+): CLIFF RECOVERY — (.*)$")
+RESUME_LINE = re.compile(r"^resumed from step (\d+) ")
 
 
 def train_readings(lines, metrics, steps):
-    """The skipped updates and recoveries the train CLI printed, each
-    with its epoch (0-based, as the CLI prints it), and the s/step of the
-    epochs after the first (``train/sec_per_step`` of metrics.jsonl)."""
+    """The skipped updates and recoveries the train CLI printed in
+    ``lines`` (every sitting of the run), each with its epoch (0-based,
+    as the CLI prints it), and the s/step of each sitting's epochs after
+    its first, which builds and captures (``train/sec_per_step`` of
+    metrics.jsonl; a sitting starts at step 0 or where the CLI printed
+    that it resumed)."""
     skips = [{"epoch": int(m.group(1)), "what": m.group(2)}
              for m in map(SKIP_LINE.match, lines) if m]
     recoveries = [{"epoch": int(m.group(1)), "what": m.group(2)}
                   for m in map(RECOVERY_LINE.match, lines) if m]
+    starts = {0} | {int(m.group(1)) for m in map(RESUME_LINE.match, lines)
+                    if m}
     sps = []
     with open(metrics) as f:
         for line in f:
             rec = json.loads(line)
-            if "train/sec_per_step" in rec and rec["step"] > steps:
+            if "train/sec_per_step" in rec and not any(
+                    s < rec["step"] <= s + steps for s in starts):
                 sps.append(rec["train/sec_per_step"])
     return skips, recoveries, sps
 
@@ -277,6 +333,12 @@ def main(argv=None):
     p.add_argument("--init", default="",
                    help="an exported state to start from (the train CLI's "
                         "--resume), e.g. the JAX run's initial one")
+    p.add_argument("--seed", type=int, default=None,
+                   help="override the command.sh seed (init and batch "
+                        "draws); names the run <recipe>_<policy>_s<N>")
+    p.add_argument("--continue_run", action="store_true",
+                   help="continue the run's directory from its newest "
+                        "checkpoint for --run_epochs more epochs")
     p.add_argument("--smoke", action="store_true",
                    help="the first train seed as train and val data, the "
                         "curve's keys alone, no dense eval")
@@ -287,6 +349,9 @@ def main(argv=None):
         if not args.smoke:
             raise SystemExit("--run_epochs N is needed (N > 0)")
         args.run_epochs = 2
+    if args.continue_run and args.init:
+        raise SystemExit("--continue_run resumes the run's own checkpoints; "
+                         "--init starts a run")
     args.work = os.path.abspath(args.work)
     stages, run_dir, steps = plan(args)
 
@@ -301,14 +366,17 @@ def main(argv=None):
                 "steps_per_epoch": steps}
 
     metrics = os.path.join(run_dir, "metrics.jsonl")
-    if os.path.exists(metrics):
+    if args.continue_run and not os.path.exists(metrics):
+        raise SystemExit(f"{metrics} is not there: no run to continue")
+    if os.path.exists(metrics) and not args.continue_run:
         raise SystemExit(f"{metrics} exists: pick another --work or remove "
                          "the run's directory")
     os.makedirs(run_dir, exist_ok=True)
     log_path = os.path.join(run_dir, "from_scratch.log")
     out = {"recipe": args.recipe, "policy": args.policy,
            "run_epochs": args.run_epochs, "smoke": args.smoke,
-           "steps_per_epoch": steps}
+           "seed": int(flag(stages["train"][1], "--seed")),
+           "continued": args.continue_run, "steps_per_epoch": steps}
 
     # (a) data.
     t0 = time.perf_counter()
@@ -327,8 +395,10 @@ def main(argv=None):
 
     # (b) training.
     t0 = time.perf_counter()
-    res, lines = run_cli(*stages["train"], log_path)
-    skips, recoveries, sps = train_readings(lines, metrics, steps)
+    res = run_cli(*stages["train"], log_path)
+    with open(log_path) as f:
+        skips, recoveries, sps = train_readings(f.read().splitlines(),
+                                                metrics, steps)
     finite = all(bool(v.isfinite().all())
                  for v in res["state"].params().values())
     # Every update the optimizer skipped, as its device counter holds it
@@ -353,26 +423,45 @@ def main(argv=None):
           f"epochs {len(skips)} (updates the optimizer skipped: "
           f"{total_skipped}), recoveries {len(recoveries)}; "
           f"{out['train']['sec_per_step_mean']:.6f} s/step over the "
-          f"{len(sps)} epochs after the first; final parameters finite: "
-          f"{finite}", flush=True)
+          f"{len(sps)} epochs after each sitting's first; final parameters "
+          f"finite: {finite}", flush=True)
     del res
 
     # (c) the curve.
-    curve, _ = run_cli(*stages["curve"], log_path)
+    curve = run_cli(*stages["curve"], log_path)
     out["curve"] = curve["curve"]
     # No JAX run of the bf16 policy is committed: its band is reported.
     enforced = args.smoke or args.policy == "f32"
 
-    # (d) the dense eval.
+    # (d) the dense eval; the final model's band counts once the run has
+    # reached the recipe's last epoch.
+    final = RECIPES[args.recipe]["final_eval"]
+    refs = jax_final_means(final) if final else {}
+    epochs = int(flag(stages["train"][1], "--epochs"))
+    whole = out["train"]["step"] == epochs * steps
     out["eval"] = {}
     for split, path, a in stages["eval"]:
-        res, _ = run_cli(path, a, log_path)
-        out["eval"][split] = {"rel_l2": [float(v) for v in res["rel_l2"]]}
-        print(f"from_scratch dense eval, {split}: rel_l2 "
-              + " / ".join(f"{v:.5f}" for v in res["rel_l2"])
-              + f" (mean {np.mean(res['rel_l2']):.5f})", flush=True)
+        res = run_cli(path, a, log_path)
+        vals = [float(v) for v in res["rel_l2"]]
+        rec = {"rel_l2": vals}
+        line = (f"from_scratch dense eval, {split}: rel_l2 "
+                + " / ".join(f"{v:.5f}" for v in vals)
+                + f" (mean {np.mean(vals):.5f})")
+        if split in refs:
+            rec.update(final_band(float(np.mean(vals)), refs[split], whole))
+            line += (f"; JAX model {rec['jax_mean']:.5f}, band "
+                     f"[{rec['band'][0]:.5f}, {rec['band'][1]:.5f}]: "
+                     + ("inside" if rec["inside"] else "OUTSIDE")
+                     + (" (held)" if whole else
+                        f" (reported: the run stops at step "
+                        f"{out['train']['step']} of {epochs * steps})"))
+        out["eval"][split] = rec
+        print(line, flush=True)
+    final_ok = all(r["inside"] for r in out["eval"].values()
+                   if r.get("held"))
 
-    out["ok"] = bool(finite and (out["curve"]["ok"] or not enforced))
+    out["ok"] = bool(finite and final_ok
+                     and (out["curve"]["ok"] or not enforced))
     print(f"from_scratch: curve "
           + ("keys only" if args.smoke else "held" if enforced else
              "reported, not held") + f", ok {out['ok']}", flush=True)

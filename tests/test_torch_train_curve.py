@@ -153,8 +153,7 @@ def _command_flags(recipe_log):
 @pytest.mark.parametrize("policy", ["f32", "use_bf16_pde_bf16"])
 @pytest.mark.parametrize("recipe,recipe_log,seeds", [
     ("rb2d", "r5_rb2d_4x_e900", {42, 100, 101, 102, 7, 123}),
-    ("turb3d", "r5_turb3d_200x_big",
-     {42, 7} | set(range(100, 300)) - {123})])
+    ("turb3d", "r5_turb3d_200x_big", {42, 7} | set(range(100, 300)))])
 def test_dry_run_carries_every_flag_of_command_sh(tmp_path, recipe,
                                                   recipe_log, seeds, policy):
     tfs = _script("train_from_scratch")
@@ -179,10 +178,80 @@ def test_dry_run_carries_every_flag_of_command_sh(tmp_path, recipe,
         _, regen = out["stages"]["data"][0]
         assert regen[:8] == ["--nx", "512", "--nz", "128", "--rayleigh",
                              "1e6", "--n_snapshots", "200"]
-        assert [a[a.index("--split") + 1]
-                for _, _, a in out["stages"]["eval"]] == ["val", "test"]
-    else:
-        assert out["stages"]["eval"] == []
+    assert [a[a.index("--split") + 1]
+            for _, _, a in out["stages"]["eval"]] == ["val", "test"]
+
+
+def test_turb3d_dry_run_prints_the_dense_eval_of_both_splits(tmp_path,
+                                                             capsys):
+    """Stage (d) of ``--recipe turb3d``: the turb3d eval CLI on the run's
+    checkpoints, val and test, 4 windows each (the protocol of the
+    committed JAX eval log); the data stage makes the test seed 123 with
+    ``regen_beltrami.sh``'s flags, as every other seed."""
+    tfs = _script("train_from_scratch")
+    work = str(tmp_path / "w")
+    out = tfs.main(["--recipe", "turb3d", "--run_epochs", "150", "--work",
+                    work, "--dry_run"])
+    printed = capsys.readouterr().out.splitlines()
+    run = out["run_dir"]
+    for split in ("val", "test"):
+        want = ("python experiments/turb3d/evaluation_torch.py --ckpt "
+                f"{run}/checkpoints --data_folder {work}/data --split "
+                f"{split} --eval_windows 4 --save_path {run}/eval_{split}.npz")
+        assert want in printed
+    with open(os.path.join(ROOT, tfs.RECIPES["turb3d"]["final_eval"])) as f:
+        protocol = f.readlines()[1]
+    assert "--split SPLIT --eval_windows 4" in protocol
+    regen = tfs.without_flags(tfs.script_args(
+        "data/regen_beltrami.sh", "generate_data.py"), ("--seed", "--out"))
+    made = {int(a[a.index("--seed") + 1]): a for _, a in out["stages"]["data"]}
+    assert made[123] == regen + ["--seed", "123", "--out",
+                                 os.path.join(work, "data",
+                                              "beltrami_s123.npz")]
+    assert all(a[:len(regen)] == regen for a in made.values())
+
+
+def test_seed_reaches_the_train_cli_and_names_the_run(tmp_path):
+    tfs = _script("train_from_scratch")
+    work = str(tmp_path / "w")
+    out = tfs.main(["--recipe", "turb3d", "--run_epochs", "45", "--work",
+                    work, "--seed", "43", "--dry_run"])
+    _, argv = out["stages"]["train"]
+    assert argv.count("--seed") == 1
+    assert argv[argv.index("--seed") + 1] == "43"
+    assert out["run_dir"] == os.path.join(work, "turb3d_f32_s43")
+    assert argv[argv.index("--log_dir") + 1] == out["run_dir"]
+    plain = tfs.main(["--recipe", "turb3d", "--run_epochs", "45", "--work",
+                      work, "--dry_run"])
+    _, argv = plain["stages"]["train"]
+    assert argv[argv.index("--seed") + 1] == "42"
+    assert plain["run_dir"] == os.path.join(work, "turb3d_f32")
+    cont = tfs.main(["--recipe", "turb3d", "--run_epochs", "75", "--work",
+                     work, "--seed", "42", "--continue_run", "--dry_run"])
+    _, argv = cont["stages"]["train"]
+    assert argv[argv.index("--resume") + 1] == os.path.join(
+        cont["run_dir"], "checkpoints")
+    with pytest.raises(SystemExit, match="--init starts a run"):
+        tfs.main(["--recipe", "turb3d", "--run_epochs", "1", "--work", work,
+                  "--continue_run", "--init", "x.npz", "--dry_run"])
+
+
+def test_scaled_final_eval_fails_the_band():
+    """The final model's band: each split's mean within [CURVE_LOW,
+    CURVE_HIGH] x the JAX model's mean in the committed eval log (val
+    0.00607, test 0.00722); held only once the run reached the recipe's
+    last epoch."""
+    tfs = _script("train_from_scratch")
+    refs = tfs.jax_final_means(tfs.RECIPES["turb3d"]["final_eval"])
+    assert refs == {"val": 0.00607, "test": 0.00722}
+    for split, ref in refs.items():
+        band = tfs.final_band(ref, ref, True)
+        assert band["inside"] and band["band"] == pytest.approx(
+            [0.8 * ref, 1.25 * ref])
+        scaled = tfs.final_band(1.5 * ref, ref, True)
+        assert not scaled["inside"] and scaled["held"]
+        assert not tfs.final_band(0.75 * ref, ref, True)["inside"]
+        assert not tfs.final_band(1.5 * ref, ref, False)["held"]
 
 
 TINY_COMMAND = """cd /somewhere
@@ -250,6 +319,10 @@ def test_train_readings_parse_the_cli_lines(tmp_path):
     assert [r["epoch"] for r in recoveries] == [5]
     assert "loss explosion" in recoveries[0]["what"]
     assert sps == [0.25, 0.5]
+    # A run continued from step 8: its sitting's first epoch (step 12)
+    # builds and captures again, and is left out as the run's first is.
+    resumed = lines + ["resumed from step 8 (epoch 2)"]
+    assert tfs.train_readings(resumed, metrics, 4)[2] == [0.25]
 
 
 def test_turb3d_run_epochs_keeps_the_schedule(tmp_path):

@@ -36,9 +36,15 @@ both packages. The provenance line names the policy and the jet's
 dtype.
 
 ``--profile_epoch N`` writes a ``torch.profiler`` trace of epoch N to
-``<log_dir>/profile/`` (Chrome trace JSON); ``--debug_nans`` checks the
-loss terms and the gradients of every step and raises
-``FloatingPointError`` naming the first non-finite one.
+``<log_dir>/profile/`` (Chrome trace JSON). In a single-process run it
+also turns the port's spans on (``space_time_pde_torch/utils/tracing.py``)
+before the first dispatch, so the graph a card captures holds their CUDA
+events and the trace of a dispatch that runs host code (on the CPU, or
+epoch 0's warm-up and capture) their ranges; after epoch N it prints
+each span's device ms a step, from the epoch's last dispatch, and logs
+them as ``profile/<span>_ms``. ``--debug_nans`` checks the loss terms
+and the gradients of every step and raises ``FloatingPointError``
+naming the first non-finite one.
 
 On a card a single-process run dispatches its ``--inner_steps`` steps as
 one CUDA graph (``train/trainer.py::CapturedStep``, the counterpart of
@@ -82,6 +88,7 @@ from space_time_pde_torch.physics.systems import (
 from space_time_pde_torch.train import (
     CliffDetector, build_models, init_state, jet_compute_dtype, make_eval_fn,
     make_loss_fn, make_optimizer)
+from space_time_pde_torch.utils import tracing
 from space_time_pde_torch.utils.checkpoint import CheckpointManager, resume
 from space_time_pde_torch.utils.config import add_args, config_from_args
 from space_time_pde_torch.utils.logging import MetricsLogger
@@ -172,7 +179,8 @@ def main(argv=None):
                              "--epochs)")
     parser.add_argument("--profile_epoch", type=int, default=-1,
                         help="epoch to write a torch.profiler trace of, "
-                             "under <log_dir>/profile")
+                             "under <log_dir>/profile, and to print and "
+                             "log the spans' device ms a step of")
     parser.add_argument("--debug_nans", action="store_true",
                         help="check every step's loss terms and gradients; "
                              "raise naming the first non-finite one")
@@ -300,6 +308,8 @@ def main(argv=None):
     lr_scale = 1.0
     cliff = CliffDetector() if cfg.train.cliff_recovery else None
     history = []
+    if args.profile_epoch >= start_epoch and not layout.launched:
+        tracing.enable()
     try:
         last = cfg.train.epochs
         if args.run_epochs > 0:
@@ -314,6 +324,18 @@ def main(argv=None):
                     state, metrics = step_fn(state,
                                              upload(prefetcher.get()))
                 sync()
+            if epoch == args.profile_epoch and tracing.enabled():
+                tracing.disable()
+                spans = tracing.device_ms()
+                steps = spans.get("step", (0.0, 1))[1]
+                per_step = {k: v / steps for k, (v, _) in spans.items()}
+                if layout.is_main:
+                    logger.log(state.step, {f"{k}_ms": v for k, v in
+                                            per_step.items()},
+                               prefix="profile/")
+                    print(f"epoch {epoch}: device ms a step: " + " ".join(
+                        f"{k}={v:.3f}" for k, v in per_step.items()),
+                        flush=True)
             metrics = {k: float(v) for k, v in metrics.items()}
             recover_reason = None
             epoch_healthy = all(np.isfinite(v) for v in metrics.values())

@@ -24,6 +24,7 @@ import torch
 
 from space_time_pde_torch.ops.grid_interp import (
     _locate, _strides, corner_offsets)
+from space_time_pde_torch.utils import tracing
 
 __all__ = ["DeviceSampler"]
 
@@ -152,7 +153,8 @@ class DeviceSampler:
         "point_coord"}`` batches (assembled here, on the device)."""
 
         def loss2(raw):
-            return loss_fn(self.batch_fn(raw["origins"],
-                                         raw["point_coord"]))
+            with tracing.span("batch"):
+                batch = self.batch_fn(raw["origins"], raw["point_coord"])
+            return loss_fn(batch)
 
         return loss2

@@ -5,17 +5,23 @@ JAX package's ``data/__init__`` imports jax, so the port carries its
 own). A background thread keeps a small queue of ready numpy batches
 while the device steps: no pickling, no fork, deterministic PRNG
 threading (one thread draws in order).
+
+:class:`CountingPrefetcher`, the port's own, also counts its ``gets``,
+the ``stalls`` among them (a get that found the queue empty) and
+``wait_s``, the seconds blocked in those: always on, the clock read only
+on the empty-queue path.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Dict
 
 import numpy as np
 
-__all__ = ["BatchPrefetcher"]
+__all__ = ["BatchPrefetcher", "CountingPrefetcher"]
 
 
 class BatchPrefetcher:
@@ -77,3 +83,27 @@ class BatchPrefetcher:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+class CountingPrefetcher(BatchPrefetcher):
+    """A :class:`BatchPrefetcher` that counts its gets, its stalls and the
+    seconds it waited in them."""
+
+    def __init__(self, make_batch: Callable[[], Dict[str, np.ndarray]],
+                 depth: int = 4):
+        self.gets, self.stalls, self.wait_s = 0, 0, 0.0
+        super().__init__(make_batch, depth)
+
+    def get(self) -> Dict[str, np.ndarray]:
+        self.gets += 1
+        if self._exc is None:
+            try:
+                return self._q.get_nowait()
+            except queue.Empty:
+                pass
+        self.stalls += 1
+        t0 = time.perf_counter()
+        try:
+            return super().get()
+        finally:
+            self.wait_s += time.perf_counter() - t0

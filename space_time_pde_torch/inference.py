@@ -35,6 +35,7 @@ from space_time_pde_torch.ops.fused_query import (
     _flat_cells, block_points, cell_major_features, decode_blend_gather,
     decode_tiles, pack_imnet_params)
 from space_time_pde_torch.ops.grid_interp import _locate
+from space_time_pde_torch.utils import tracing
 
 # The eval CLIs' --matmul_precision -> TF32 for the encoder. "default"
 # keeps the port's f32 encoder (the JAX-CPU reference's arithmetic);
@@ -198,8 +199,9 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536,
     live intermediate memory). What does not change between windows is
     done here, once: the ImNet weights are packed, and every lattice
     point's flat cell id and in-cell fraction are located on the
-    UNet's latent grid. Per window the UNet encodes, the cell-major
-    latent table is built once, and each chunk decodes through
+    UNet's latent grid. Per window the UNet encodes (the span
+    ``decode.encode`` of ``utils/tracing.py``, a window a dispatch), the
+    cell-major latent table is built once, and each chunk decodes through
     ``decode_blend_gather`` (the corner gather runs inside the kernel).
     ``tf32_encoder``: the UNet's convolutions and matrix products in TF32
     (the eval CLIs' ``--matmul_precision tensorfloat32``); TF32 is off
@@ -235,7 +237,7 @@ def make_dense_decoder(unet, imnet, out_shape, chunk=65536,
     @torch.no_grad()
     def decode(lres):
         lres = torch.as_tensor(lres, dtype=torch.float32, device=device)
-        with tf32(tf32_encoder):
+        with tf32(tf32_encoder), tracing.span("decode.encode"):
             latent = unet(lres[None])[0]
         table = cell_major_features(latent.to(compute_dtype)).contiguous()
         out = torch.cat([decode_blend_gather(table, cf, fr, packed,

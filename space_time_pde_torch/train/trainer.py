@@ -15,6 +15,12 @@ nested ``torch.func.jvp`` towers through the query. The jets need a
 piecewise-linear activation and derivatives of order <= 2; otherwise
 the towers run.
 
+The step's layers are the spans of ``utils/tracing.py`` (off by
+default): ``step`` around each optimizer step, ``encode``, ``jet_fwd``
+and ``pde`` in the loss, the backward as ``backward.pde`` handed over to
+``backward.jet`` and ``backward.encode`` by hooks on the jet's outputs
+and the latent, and ``optim``.
+
 A step is ``backward`` and an in-place optimizer update whose decisions
 are device-side selects (``train/optim.py``); ``make_multi_step`` runs
 ``n_inner`` of them over batches stacked on a leading axis. Run from
@@ -66,6 +72,7 @@ from space_time_pde_torch.ops.fused_query import (
     fused_query_local_implicit_grid)
 from space_time_pde_torch.ops.jet import query_local_implicit_grid_jet
 from space_time_pde_torch.train.optim import Optimizer
+from space_time_pde_torch.utils import tracing
 
 __all__ = ["CapturedStep", "TrainState", "build_models", "flax_init_",
            "init_state", "jet_compute_dtype", "make_loss_fn",
@@ -250,34 +257,42 @@ def make_loss_fn(cfg, unet: nn.Module, imnet: ImNet, pde_layer):
     def loss_fn(batch):
         coords = batch["point_coord"]
         unet.train()
-        latent = unet(batch["lres"])
+        with tracing.span("encode"):
+            latent = unet(batch["lres"])
 
         def fwd(pts):
             return query_local_implicit_grid(imnet, latent, pts)
 
-        if use_fused_jet:
-            pred, jac, hess = fused_query_jet(imnet, latent, coords,
-                                              compute_dtype=jet_dtype)
-        elif use_jet:
-            # At f32 the latent keeps its type (a float64 model's
-            # recomputation stays float64).
-            pred, jac, hess = query_local_implicit_grid_jet(
-                jet_imnet, latent if jet_dtype == torch.float32
-                else latent.to(jet_dtype), coords)
-        else:
-            pred = fwd(coords)
-        reg = _reg_loss(kind, pred, batch["point_value"])
-        metrics = {"reg_loss": reg}
-        if pde_layer is not None and alpha > 0:
-            pde_total, per_eq = pde_layer.residual_loss(
-                coords, fwd=fwd, jet=(pred, jac, hess) if use_jet else None,
-                kind=pde_kind)
-            metrics["pde_loss"] = pde_total
-            for n, v in per_eq.items():
-                metrics[f"pde/{n}"] = v
-            loss = reg + alpha * pde_total
-        else:
-            loss = reg
+        with tracing.span("jet_fwd"):
+            if use_fused_jet:
+                pred, jac, hess = fused_query_jet(imnet, latent, coords,
+                                                  compute_dtype=jet_dtype)
+            elif use_jet:
+                # At f32 the latent keeps its type (a float64 model's
+                # recomputation stays float64).
+                pred, jac, hess = query_local_implicit_grid_jet(
+                    jet_imnet, latent if jet_dtype == torch.float32
+                    else latent.to(jet_dtype), coords)
+            else:
+                pred = fwd(coords)
+        # The backward's spans hand over where these gradients are done.
+        tracing.hand_over((pred, jac, hess) if use_jet else (pred,),
+                          "backward.pde", "backward.jet")
+        tracing.hand_over((latent,), "backward.jet", "backward.encode")
+        with tracing.span("pde"):
+            reg = _reg_loss(kind, pred, batch["point_value"])
+            metrics = {"reg_loss": reg}
+            if pde_layer is not None and alpha > 0:
+                pde_total, per_eq = pde_layer.residual_loss(
+                    coords, fwd=fwd,
+                    jet=(pred, jac, hess) if use_jet else None,
+                    kind=pde_kind)
+                metrics["pde_loss"] = pde_total
+                for n, v in per_eq.items():
+                    metrics[f"pde/{n}"] = v
+                loss = reg + alpha * pde_total
+            else:
+                loss = reg
         metrics["loss"] = loss
         return loss, metrics
 
@@ -330,7 +345,7 @@ def make_train_step(loss_fn, opt: Optimizer, debug_nans: bool = False,
     backward (``parallel/dp.py::make_grad_sync``); the optimizer sees
     the reduced gradients."""
 
-    def step(state: TrainState, batch):
+    def body(state: TrainState, batch):
         params = state.params()
         for p in params.values():
             p.grad = None
@@ -340,7 +355,10 @@ def make_train_step(loss_fn, opt: Optimizer, debug_nans: bool = False,
             if bad:
                 raise FloatingPointError(
                     f"non-finite loss term {bad!r} at step {state.step}")
-            loss.backward()
+            # Handed over to backward.jet and backward.encode by the
+            # loss's hooks.
+            with tracing.span("backward.pde"):
+                loss.backward()
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in params.items()}
         if sync is not None:
@@ -351,9 +369,14 @@ def make_train_step(loss_fn, opt: Optimizer, debug_nans: bool = False,
         if bad:
             raise FloatingPointError(
                 f"non-finite gradient of {bad!r} at step {state.step}")
-        metrics["grad_norm"] = opt.step(params, grads, state.opt_state)
+        with tracing.span("optim"):
+            metrics["grad_norm"] = opt.step(params, grads, state.opt_state)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
+
+    def step(state: TrainState, batch):
+        with tracing.scope(), tracing.span("step"):
+            return body(state, batch)
 
     return step
 
@@ -367,9 +390,10 @@ def make_multi_step(loss_fn, opt: Optimizer, n_inner: int,
 
     def step(state: TrainState, stacked_batch):
         metrics = {}
-        for g in range(n_inner):
-            state, metrics = one(state, {k: v[g] for k, v in
-                                         stacked_batch.items()})
+        with tracing.scope():
+            for g in range(n_inner):
+                state, metrics = one(state, {k: v[g] for k, v in
+                                             stacked_batch.items()})
         return state, metrics
 
     return step
@@ -400,7 +424,12 @@ class CapturedStep:
     (``utils/constants.py::device_constant``); parameters, buffers and
     the device sampler's field written in place by restores and
     refreshes; the gradients (``p.grad``), the metrics and every
-    temporary live in the graph's pool. A capture that fails raises."""
+    temporary live in the graph's pool. A capture that fails raises.
+
+    While tracing is on (``utils/tracing.py``), the warm-up and the
+    capture are a dispatch each, and the graph holds the spans' CUDA
+    events: every replay times them again. Replays run no host code and
+    open no span."""
 
     def __init__(self, loss_fn, opt: Optimizer, n_inner: int, device):
         self.device = torch.device(device)
@@ -456,12 +485,13 @@ class CapturedStep:
         if self.dispatches == 1:        # the warm-up
             side = self._stream
             side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), tracing.scope():
                 state, metrics = self._step(state, self.static)
             torch.cuda.current_stream(self.device).wait_stream(side)
             return state, metrics
         if self.graph is None:
-            self._capture(state)
+            with tracing.scope():
+                self._capture(state)
         self.graph.replay()
         for k, n in self.recorded.items():
             REPLAYED[k] += n

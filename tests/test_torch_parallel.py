@@ -8,13 +8,11 @@
   (tests/test_parallel.py: rtol 1e-4, atol 1e-6);
 - BatchNorm with its statistics synced over the 2 ranks against the
   single-process BatchNorm step on the whole batch;
-- ``replicate_state``: ranks that start apart end equal;
+- ``replicate_state``: ranks that start apart end equal.
 
-and ``utils/timing.py`` on the CPU. One 2-rank world
-(``tests/torch_ranks.py::target_dp``) runs the port's side.
+One 2-rank world (``tests/torch_ranks.py::target_dp``) runs the port's
+side.
 """
-
-import time
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +25,6 @@ from space_time_pde_torch.bridge import flatten_tree, load_flax_params
 from space_time_pde_torch.train import build_models as tbuild_models
 from space_time_pde_torch.train import make_loss_fn as tmake_loss_fn
 from space_time_pde_torch.utils.config import Config as TConfig
-from space_time_pde_torch.utils.timing import Timer, throughput
 from space_time_pde_tpu.data import RB2DataLoader, save_npz, \
     taylor_green_fields
 from space_time_pde_tpu.parallel import (
@@ -183,14 +180,3 @@ def test_replicate_state_broadcasts_rank0(world):
                                   outs[0]["replicated"])
     assert int(outs[0]["replicated_count"]) == \
         int(outs[1]["replicated_count"]) == 7
-
-
-def test_timer_and_throughput_on_cpu():
-    with Timer(torch.zeros(3)) as t:
-        time.sleep(0.01)
-    assert t.seconds >= 0.01 and t.device_seconds is None
-    calls = []
-    dt, out = throughput(lambda a: calls.append(a) or a + 1,
-                         torch.ones(2), iters=5, warmup=2)
-    assert len(calls) == 7 and dt >= 0.0
-    torch.testing.assert_close(out, torch.full((2,), 2.0))

@@ -89,6 +89,35 @@ def test_host_pipeline_and_config_errors(tmp_path):
         train_torch.main(_flags(tmp_path, "--velonly", "true"))
 
 
+def test_profile_epoch_logs_the_spans(tmp_path, capsys):
+    """--profile_epoch 0 turns the port's spans on before the first
+    dispatch: after epoch 0 the CLI prints and logs each span's device ms
+    a step (on the CPU, the host's) as ``profile/<span>_ms``, and turns
+    them off again."""
+    from space_time_pde_torch.utils import tracing
+
+    save_npz(str(tmp_path / "tg.npz"),
+             taylor_green_fields(nt=10, nz=16, nx=16))
+    train_torch = _driver()
+    train_torch.main(_flags(tmp_path, "--epochs", "2",
+                            "--profile_epoch", "0"))
+    assert not tracing.enabled()
+    with open(tmp_path / "log" / "metrics.jsonl") as f:
+        logged = [json.loads(line) for line in f]
+    profile = [r for r in logged if any(k.startswith("profile/") for k in r)]
+    assert len(profile) == 1 and profile[0]["step"] == 4
+    names = ("step", "batch", "encode", "jet_fwd", "pde", "backward.pde",
+             "backward.jet", "backward.encode", "optim")
+    assert sorted(k for k in profile[0] if k.startswith("profile/")) == \
+        sorted(f"profile/{n}_ms" for n in names)
+    assert all(profile[0][f"profile/{n}_ms"] >= 0 for n in names)
+    assert profile[0]["profile/step_ms"] >= sum(
+        profile[0][f"profile/{n}_ms"] for n in names[1:])
+    out = capsys.readouterr().out
+    assert "epoch 0: device ms a step: step=" in out
+    assert "torch.profiler trace of epoch_0" in out
+
+
 def test_profile_epoch_and_debug_nans(tmp_path, capsys):
     """--profile_epoch writes a torch.profiler trace of that epoch;
     --debug_nans stops at the first step with a non-finite loss term
